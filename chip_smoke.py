@@ -14,10 +14,21 @@ vocab 129024, random weights from a seed):
   int4, group 128) -> pack in memory -> static greedy decode (4 prompts of
   128 tokens, 32 new tokens each)
 
-once through the kernels and once through their plain versions, and checks
-that the kernel path launched every kernel, that its outputs are finite and
-well-formed, that both compressions agree to the repo's parity bars, and
-that both paths give the same greedy tokens.
+through the kernels, with each kernel's launch count set to 0 just before
+and read just after, and checks that every kernel was launched and that
+the outputs are finite and well-formed. The same path through the kernels'
+plain versions is timed beside it and held to the repo's parity bars. This
+first process, with every time in its JSON line, runs cuBLAS in its
+default configuration, as the port's CLIs do.
+
+cuBLAS splits K for short products (measured on the H100: 256-, 512- and
+1024-row f32 products), so the plain K1 sums each output in another order
+than the kernel's one FMA chain, and PGD turns those last-ulp differences
+into code and mask flips. A second process (``chip_smoke.py --parity``,
+started by the first) therefore runs both paths again with
+``CUBLAS_WORKSPACE_CONFIG=:0:0``: with no workspace cuBLAS cannot split, so
+every product sums in K1's order, and there the kernels' path must equal
+the plain one — same iteration counts, same greedy tokens.
 
 Exits non-zero on any failed check, without a CUDA card, and outside a
 checkout of the repository. Prints the card, a JSON line of per-kernel
@@ -34,14 +45,8 @@ import sys
 import time
 from pathlib import Path
 
-# cuBLAS splits K across blocks for short products (measured on the H100:
-# 256-, 512- and 1024-row f32 products), which reorders the f32 sums. With
-# no workspace it cannot, so every product sums each output in one
-# sequential FMA chain — K1's order — and the plain path compresses to the
-# same bits as the kernel path instead of drifting by code flips. Set
-# before torch creates its cuBLAS handle; the plain versions' times below
-# are taken under it too.
-os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":0:0"
+PARITY = "--parity"
+UNSPLIT_CUBLAS = ":0:0"   # no cuBLAS workspace: no split-K
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -165,8 +170,9 @@ def phase_kernels(torch, dev):
     rows = {}   # kernel -> representative (main-path) measurement
 
     # -- K1: Z = Θ + η(W−Θ)C at the four linear shapes, and a batch of 3 --
-    # both sum each output in one sequential FMA chain (bit-equal, measured);
-    # the tolerance, 1e-5 of max|Z|, would admit another summation order
+    # cuBLAS (the plain version) may split K into partial sums, another
+    # order than the kernel's one FMA chain an output; the tolerance, 1e-5
+    # of max|Z|, admits that
     k1_err = 0.0
     for b, m, k in ((None, 2048, 2048), (None, 512, 2048), (None, 8192, 2048),
                     (None, 2048, 8192), (3, 512, 2048)):
@@ -176,9 +182,8 @@ def phase_kernels(torch, dev):
         # the prune recipe's η = 2/‖C‖_F: not a power of two, so a fused
         # multiply-add in the epilogue would show
         eta = 2.0 / torch.linalg.matrix_norm(c)
-        z, nrm = ops.awp_pgd_step(w, theta, c, eta, with_resid_norm=True)
-        z_ref, nrm_ref = ref.awp_pgd_step(w, theta, c, eta,
-                                          with_resid_norm=True)
+        z, nrm = ops.awp_pgd_step(w, theta, c, eta)
+        z_ref, nrm_ref = ref.awp_pgd_step(w, theta, c, eta)
         err = float((z - z_ref).abs().max())
         scale = float(z_ref.abs().max())
         nerr = float(((nrm - nrm_ref).abs() / nrm_ref).max())
@@ -187,10 +192,9 @@ def phase_kernels(torch, dev):
               f"norm rel err {nerr:.3e}")
         k1_err = max(k1_err, err)
         nb = b or 1
-        ms = time_ms(torch, lambda i: ops.awp_pgd_step(
-            w, theta, c, eta, with_resid_norm=True), 5)
-        plain = time_ms(torch, lambda i: ref.awp_pgd_step(
-            w, theta, c, eta, with_resid_norm=True), 5)
+        ms = time_ms(torch, lambda i: ops.awp_pgd_step(w, theta, c, eta), 5)
+        plain = time_ms(torch, lambda i: ref.awp_pgd_step(w, theta, c, eta),
+                        5)
         bnd, by = bound_ms(2.0 * nb * m * k * k,
                            4.0 * nb * (3 * m * k + k * k))
         lib_ms = None
@@ -320,16 +324,11 @@ def run_path(torch, dev, model, params, calib, prompts, label):
     return report, packed, logits, tokens
 
 
-def phase_main_path(torch, dev, cfg):
-    """Drive the main path through the kernels (launch counts set to 0
-    just before and read just after), then through the plain versions,
-    and hold the two against each other. Returns the kernels' counts."""
-    import numpy as np
-    from repro_torch import kernels
+def setup(torch, dev, cfg):
+    """Random full-width model from the seed, calibration batches and
+    prompts."""
     from repro_torch.data import DataConfig, ZipfMarkov, calibration_batches
-    from repro_torch.kernels import ops
     from repro_torch.models import build_model
-    from repro_torch.quant import QTensor
 
     model = build_model(cfg)
     params = model.init(SEED, device=dev)
@@ -344,28 +343,45 @@ def phase_main_path(torch, dev, cfg):
     prompts, _ = ZipfMarkov(DataConfig(vocab_size=cfg.vocab_size,
                                        seq_len=PROMPT_LEN,
                                        global_batch=BATCH)).batch(0)
+    return model, params, calib, prompts
 
-    # -- the main path through the kernels: counts from 0, read right after
+
+def both_paths(torch, dev, cfg, tag):
+    """The main path through the kernels (launch counts set to 0 just
+    before and read just after), then through the plain versions. Returns
+    the kernels' counts and both runs' outputs."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+
+    model, params, calib, prompts = setup(torch, dev, cfg)
     ops.reset_launches()
-    rep_k, packed_k, logits_k, tok_k = run_path(torch, dev, model, params,
-                                                calib, prompts, "kernels")
+    out_k = run_path(torch, dev, model, params, calib, prompts,
+                     f"{tag}kernels")
     launches = dict(ops.LAUNCHES)
-    log(f"[kernels] launches on the main path: {launches}")
+    log(f"[{tag}kernels] launches on the main path: {launches}")
     for name in KERNELS:
         check(launches[name] > 0, f"{name} was not launched on the main path")
 
-    # -- the same path through the plain versions
     ops.reset_launches()
-    with kernels.plain_versions():
-        rep_p, packed_p, logits_p, tok_p = run_path(torch, dev, model, params,
-                                                    calib, prompts, "plain")
-    log(f"[plain] launches: {dict(ops.LAUNCHES)}")
+    with kernels.use_impl("reference"):
+        out_p = run_path(torch, dev, model, params, calib, prompts,
+                         f"{tag}plain")
+    log(f"[{tag}plain] launches: {dict(ops.LAUNCHES)}")
     check(not any(ops.LAUNCHES.values()), "the plain run launched a kernel")
+    return launches, model, prompts, out_k, out_p
 
-    # -- compression report: per layer, both runs, held to the repo's bars
-    # (tests/test_torch_compress.py): loss within 1e-5, iteration counts
-    # equal, masks and codes equal on >= 99.9% of entries
-    max_dloss, min_agree = 0.0, 1.0
+
+def compare(torch, dev, cfg, model, prompts, out_k, out_p, tag, exact):
+    """Both runs' outputs well-formed and held to the repo's parity bars
+    (tests/test_torch_compress.py): per-layer loss within 1e-5, masks and
+    codes equal on >= 99.9% of entries. With ``exact`` also equal
+    iteration counts and greedy tokens; without, those are only shown."""
+    import numpy as np
+    from repro_torch.quant import QTensor
+
+    rep_k, packed_k, logits_k, tok_k = out_k
+    rep_p, packed_p, logits_p, tok_p = out_p
+    max_dloss, min_agree, iters_differ = 0.0, 1.0, 0
     for r_k, r_p in zip(rep_k, rep_p):
         res_k = rep_k.artifacts[r_k.qualname].result
         res_p = rep_p.artifacts[r_p.qualname].result
@@ -374,7 +390,7 @@ def phase_main_path(torch, dev, cfg):
         else:
             same = torch.from_numpy(res_k.mask == res_p.mask)
         agree = float(same.float().mean())
-        log(f"[layer] {r_k.qualname:18s} {r_k.method:9s} loss "
+        log(f"[{tag}layer] {r_k.qualname:18s} {r_k.method:9s} loss "
             f"{r_k.loss_after:.6f}/{r_p.loss_after:.6f} iters "
             f"{res_k.iters}/{res_p.iters} sparsity {r_k.sparsity:.4f} "
             f"{'codes' if res_k.qtensor is not None else 'mask'} differ "
@@ -384,23 +400,23 @@ def phase_main_path(torch, dev, cfg):
                   f"{r.qualname}: loss {r.loss_after}")
             if r.method == "awp_prune":
                 check(r.sparsity == 0.5, f"{r.qualname}: sparsity {r.sparsity}")
-        check(res_k.iters == res_p.iters, f"{r_k.qualname}: iteration counts")
+        iters_differ += res_k.iters != res_p.iters
         max_dloss = max(max_dloss, abs(r_k.loss_after - r_p.loss_after))
         min_agree = min(min_agree, agree)
     check(len(rep_k) == len(rep_p) == 7 * cfg.num_layers, "layer count")
-    log(f"[compress] {len(rep_k)} layers; max |loss kernels - loss plain| "
-        f"{max_dloss:.3e}; least share of equal codes/mask entries "
-        f"{min_agree:.6f}; mean loss {rep_k.mean_loss():.6f} / "
-        f"{rep_p.mean_loss():.6f}")
+    log(f"[{tag}compress] {len(rep_k)} layers; max |loss kernels - loss "
+        f"plain| {max_dloss:.3e}; least share of equal codes/mask entries "
+        f"{min_agree:.6f}; layers with other iteration counts {iters_differ}; "
+        f"mean loss {rep_k.mean_loss():.6f} / {rep_p.mean_loss():.6f}")
     check(max_dloss <= 1e-5 and min_agree >= 0.999,
           "the two compressions differ beyond the repo's bars")
+    check(not exact or iters_differ == 0, "iteration counts differ")
     packed_leaves = [n for n, g in (("wq", "attn"), ("wk", "attn"),
                                     ("wv", "attn"), ("wg", "mlp"),
                                     ("wu", "mlp"), ("wd", "mlp"))
                      if isinstance(packed_k["blocks"][g][n], QTensor)]
     check(len(packed_leaves) == 6, f"packed leaves {packed_leaves}")
 
-    # -- outputs: well-formed, and the same greedy tokens on both paths
     v, vp = cfg.vocab_size, cfg.padded_vocab
     for lg in (logits_k, logits_p):
         check(tuple(lg.shape) == (BATCH, 1, vp), f"logits shape {lg.shape}")
@@ -408,23 +424,51 @@ def phase_main_path(torch, dev, cfg):
         check(bool((lg[..., v:] == torch.finfo(lg.dtype).min).all()),
               "padded vocab columns not masked")
     dlog = float((logits_k - logits_p).abs().max())
-    log(f"[decode] prefill logits max |kernels - plain| {dlog:.3e} "
+    log(f"[{tag}decode] prefill logits max |kernels - plain| {dlog:.3e} "
         f"(|logit|max {float(logits_p[..., :v].abs().max()):.3f})")
-    check(tok_k.shape == (BATCH, GEN) and tok_k.min() >= 0
-          and tok_k.max() < v, "greedy tokens malformed")
+    for tok in (tok_k, tok_p):
+        check(tok.shape == (BATCH, GEN) and tok.min() >= 0 and tok.max() < v,
+              "greedy tokens malformed")
     if not (tok_k == tok_p).all():
         b, t = [int(i[0]) for i in (tok_k != tok_p).nonzero()]
         seq = torch.as_tensor(np.concatenate([prompts, tok_k], 1)
                               [b:b + 1, :PROMPT_LEN + t], device=dev)
         for label, p in (("kernels", packed_k), ("plain", packed_p)):
             top2 = model.logits(p, {"tokens": seq})[0, -1].topk(2).values
-            log(f"[decode] MISMATCH row {b} position {t}: {label} top-2 gap "
-                f"{float(top2[0] - top2[1]):.3e}")
-        check(False, f"greedy tokens differ at row {b}, position {t}")
-    log(f"[decode] greedy tokens identical on both paths: {BATCH} x {GEN}; "
-        f"row 0: {tok_k[0][:12].tolist()}")
+            log(f"[{tag}decode] greedy tokens differ at row {b} position "
+                f"{t}: {label} top-2 gap {float(top2[0] - top2[1]):.3e}")
+        check(not exact, f"greedy tokens differ at row {b}, position {t}")
+    else:
+        log(f"[{tag}decode] greedy tokens identical on both paths: "
+            f"{BATCH} x {GEN}; row 0: {tok_k[0][:12].tolist()}")
 
+
+def phase_main_path(torch, dev, cfg):
+    """The main path as the port's users run it: through the kernels
+    (counted), and through the plain versions for their times."""
+    launches, model, prompts, out_k, out_p = both_paths(torch, dev, cfg, "")
+    compare(torch, dev, cfg, model, prompts, out_k, out_p, "", exact=False)
     return launches
+
+
+def phase_parity():
+    """Both paths again in a second process with unsplit cuBLAS, where
+    they must agree bit for bit (see the module docstring)."""
+    log(f"[parity] chip_smoke.py {PARITY} with "
+        f"CUBLAS_WORKSPACE_CONFIG={UNSPLIT_CUBLAS}")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=UNSPLIT_CUBLAS)
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           PARITY], env=env, timeout=900)
+    check(proc.returncode == 0,
+          f"the parity run failed with exit code {proc.returncode}")
+
+
+def parity_main(torch, dev, cfg):
+    check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == UNSPLIT_CUBLAS,
+          f"{PARITY} needs CUBLAS_WORKSPACE_CONFIG={UNSPLIT_CUBLAS}")
+    _, model, prompts, out_k, out_p = both_paths(torch, dev, cfg, "parity ")
+    compare(torch, dev, cfg, model, prompts, out_k, out_p, "parity ",
+            exact=True)
 
 
 def main() -> None:
@@ -435,18 +479,24 @@ def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         sys.exit(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}"
                  f" — run it from a checkout of the repository")
+    args = sys.argv[1:]
+    check(args in ([], [PARITY]), f"unknown arguments {args}")
     sys.path.insert(0, str(SRC))
     t_start = time.time()
     dev = torch.device("cuda")
 
     from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    if args:
+        parity_main(torch, dev, cfg)
+        return
 
     card = phase_card(torch)
     phase_build()
     rows = phase_kernels(torch, dev)
-
-    cfg = get_config(ARCH)
     launches = phase_main_path(torch, dev, cfg)
+    torch.cuda.empty_cache()
+    phase_parity()
 
     out = []
     for name, (source, replaces) in KERNELS.items():

@@ -73,7 +73,7 @@ def pgd(w: torch.Tensor, c: torch.Tensor,
     gnorm = torch.tensor(float("inf"), device=w.device)
     t = 0
     while t < cfg.max_iters and bool(gnorm >= cfg.tol):   # host sync
-        z, resid_norm = step(w, theta, c, eta, with_resid_norm=True)
+        z, resid_norm = step(w, theta, c, eta)
         gnorm = 2.0 * resid_norm / w_norm
         theta = project(z, t)
         t += 1

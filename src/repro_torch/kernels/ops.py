@@ -63,15 +63,16 @@ def _launch(name: str, fn, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def awp_pgd_step(w, theta, c, eta, with_resid_norm: bool = False):
-    """K1: Z = Θ + η (W − Θ) C, and ‖(W − Θ) C‖_F with ``with_resid_norm``.
+def awp_pgd_step(w, theta, c, eta):
+    """K1: Z = Θ + η (W − Θ) C, and ‖(W − Θ) C‖_F summed from the kernel's
+    per-tile f32 partials.
 
     (M, K) operands with a scalar η, or batched (B, M, K) / (B, K, K) with
     η of shape (B,) or scalar. η is a tensor on the operands' device, read
     by the kernel from device memory (no host sync)."""
     eta = torch.as_tensor(eta, dtype=torch.float32, device=w.device)
     if not _on_card("awp_pgd_step", w, theta, c, eta):
-        return ref.awp_pgd_step(w, theta, c, eta, with_resid_norm)
+        return ref.awp_pgd_step(w, theta, c, eta)
     batched = w.dim() == 3
     if not batched and w.dim() != 2:
         raise ValueError(f"awp_pgd_step: w must be 2-D or 3-D, got {w.dim()}")
@@ -93,8 +94,6 @@ def awp_pgd_step(w, theta, c, eta, with_resid_norm: bool = False):
     _launch("awp_pgd_step", "awp_pgd_step_f32", w.data_ptr(),
             theta.data_ptr(), c.data_ptr(), eta_b.data_ptr(), z.data_ptr(),
             partials.data_ptr(), b, m, k)
-    if not with_resid_norm:
-        return z
     norm = torch.sqrt(partials.sum(dim=(-2, -1)))
     return z, (norm if batched else norm[0])
 

@@ -12,16 +12,14 @@ import torch
 from repro_torch.core import projections as proj
 
 
-def awp_pgd_step(w, theta, c, eta, with_resid_norm: bool = False):
-    """Z = Θ + η (W − Θ) C for (M, K) or batched (B, M, K) operands (η a
-    scalar tensor, or (B,) in the batched form). ``with_resid_norm`` also
-    returns ‖(W − Θ) C‖_F (per item when batched)."""
+def awp_pgd_step(w, theta, c, eta):
+    """Z = Θ + η (W − Θ) C and ‖(W − Θ) C‖_F for (M, K) or batched
+    (B, M, K) operands (η a scalar tensor, or (B,) in the batched form;
+    the norm per item when batched)."""
     eta = torch.as_tensor(eta, dtype=torch.float32, device=w.device)
     resid = (w.float() - theta.float()) @ c.float()
     scale = eta.reshape(-1, 1, 1) if w.dim() == 3 else eta
     z = (theta.float() + scale * resid).to(w.dtype)
-    if not with_resid_norm:
-        return z
     return z, torch.linalg.vector_norm(resid, dim=(-2, -1))
 
 
@@ -41,14 +39,22 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
                                                  packed.shape[-1] * 2)
 
 
+def dequant(codes, scale, zero, group_size: int = 128):
+    """(N, K) integer codes → (N, K) f32 (code − zero)·scale with
+    per-(row, group) scale, zero (N, K/group). K4's plain version and
+    ``QTensor.dequant`` both go through it to ``projections.dequant``, the
+    port's one dequant expression."""
+    n, k = codes.shape
+    qp = proj.QuantParams(q=codes.reshape(n, k // group_size, group_size),
+                          scale=scale[..., None], zero=zero[..., None])
+    return proj.dequant(qp)
+
+
 def dequant_matmul(x, packed, scale, zero, group_size: int = 128):
     """y (M, N) = x (M, K) · dequant(W)ᵀ, W nibble-packed (N, K/2)."""
-    codes = unpack_int4(packed).to(torch.float32)
-    n, k = codes.shape
-    g = codes.reshape(n, k // group_size, group_size)
-    deq = ((g - zero[..., None]) * scale[..., None]).reshape(n, k)
+    deq = dequant(unpack_int4(packed), scale, zero, group_size)
     return (x.to(torch.float32) @ deq.T).to(x.dtype)
 
 
 __all__ = ["awp_pgd_step", "topk_row", "quant_project", "unpack_int4",
-           "dequant_matmul"]
+           "dequant", "dequant_matmul"]

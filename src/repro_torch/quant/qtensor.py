@@ -7,50 +7,24 @@ plus per-(row, group) scale and zero, byte-for-byte the layout of
 their tensors while ``shape`` stays the per-layer logical ``(d_out, d_in)``;
 :meth:`QTensor.map` slices them.
 
-The matmul switch (:func:`matmul_impl`): ``"auto"`` runs the fused kernel K4
-on a CUDA tensor and the reference dequant-matmul on a CPU tensor;
-``"kernel"`` always goes through the K4 wrapper (its plain version on the
-CPU); ``"reference"`` always dequantizes then multiplies.
+The matmul switch is the port's one kernel-vs-plain switch
+(:mod:`repro_torch.kernels`), under the JAX package's names
+:func:`matmul_impl` and :func:`set_matmul_impl`: ``"auto"`` runs the fused
+kernel K4 on a CUDA tensor and the reference dequant-matmul on a CPU
+tensor; ``"kernel"`` always goes through the K4 wrapper (its plain version
+on the CPU); ``"reference"`` always dequantizes then multiplies.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core import projections as proj
-from repro_torch.kernels import impl
+from repro_torch.kernels import impl, resolved_impl, ref
+from repro_torch.kernels import set_impl as set_matmul_impl
+from repro_torch.kernels import use_impl as matmul_impl
 from repro_torch.kernels.ref import unpack_int4
-
-_MATMUL_IMPL = "auto"
-_IMPLS = ("auto", "kernel", "reference")
-
-
-def set_matmul_impl(mode: str) -> str:
-    """Set the QTensor matmul implementation; returns the previous mode."""
-    global _MATMUL_IMPL
-    if mode not in _IMPLS:
-        raise ValueError(f"matmul impl must be one of {_IMPLS}, got {mode!r}")
-    prev, _MATMUL_IMPL = _MATMUL_IMPL, mode
-    return prev
-
-
-@contextlib.contextmanager
-def matmul_impl(mode: str):
-    """Context manager scoping :func:`set_matmul_impl`."""
-    prev = set_matmul_impl(mode)
-    try:
-        yield
-    finally:
-        set_matmul_impl(prev)
-
-
-def resolved_impl(device: torch.device) -> str:
-    """"kernel" or "reference" for a tensor on ``device``."""
-    if _MATMUL_IMPL != "auto":
-        return _MATMUL_IMPL
-    return "kernel" if device.type == "cuda" else "reference"
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -113,11 +87,8 @@ class QTensor(NamedTuple):
         return unpack_int4(self.packed) if self._nibble_packed() else self.packed
 
     def dequant(self, dtype=torch.float32) -> torch.Tensor:
-        d_out, d_in = self.shape
-        codes = self.codes().to(torch.float32)
-        g = codes.reshape(d_out, -1, self.group_size)
-        deq = ((g - self.zero[..., None]) * self.scale[..., None])
-        deq = deq.reshape(d_out, d_in)
+        deq = ref.dequant(self.codes(), self.scale, self.zero,
+                          self.group_size)
         if self.col_scale is not None:
             deq = deq / self.col_scale[None, :]
         return deq.to(dtype)

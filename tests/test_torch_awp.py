@@ -70,8 +70,7 @@ def test_plain_pgd_step_matches_jax(shape):
                                         jnp.asarray(c), jnp.asarray(eta),
                                         use_pallas=False))
     z, nrm = ops.awp_pgd_step(torch.from_numpy(w), torch.from_numpy(theta),
-                              torch.from_numpy(c), torch.from_numpy(np.asarray(eta)),
-                              with_resid_norm=True)
+                              torch.from_numpy(c), torch.from_numpy(np.asarray(eta)))
     assert_allclose(z.numpy(), want, rtol=2e-4, atol=2e-4)
     # the norm is the Pallas kernel's f32-accumulator reduction
     _, jnrm = jpgd_kernel.awp_pgd_step(

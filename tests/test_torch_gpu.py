@@ -48,8 +48,8 @@ def test_awp_pgd_step_matches_plain(cuda, shape):
     else:
         eta = torch.tensor(0.4, device=cuda)
     z, nrm = _launched("awp_pgd_step", lambda: ops.awp_pgd_step(
-        w, theta, c, eta, with_resid_norm=True))
-    z_ref, nrm_ref = ref.awp_pgd_step(w, theta, c, eta, with_resid_norm=True)
+        w, theta, c, eta))
+    z_ref, nrm_ref = ref.awp_pgd_step(w, theta, c, eta)
     torch.testing.assert_close(z, z_ref, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(nrm, nrm_ref, rtol=1e-5, atol=0)
 

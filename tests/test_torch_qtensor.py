@@ -17,6 +17,7 @@ from repro.kernels import dequant_matmul as jdq_kernel, ops as jops
 from repro.quant import QTensor as JQTensor, pack_int4 as jpack
 from repro.quant import unpack_int4 as junpack
 from repro_torch.bridge import qtensor_from_numpy
+from repro_torch import kernels
 from repro_torch.kernels import ops, ref
 from repro_torch.quant import QTensor, matmul_impl, pack_int4, unpack_int4
 
@@ -110,3 +111,17 @@ def test_auto_impl_counts_no_launch_on_cpu():
         with matmul_impl("bogus"):
             pass
     assert ref.unpack_int4 is unpack_int4
+
+
+def test_matmul_impl_is_the_one_kernel_switch():
+    _, qt, _ = _qt_pair(d_out=16, d_in=256, seed=5)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (3, 256)).astype(np.float32))
+    assert all(kernels.impl(n) is getattr(ops, n) for n in ops.KERNELS)
+    with matmul_impl("reference"):
+        assert all(kernels.impl(n) is getattr(ref, n) for n in ops.KERNELS)
+        # the reference matmul and K4's plain version share one body
+        assert_array_equal(qt.matmul_dispatch(x).numpy(),
+                           ref.dequant_matmul(x, qt.packed, qt.scale, qt.zero,
+                                              qt.group_size).numpy())
+    assert kernels.impl("dequant_matmul") is ops.dequant_matmul
