@@ -3,23 +3,28 @@
 
   python3 chip_smoke.py
 
-Builds the hand-written kernels K1–K4 from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version at the shapes of the main path
-(and a few edge shapes), timing both, then drives the port's main path at
-the full width of llama32-1b (16 layers, d_model 2048, d_ff 8192, padded
-vocab 129024, random weights from a seed):
+Builds the hand-written kernels K1–K6 from ``src/repro_torch/kernels/csrc``,
+holds each against its plain PyTorch version at the shapes of the main
+paths (and a few edge cases), timing both, then drives the port's two main
+paths at the full width of llama32-1b (16 layers, d_model 2048, d_ff 8192,
+padded vocab 129024, random weights from a seed):
 
-  calibrate (Zipf-Markov, 32 x 512 tokens) -> compress_model (sequential;
-  every attn.wo pruned to 50% by AWP, every other linear AWP-quantized to
-  int4, group 128) -> pack in memory -> static greedy decode (4 prompts of
-  128 tokens, 32 new tokens each)
+  1. calibrate (Zipf-Markov, 32 x 512 tokens) -> compress_model
+     (sequential; every attn.wo pruned to 50% by AWP, every other linear
+     AWP-quantized to int4, group 128) -> pack in memory -> static greedy
+     decode (4 prompts of 128 tokens, 32 new tokens each);
+  2. the continuous-batching engine on that packed model: 8 slots of 2048
+     tokens, an INT8 KV cache, prompt buckets 64..512, a 24-request
+     Zipf trace plus two long prompts (1536 and 1900 tokens) that stream
+     through the chunked prefill. Every packed linear runs K4, every
+     decode step K6, every chunk of a long prompt K5.
 
-through the kernels, with each kernel's launch count set to 0 just before
-and read just after, and checks that every kernel was launched and that
-the outputs are finite and well-formed. The same path through the kernels'
-plain versions is timed beside it and held to the repo's parity bars. This
-first process, with every time in its JSON line, runs cuBLAS in its
-default configuration, as the port's CLIs do.
+Each path runs through the kernels, with every launch count set to 0 just
+before and read just after, and the script checks that every kernel of
+the path was launched and that the outputs are finite and well-formed.
+The same path through the kernels' plain versions is timed beside it and
+held to the repo's parity bars. This first process, with every time in its
+JSON line, runs cuBLAS in its default configuration, as the port's CLIs do.
 
 cuBLAS splits K for short products (measured on the H100: 256-, 512- and
 1024-row f32 products), so the plain K1 sums each output in another order
@@ -27,8 +32,11 @@ than the kernel's one FMA chain, and PGD turns those last-ulp differences
 into code and mask flips. A second process (``chip_smoke.py --parity``,
 started by the first) therefore runs both paths again with
 ``CUBLAS_WORKSPACE_CONFIG=:0:0``: with no workspace cuBLAS cannot split, so
-every product sums in K1's order, and there the kernels' path must equal
-the plain one — same iteration counts, same greedy tokens.
+every product sums in K1's and K4's order, and there the kernels' path must
+equal the plain one — same iteration counts, same greedy tokens on the
+static path, and the same first token of every engine request (prefill is
+K4's tile path and K5, which is exact; K6 sums in tile order, so later
+engine tokens may part).
 
 Exits non-zero on any failed check, without a CUDA card, and outside a
 checkout of the repository. Prints the card, a JSON line of per-kernel
@@ -55,6 +63,13 @@ ARCH = "llama32-1b"
 SEED = 0
 CALIB_BATCHES, CALIB_BATCH, CALIB_SEQ = 4, 8, 512   # 16,384 tokens
 BATCH, PROMPT_LEN, GEN = 4, 128, 32
+# the engine phase
+ENGINE = dict(num_slots=8, max_len=2048, prompt_buckets=(64, 128, 256, 512),
+              kv_quantized=True)
+TRACE = dict(num_requests=24, max_prompt=1024, max_new=32, seed=SEED)
+LONG = ((1536, 32), (1900, 16))      # (prompt, new tokens): chunked prefill
+# K6 at the engine's decode shape: 8 slots, 32 heads over 8 KV heads, D 64
+K6_LENGTHS = (0, 1, 255, 256, 1000, 1536, 2047, 2048)
 
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit): f32 outside the
 # tensor cores and HBM3 bandwidth — the bounds every kernel is held to.
@@ -70,7 +85,14 @@ KERNELS = {   # wrapper name -> (CUDA source, the TPU kernel it replaces)
                       "src/repro/kernels/quant_proj.py:33"),
     "dequant_matmul": ("src/repro_torch/kernels/csrc/dequant_matmul.cu",
                        "src/repro/kernels/dequant_matmul.py:51"),
+    "kv_dequant": ("src/repro_torch/kernels/csrc/kv_dequant.cu",
+                   "src/repro/kernels/kv_dequant.py:29"),
+    "decode_attn": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+                    "src/repro/kernels/decode_attn.py:134"),
 }
+COMPRESS_PATH = ("awp_pgd_step", "topk_row", "quant_project",
+                 "dequant_matmul")
+ENGINE_PATH = ("dequant_matmul", "kv_dequant", "decode_attn")
 
 
 def log(msg: str) -> None:
@@ -95,18 +117,33 @@ def bound_ms(flops: float, nbytes: float):
 
 
 def time_ms(torch, fn, reps: int) -> float:
-    """Mean device time of ``fn(i)`` over ``reps`` calls (CUDA events,
-    after one warm-up call). Callers rotate ``i`` over enough input copies
-    to keep a memory-bound kernel's working set out of the 50 MB L2."""
-    fn(0)
+    """Mean device time of ``fn(i)`` over ``reps`` calls. The calls are
+    captured into one CUDA graph (after warm-up calls on the capture
+    stream) and one replay is timed with CUDA events, so the host's cost
+    of issuing a call — the wrappers' checks and ``ctypes`` — is not in
+    the number: timed call by call, a kernel shorter than that cost
+    measures the host. Callers rotate ``i`` over enough input copies to
+    keep a memory-bound kernel's working set out of the 50 MB L2."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for i in range(2):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for i in range(reps):
+            fn(i)
+    graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(reps):
-        fn(i)
+    graph.replay()
     end.record()
     end.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -296,7 +333,123 @@ def phase_kernels(torch, dev):
                                               bound_ms=bnd, bound_by=by,
                                               library_ms=None)
     rows["dequant_matmul"]["max_abs_err"] = k4_err
+    rows["kv_dequant"] = check_k5(torch, dev, gen)
+    rows["decode_attn"] = check_k6(torch, dev, gen)
     return rows
+
+
+def check_k5(torch, dev, gen):
+    """K5 at the chunked prefill's shape: one slot's layer rows of the
+    INT8 cache, R = T = 2048 tokens, K = Hk·D = 512, group 64. Exact."""
+    from repro_torch.kernels import ops, ref
+    r, k, group = 2048, 512, 64
+    codes = torch.randint(0, 256, (r, k), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    scale = (torch.rand((r, k // group), generator=gen, device=dev) * 0.05
+             + 1e-4).half()
+    zero = torch.randint(0, 256, (r, k // group), generator=gen,
+                         device=dev).half()
+    out = ops.kv_dequant(codes, scale, zero, group)
+    check(torch.equal(out, ref.kv_dequant(codes, scale, zero, group)),
+          "K5: kernel differs from the plain version")
+    nbytes = r * k + 4.0 * r * k / group + 4.0 * r * k
+    ins = [(codes.clone(), scale.clone(), zero.clone())
+           for _ in range(copies_for(nbytes))]
+    ms = time_ms(torch, lambda i: ops.kv_dequant(*ins[i % len(ins)], group),
+                 50)
+    plain = time_ms(torch, lambda i: ref.kv_dequant(*ins[i % len(ins)],
+                                                    group), 50)
+    bnd, by = bound_ms(0.0, nbytes)
+    log(f"[K5] kv_dequant R={r} K={k} group={group}: exact, kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+    return dict(shape=f"R={r},K={k},group={group}", ms=ms, plain_ms=plain,
+                bound_ms=bnd, bound_by=by, library_ms=None, max_abs_err=0.0)
+
+
+def check_k6(torch, dev, gen):
+    """K6 at the engine's decode shape, dense f32 and INT8 (group 64), with
+    ragged lengths, a length-0 row and a NaN-poisoned row. Within 1e-5 of
+    the plain version (one softmax over the row against the kernel's
+    online softmax over 256-token tiles). The dense variant is also timed
+    against ``scaled_dot_product_attention`` (K/V repeated to every query
+    head, a boolean length mask) as a yardstick the port never calls."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving.kv_cache import kv_quantize
+    b, h, hk, d, t, group = len(K6_LENGTHS), 32, 8, 64, 2048, 64
+    q = torch.randn((b, h, d), generator=gen, device=dev)
+    k = torch.randn((b, t, hk, d), generator=gen, device=dev)
+    v = torch.randn((b, t, hk, d), generator=gen, device=dev)
+    lengths = torch.tensor(K6_LENGTHS, dtype=torch.int32, device=dev)
+    qk, qv = kv_quantize(k, group), kv_quantize(v, group)
+    variants = {
+        "dense": ((k, v), {}),
+        "int8": ((qk.codes, qv.codes),
+                 dict(k_scale=qk.scale, k_zero=qk.zero, v_scale=qv.scale,
+                      v_zero=qv.zero, group_size=group))}
+    live = sum(K6_LENGTHS)
+    io = 4.0 * 2 * b * h * d + 4 * b
+    tok_bytes = {"dense": 2 * hk * d * 4.0,
+                 "int8": 2 * hk * (d + 4.0 * d / group)}
+    res = {}
+    for name, ((kk, vv), kw) in variants.items():
+        out = ops.decode_attn(q, kk, vv, lengths, **kw)
+        want = ref.decode_attn(q, kk, vv, lengths, **kw)
+        err = float((out - want).abs().max())
+        rel = float(((out - want).abs() / (want.abs() + 1.0)).max())
+        check(err <= 1e-5 or rel <= 1e-5,
+              f"K6 {name}: max|d| {err:.3e} against the plain version")
+        check(torch.equal(out[0], torch.zeros_like(out[0])),
+              f"K6 {name}: the length-0 row is not exactly zero")
+        # one poisoned token in row 4 (length 1000): only that row is NaN
+        if name == "dense":
+            bad_k = kk.clone()
+            bad_k[4, 10, 3] = float("nan")
+            bad = ops.decode_attn(q, bad_k, vv, lengths)
+        else:
+            bad_kw = dict(kw, k_scale=kw["k_scale"].clone())
+            bad_kw["k_scale"][4, 10, 3] = float("nan")
+            bad = ops.decode_attn(q, kk, vv, lengths, **bad_kw)
+        others = [i for i in range(b) if i != 4]
+        check(bool(torch.isnan(bad[4, 3 * 4:3 * 4 + 4]).all())
+              and bool(torch.isfinite(bad[others]).all())
+              and torch.equal(bad[others], out[others]),
+              f"K6 {name}: the NaN row does not propagate alone")
+        nbytes = live * tok_bytes[name] + io
+        ins = [tuple(x.clone() for x in (kk, vv)) + (
+               {n: x.clone() if hasattr(x, "clone") else x
+                for n, x in kw.items()},)
+               for _ in range(copies_for(b * t * tok_bytes[name]))]
+        ms = time_ms(torch, lambda i: ops.decode_attn(
+            q, ins[i % len(ins)][0], ins[i % len(ins)][1], lengths,
+            **ins[i % len(ins)][2]), 50)
+        plain = time_ms(torch, lambda i: ref.decode_attn(
+            q, ins[i % len(ins)][0], ins[i % len(ins)][1], lengths,
+            **ins[i % len(ins)][2]), 20)
+        bnd, by = bound_ms(4.0 * h * d * live, nbytes)
+        lib = None
+        if name == "dense":
+            qs = q[:, :, None, :]                         # (B, H, 1, D)
+            reps = [tuple(x.permute(0, 2, 1, 3).repeat_interleave(h // hk, 1)
+                          for x in pair[:2]) for pair in ins]
+            mask = (torch.arange(t, device=dev)[None, :]
+                    < lengths[:, None].long())[:, None, None, :]
+            lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                qs, reps[i % len(reps)][0], reps[i % len(reps)][1],
+                attn_mask=mask), 50)
+            del reps
+        lib_txt = "n/a" if lib is None else f"{lib:.4f} ms"
+        log(f"[K6] decode_attn {name} B={b} H={h} Hk={hk} D={d} T={t} "
+            f"lengths {list(K6_LENGTHS)}: max|d| {err:.2e}, zero row exact, "
+            f"NaN row alone, kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"sdpa {lib_txt}, bound {bnd:.4f} ms ({by}), "
+            f"{nbytes / ms / 1e9:.2f} TB/s of live bytes")
+        res[name] = dict(shape=f"B={b},H={h},Hk={hk},D={d},T={t},{name}",
+                         ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                         library_ms=lib, max_abs_err=err)
+    row = dict(res["int8"])              # the engine path's variant
+    row["dense"] = res["dense"]
+    return row
 
 
 def run_path(torch, dev, model, params, calib, prompts, label):
@@ -359,7 +512,7 @@ def both_paths(torch, dev, cfg, tag):
                      f"{tag}kernels")
     launches = dict(ops.LAUNCHES)
     log(f"[{tag}kernels] launches on the main path: {launches}")
-    for name in KERNELS:
+    for name in COMPRESS_PATH:
         check(launches[name] > 0, f"{name} was not launched on the main path")
 
     ops.reset_launches()
@@ -445,10 +598,135 @@ def compare(torch, dev, cfg, model, prompts, out_k, out_p, tag, exact):
 
 def phase_main_path(torch, dev, cfg):
     """The main path as the port's users run it: through the kernels
-    (counted), and through the plain versions for their times."""
+    (counted), and through the plain versions for their times. Returns the
+    counts, the model and the kernels' packed params (the engine's)."""
     launches, model, prompts, out_k, out_p = both_paths(torch, dev, cfg, "")
     compare(torch, dev, cfg, model, prompts, out_k, out_p, "", exact=False)
-    return launches
+    return launches, model, out_k[1]
+
+
+def engine_trace(cfg):
+    """The engine's requests: the serve CLI's Zipf trace and two long
+    prompts beyond the largest bucket."""
+    from repro_torch.data import DataConfig, ZipfMarkov
+    from repro_torch.launch.serve import build_trace
+    from repro_torch.serving import GenerationRequest
+    reqs = build_trace(cfg, **TRACE)
+    longest = max(p for p, _ in LONG)
+    toks, _ = ZipfMarkov(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=longest, global_batch=len(LONG),
+                                    seed=SEED + 1)).batch(0)
+    for i, (plen, new) in enumerate(LONG):
+        reqs.append(GenerationRequest(
+            rid=len(reqs), prompt=toks[i, :plen].astype("int32"),
+            max_new_tokens=new))
+    return reqs
+
+
+def run_engine(torch, model, packed, reqs, label):
+    """One engine run over ``reqs`` (warm-up first, uncounted): launch
+    counts set to 0 just before the run and read just after,
+    ``check_invariants`` after every step, and the time of every step."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Engine, EngineConfig, cache_is_finite
+    engine = Engine(model, packed, EngineConfig(**ENGINE))
+    engine.warmup(reqs)
+    torch.cuda.synchronize()
+    steps = []          # (seconds, admitted in the step)
+    last = [0.0, 0]     # end of the previous step, admissions so far
+
+    def hook(eng):
+        # every step ends in a host read of its tokens, so the host clock
+        # sees the device's work done
+        eng.check_invariants()
+        now = time.perf_counter()
+        admits = eng.prefill_dispatches + eng.chunk_dispatches
+        steps.append((now - last[0], admits != last[1]))
+        last[0], last[1] = now, admits
+
+    ops.reset_launches()
+    t0 = last[0] = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    results = engine.run(step_hook=hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    by_rid = {r.rid: r for r in results}
+    check(sorted(by_rid) == [r.rid for r in reqs], f"{label}: results")
+    for r in reqs:
+        res = by_rid[r.rid]
+        check(res.status == "ok" and len(res.tokens) == r.max_new_tokens,
+              f"{label}: rid {r.rid} ended {res.status} with "
+              f"{len(res.tokens)}/{r.max_new_tokens} tokens {res.error}")
+        check(all(0 <= t < model.cfg.vocab_size for t in res.tokens),
+              f"{label}: rid {r.rid} tokens out of the vocabulary")
+    check(cache_is_finite(engine.kv), f"{label}: non-finite KV cache")
+    n_tok = sum(len(r.tokens) for r in results)
+    dec = [t for t, admitted in steps if not admitted]
+    stats = dict(wall_s=wall, steps=len(steps),
+                 decode_steps=engine.decode_steps, tokens=n_tok,
+                 tok_s=n_tok / wall,
+                 step_ms=1e3 * wall / max(engine.decode_steps, 1),
+                 decode_only_step_ms=1e3 * sum(dec) / max(len(dec), 1),
+                 decode_only_steps=len(dec),
+                 admission_s=sum(t for t, a in steps if a),
+                 kv_bytes=engine.kv_cache_bytes(),
+                 prefills=engine.prefill_dispatches,
+                 chunks=engine.chunk_dispatches,
+                 chunked=engine.chunked_admitted,
+                 utilization=engine.utilization())
+    log(f"[{label}] {len(reqs)} requests, {n_tok} tokens in {wall:.3f}s "
+        f"({stats['tok_s']:.1f} tok/s); {engine.decode_steps} decode steps, "
+        f"{stats['step_ms']:.2f} ms a step overall, "
+        f"{stats['decode_only_step_ms']:.2f} ms a decode-only step "
+        f"({len(dec)} steps), {stats['admission_s']:.3f}s in steps with "
+        f"admissions ({engine.prefill_dispatches} prefills, "
+        f"{engine.chunk_dispatches} chunks for {engine.chunked_admitted} "
+        f"long prompts); slot utilization {stats['utilization']:.3f}; "
+        f"KV cache {stats['kv_bytes'] / 1e6:.1f} MB (INT8)")
+    log(f"[{label}] launches: {launches}")
+    del engine
+    torch.cuda.empty_cache()
+    return launches, {r.rid: r.tokens for r in results}, stats
+
+
+def phase_engine(torch, cfg, model, packed, tag, exact_first):
+    """The engine through the kernels (K4, K5 and K6 must launch), then
+    through the plain versions (nothing may launch), on the same packed
+    model and trace. Greedy tokens are compared; with ``exact_first`` the
+    first token of every request must be equal on both paths."""
+    from repro_torch import kernels
+    reqs = engine_trace(cfg)
+    plens = sorted(r.prompt_len for r in reqs)
+    log(f"[{tag}engine] {len(reqs)} requests, prompts {plens[0]}.."
+        f"{plens[-1]} tokens ({sum(p > ENGINE['prompt_buckets'][-1] for p in plens)}"
+        f" beyond the largest bucket), {sum(r.max_new_tokens for r in reqs)}"
+        f" new tokens; {ENGINE}")
+    launches, tok_k, st_k = run_engine(torch, model, packed, reqs,
+                                       f"{tag}engine kernels")
+    for name in ENGINE_PATH:
+        check(launches[name] > 0,
+              f"{name} was not launched on the engine path")
+    with kernels.use_impl("reference"):
+        plain_launches, tok_p, st_p = run_engine(torch, model, packed, reqs,
+                                                 f"{tag}engine plain")
+    check(not any(plain_launches.values()),
+          "the plain engine run launched a kernel")
+    same = [rid for rid in tok_k if tok_k[rid] == tok_p[rid]]
+    parts = {rid: next(i for i, (a, b) in enumerate(zip(tok_k[rid],
+                                                         tok_p[rid]))
+                       if a != b)
+             for rid in tok_k if rid not in same}
+    first_equal = sum(tok_k[rid][0] == tok_p[rid][0] for rid in tok_k)
+    log(f"[{tag}engine] kernels against plain: {len(same)}/{len(tok_k)} "
+        f"requests with identical tokens; first parting position of the "
+        f"others {parts}; first tokens equal in {first_equal}/{len(tok_k)}")
+    check(not exact_first or first_equal == len(tok_k),
+          "first tokens differ between the kernel and plain engine paths")
+    return launches, dict(kernels=st_k, plain=st_p, identical=len(same),
+                          requests=len(tok_k), parts=parts,
+                          first_equal=first_equal)
 
 
 def phase_parity():
@@ -469,6 +747,10 @@ def parity_main(torch, dev, cfg):
     _, model, prompts, out_k, out_p = both_paths(torch, dev, cfg, "parity ")
     compare(torch, dev, cfg, model, prompts, out_k, out_p, "parity ",
             exact=True)
+    packed = out_k[1]
+    del out_k, out_p
+    torch.cuda.empty_cache()
+    phase_engine(torch, cfg, model, packed, "parity ", exact_first=True)
 
 
 def main() -> None:
@@ -494,19 +776,31 @@ def main() -> None:
     card = phase_card(torch)
     phase_build()
     rows = phase_kernels(torch, dev)
-    launches = phase_main_path(torch, dev, cfg)
+    launches, model, packed = phase_main_path(torch, dev, cfg)
+    torch.cuda.empty_cache()
+    eng_launches, eng = phase_engine(torch, cfg, model, packed, "",
+                                     exact_first=False)
+    del model, packed
     torch.cuda.empty_cache()
     phase_parity()
 
     out = []
     for name, (source, replaces) in KERNELS.items():
         row = rows[name]
-        out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": launches[name],
-                    "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                    "bound_by": row["bound_by"],
-                    "library_ms": row["library_ms"], "shape": row["shape"]})
+        by_path = {"compress_decode": launches[name] if name in COMPRESS_PATH
+                   else 0,
+                   "engine": eng_launches[name] if name in ENGINE_PATH else 0}
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
+                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"],
+                 "library_ms": row["library_ms"], "shape": row["shape"]}
+        if "dense" in row:
+            entry["dense"] = row["dense"]
+        out.append(entry)
+    log(f"[engine] summary: {json.dumps(eng)}")
     log(f"[done] {time.time() - t_start:.1f}s; card {card}")
     log(json.dumps({"kernels": out}))
     log(card)

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.quant import QTensor
+from repro_torch.serving.kv_cache import QuantizedKV
 
 
 def _tensor(arr, dev: torch.device) -> torch.Tensor:
@@ -51,4 +52,14 @@ def params_from_numpy(tree, device="cuda"):
     return rec(tree)
 
 
-__all__ = ["params_from_numpy", "qtensor_from_numpy"]
+def quantized_kv_from_jax(codes, scale, zero, group_size: int,
+                          device="cuda") -> QuantizedKV:
+    """The port's :class:`QuantizedKV` for the numpy arrays of a JAX
+    ``QuantizedKV`` (uint8 codes, f16 scale and zero planes)."""
+    dev = resolve_device(device)
+    return QuantizedKV(codes=_tensor(codes, dev), scale=_tensor(scale, dev),
+                       zero=_tensor(zero, dev), group_size=int(group_size))
+
+
+__all__ = ["params_from_numpy", "qtensor_from_numpy",
+           "quantized_kv_from_jax"]

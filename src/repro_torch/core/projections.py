@@ -53,7 +53,8 @@ def topk_row_mask(z: torch.Tensor, k: int) -> torch.Tensor:
         return torch.zeros(z.shape, dtype=torch.bool, device=z.device)
     mag = z.abs()
     thr = torch.topk(mag, k, dim=-1, sorted=True).values[..., -1:]
-    return _leftmost_keep(mag, thr, torch.tensor(k, device=z.device))
+    return _leftmost_keep(mag, thr, torch.full((), k, dtype=torch.int64,
+                                               device=z.device))
 
 
 def ramp_ratio(t: Union[int, torch.Tensor], target: float,

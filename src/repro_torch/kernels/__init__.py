@@ -1,9 +1,10 @@
-"""Hand-written CUDA kernels K1–K4 (``csrc/``), their wrappers
+"""Hand-written CUDA kernels K1–K6 (``csrc/``), their wrappers
 (:mod:`~repro_torch.kernels.ops`) and plain versions
 (:mod:`~repro_torch.kernels.ref`).
 
 The port's call sites (the PGD step and projections of ``core.awp``, the
-packed matmul of ``quant.QTensor``) reach a kernel through :func:`impl`,
+packed matmul of ``quant.QTensor``, the INT8 cache expansion and the decode
+attention of ``serving.kv_cache``) reach a kernel through :func:`impl`,
 and one switch decides which function that is:
 
 - ``"auto"`` (the default) and ``"kernel"``: the wrapper, which launches

@@ -5,7 +5,8 @@ Each source is compiled by its own ``nvcc`` (all started together) for
 ``<repo>/build/kernels/`` and loaded with ``ctypes``. Nothing here runs at
 import: :func:`library` builds on first use. The library's file name
 carries a hash of the sources and flags, so an edited source rebuilds.
-No ``--use_fast_math``: K3 must round and divide exactly as IEEE f32 does.
+No ``--use_fast_math``: K3 and K5 must round and divide exactly as IEEE
+f32 does.
 """
 from __future__ import annotations
 
@@ -33,6 +34,8 @@ SIGNATURES = {
     "topk_row_f32": ([_P, _P, _I, _I, _I, _P], _I),
     "quant_project_f32": ([_P, _P, _I, _I, _I, _I, _P], _I),
     "dequant_matmul_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "kv_dequant_u8": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "decode_attn": ([_P] * 9 + [_I] * 8 + [_P], _I),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written kernels K1–K4 (``csrc/*.cu``).
+"""Wrappers of the hand-written kernels K1–K6 (``csrc/*.cu``).
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on ``torch.cuda.current_stream()``
@@ -22,7 +22,8 @@ from repro_torch.kernels import ref
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-KERNELS = ("awp_pgd_step", "topk_row", "quant_project", "dequant_matmul")
+KERNELS = ("awp_pgd_step", "topk_row", "quant_project", "dequant_matmul",
+           "kv_dequant", "decode_attn")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -158,5 +159,84 @@ def dequant_matmul(x, packed, scale, zero, group_size: int = 128):
     return y
 
 
-__all__ = ["KERNELS", "LAUNCHES", "awp_pgd_step", "dequant_matmul",
-           "quant_project", "reset_launches", "topk_row"]
+def kv_dequant(codes, scale, zero, group_size: int):
+    """K5: (R, K) uint8 codes + per-group (R, K/g) f16 scale and zero →
+    (R, K) f32 ``(code − zero)·scale``, bit-exact with its plain version."""
+    if not _on_card("kv_dequant", codes, scale, zero):
+        return ref.kv_dequant(codes, scale, zero, group_size)
+    if codes.dim() != 2:
+        raise ValueError(f"kv_dequant: codes must be 2-D, got {codes.dim()}")
+    r, k = codes.shape
+    if group_size <= 0 or k % group_size or group_size % 4:
+        raise ValueError(f"kv_dequant: K={k}, group={group_size}: need a "
+                         f"group that divides K and is a multiple of 4")
+    _check("kv_dequant.codes", codes, torch.uint8, (r, k))
+    _check("kv_dequant.scale", scale, torch.float16, (r, k // group_size))
+    _check("kv_dequant.zero", zero, torch.float16, (r, k // group_size))
+    if codes.data_ptr() % 4:
+        raise ValueError("kv_dequant: codes must be 4-byte aligned")
+    out = torch.empty((r, k), dtype=torch.float32, device=codes.device)
+    if out.numel():
+        _launch("kv_dequant", "kv_dequant_u8", codes.data_ptr(),
+                scale.data_ptr(), zero.data_ptr(), out.data_ptr(), r, k,
+                group_size)
+    return out
+
+
+_KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
+
+
+def decode_attn(q, k, v, lengths, k_scale=None, k_zero=None, v_scale=None,
+                v_zero=None, group_size: int = 0, block_t: int = 256):
+    """K6: one-token GQA decode attention over a slot cache. q (B, H, D)
+    f32; k/v (B, T, Hk, D) f32 or bf16, or uint8 codes with (B, T, Hk, D/g)
+    f16 ``*_scale``/``*_zero`` planes (dequantized in the tile); lengths
+    (B,) int32 on the device — row b attends [0, lengths[b]), clamped to
+    T. Online softmax over tiles of ``block_t`` tokens. A row of length 0
+    gives exact zeros; a NaN row propagates. Returns (B, H, D) f32."""
+    quant = k_scale is not None
+    planes = (k_scale, k_zero, v_scale, v_zero) if quant else ()
+    if not _on_card("decode_attn", q, k, v, lengths, *planes):
+        return ref.decode_attn(q, k, v, lengths, k_scale, k_zero, v_scale,
+                               v_zero, group_size, block_t)
+    if q.dim() != 3 or k.dim() != 4:
+        raise ValueError("decode_attn: q must be (B, H, D), k/v (B, T, Hk, D)")
+    b, h, d = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or h % hk:
+        raise ValueError(f"decode_attn: q {tuple(q.shape)} against k "
+                         f"{tuple(k.shape)}")
+    g = h // hk
+    bt = max(1, min(block_t, t))
+    if d % 4 or g > 32 or g * d > 1024:
+        raise ValueError(f"decode_attn: D={d}, {g} query heads per KV head "
+                         f"not supported (D % 4 == 0, g <= 32, g*D <= 1024)")
+    _check("decode_attn.q", q, torch.float32, (b, h, d))
+    _check("decode_attn.lengths", lengths, torch.int32, (b,))
+    kind = _KV_KINDS.get(k.dtype)
+    if kind is None or (kind == 2) != quant:
+        raise TypeError(f"decode_attn: k/v {k.dtype} "
+                        f"{'with' if quant else 'without'} scale planes")
+    _check("decode_attn.k", k, k.dtype, (b, t, hk, d))
+    _check("decode_attn.v", v, k.dtype, (b, t, hk, d))
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode_attn: k/v must be 16-byte aligned")
+    ptrs = [0] * 4
+    if quant:
+        if group_size <= 0 or d % group_size or group_size % 4:
+            raise ValueError(f"decode_attn: group {group_size} for D={d}")
+        for i, (name, pl) in enumerate(zip(
+                ("k_scale", "k_zero", "v_scale", "v_zero"), planes)):
+            _check(f"decode_attn.{name}", pl, torch.float16,
+                   (b, t, hk, d // group_size))
+            ptrs[i] = pl.data_ptr()
+    out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    _launch("decode_attn", "decode_attn", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), lengths.data_ptr(), *ptrs, out.data_ptr(), b, t, h,
+            hk, d, group_size if quant else 0, bt, kind)
+    return out
+
+
+__all__ = ["KERNELS", "LAUNCHES", "awp_pgd_step", "decode_attn",
+           "dequant_matmul", "kv_dequant", "quant_project", "reset_launches",
+           "topk_row"]

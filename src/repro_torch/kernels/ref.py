@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the hand-written kernels K1–K4.
+"""Plain PyTorch versions of the hand-written kernels K1–K6.
 
 Each has the signature of its wrapper in :mod:`repro_torch.kernels.ops`, so
 the two are interchangeable: the wrappers take these on CPU tensors, the
@@ -6,6 +6,8 @@ tests hold them against the JAX package, and ``chip_smoke.py`` holds every
 kernel against them on the card.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -56,5 +58,61 @@ def dequant_matmul(x, packed, scale, zero, group_size: int = 128):
     return (x.to(torch.float32) @ deq.T).to(x.dtype)
 
 
+def kv_dequant(codes, scale, zero, group_size: int):
+    """(R, K) uint8 codes + per-group (R, K/g) f16 scale/zero → (R, K) f32
+    by ``(float(code) − float(zero)) · float(scale)`` (the reference's
+    ``kernels/ref.py::kv_dequant``)."""
+    r, k = codes.shape
+    g = codes.to(torch.float32).reshape(r, k // group_size, group_size)
+    deq = ((g - zero.to(torch.float32)[..., None])
+           * scale.to(torch.float32)[..., None])
+    return deq.reshape(r, k)
+
+
+def _dequant_kv(codes, scale, zero, group_size: int):
+    """(B, T, Hk, D) codes + (B, T, Hk, D/g) planes → dense f32 through
+    the flattened-row :func:`kv_dequant` (``ops._ref_dequant_kv`` of the
+    reference)."""
+    rows = codes.numel() // codes.shape[-1]
+    flat = kv_dequant(codes.reshape(rows, codes.shape[-1]),
+                      scale.reshape(rows, -1), zero.reshape(rows, -1),
+                      group_size)
+    return flat.reshape(codes.shape)
+
+
+def decode_attn(q, k, v, lengths, k_scale=None, k_zero=None, v_scale=None,
+                v_zero=None, group_size: int = 0, block_t: int = 256):
+    """Length-masked decode attention: q (B, H, D), one token per row,
+    against k/v (B, T, Hk, D) — dense, or uint8 codes with per-head-group
+    scale/zero planes, dequantized first. Row b attends [0, lengths[b]);
+    a row of length 0 gives exact zeros, a NaN row stays NaN (the emit
+    guard is ``l == 0`` exactly). ``block_t`` is the kernel's tile and
+    does not change this version. After the reference's
+    ``kernels/ref.py::decode_attn`` and the dequant-then-attend oracle of
+    its ``ops.decode_attn``."""
+    if k_scale is not None:
+        k = _dequant_kv(k, k_scale, k_zero, group_size)
+        v = _dequant_kv(v, v_scale, v_zero, group_size)
+    b, h, d = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    qh = q.reshape(b, hk, g, d).to(torch.float32)
+    s = torch.einsum("bkgd,btkd->bkgt", qh, k.to(torch.float32))
+    s = s * (1.0 / math.sqrt(d))
+    valid = (torch.arange(t, device=q.device)[None, :]
+             < lengths.to(torch.int64)[:, None])              # (B, T)
+    valid = valid[:, None, None, :]
+    zero = torch.zeros((), device=q.device)
+    s = s.masked_fill(~valid, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, zero))
+    p = torch.where(valid, p, zero)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = torch.einsum("bkgt,btkd->bkgd", p, v.to(torch.float32))
+    dead = l == 0.0
+    out = torch.where(dead, zero, pv / torch.where(dead, torch.ones_like(l), l))
+    return out.reshape(b, h, d).to(q.dtype)
+
+
 __all__ = ["awp_pgd_step", "topk_row", "quant_project", "unpack_int4",
-           "dequant", "dequant_matmul"]
+           "dequant", "dequant_matmul", "kv_dequant", "decode_attn"]

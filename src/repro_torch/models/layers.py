@@ -4,8 +4,11 @@ Conventions (as ``repro/models/layers.py``):
 - Linear weights are stored ``(d_in, d_out)`` (activation @ weight); the
   compression library works in paper orientation ``(d_out, d_in)``.
 - ``capture`` dicts collect pre-matmul activations for calibration.
-- Attention is plain f32 (scores, masked softmax, weighted sum); the
-  reference's chunked online-softmax scan is arithmetic, not a kernel.
+- Prefill attention is the reference's double-chunked online softmax
+  (:func:`flash_attention`), f32 throughout, in the same order of
+  operations; it is arithmetic, not a kernel. Decode reads of the serving
+  cache go through K6 (:func:`~repro_torch.serving.kv_cache.fused_decode_attn`)
+  and INT8 cache rows are expanded by K5 (``kv_cache.kv_dequantize``).
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ from typing import Optional
 import torch
 
 from repro_torch.quant import QTensor
+from repro_torch.serving.kv_cache import (QuantizedKV, fused_decode_attn,
+                                          kv_dequantize, kv_update)
 
 
 # ---------------------------------------------------------------------------
@@ -66,8 +71,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     """Rotary embedding. x: (B, S, H, D) with even D; positions: (B, S)."""
     half = x.shape[-1] // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=x.device), exps)
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=x.device), exps)
     ang = positions[..., None].to(torch.float32) * freqs        # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
@@ -88,8 +93,77 @@ def mlp_act(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# attention
+# chunked causal flash attention (online softmax; never materializes S×S)
 # ---------------------------------------------------------------------------
+
+def _pad_to(x: torch.Tensor, mult: int, dim: int):
+    n = x.shape[dim]
+    pad = (-n) % mult
+    if pad == 0:
+        return x, n
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=dim), n
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset=0, q_chunk: int = 1024,
+                    kv_chunk: int = 1024) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Skv, Hk, D) with H % Hk == 0.
+
+    The reference's double-chunked online-softmax attention
+    (``repro/models/layers.py::flash_attention``) in the same arithmetic:
+    the sequence dims are zero-padded to whole chunks, an outer loop runs
+    over query chunks and an inner loop over KV chunks carrying (m, l, acc)
+    in f32, rows with no valid key yet are guarded (``m_safe``, ``corr``),
+    and the output is ``acc / max(l, 1e-30)``. ``q_offset`` is the absolute
+    position of q[0] (the chunked prefill attends the cache under the
+    offset causal mask). The paged ``kv_pages`` form is not ported.
+    """
+    b, sq, h, d = q.shape
+    _, skv, hk, _ = k.shape
+    if h % hk:
+        raise ValueError(f"flash_attention: {h} heads over {hk} KV heads")
+    g = h // hk
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    q, sq0 = _pad_to(q, q_chunk, 1)
+    k, skv0 = _pad_to(k, kv_chunk, 1)
+    v, _ = _pad_to(v, kv_chunk, 1)
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    sq_p, skv_p = q.shape[1], k.shape[1]
+    q_pos = torch.arange(sq_p, device=dev) + q_offset
+    k_pos = torch.arange(skv_p, device=dev)
+    kv_valid = k_pos < skv0
+    zero = torch.zeros((), device=dev)
+    chunks = []
+    for q0 in range(0, sq_p, q_chunk):
+        qc = q[:, q0:q0 + q_chunk]
+        qpos = q_pos[q0:q0 + q_chunk]
+        m = torch.full((b, h, q_chunk), float("-inf"), device=dev)
+        l = torch.zeros((b, h, q_chunk), device=dev)
+        acc = torch.zeros((b, h, q_chunk, d), device=dev)
+        for k0 in range(0, skv_p, kv_chunk):
+            kc, vc = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
+            s = _scores(qc, kc, g) * scale                  # (B, H, qc, kc)
+            mask = kv_valid[k0:k0 + kv_chunk][None, None, None, :]
+            if causal:
+                mask = mask & (k_pos[k0:k0 + kv_chunk][None, None, None, :]
+                               <= qpos[None, None, :, None])
+            s = s.masked_fill(~mask, float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # guard rows with no valid keys yet
+            m_safe = torch.where(torch.isfinite(m_new), m_new, zero)
+            p = torch.where(mask, torch.exp(s - m_safe[..., None]), zero)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), zero)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + _pv(p, vc, g)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        chunks.append(out.permute(0, 2, 1, 3))           # (B, qc, H, D)
+    return torch.cat(chunks, dim=1)[:, :sq0].to(q.dtype)
+
 
 def _scores(q: torch.Tensor, k: torch.Tensor, g: int) -> torch.Tensor:
     """(B, Sq, H, D) × (B, Skv, Hk, D) → (B, H, Sq, Skv), GQA groups."""
@@ -101,44 +175,26 @@ def _scores(q: torch.Tensor, k: torch.Tensor, g: int) -> torch.Tensor:
 
 
 def _pv(p: torch.Tensor, v: torch.Tensor, g: int) -> torch.Tensor:
-    """(B, H, Sq, Skv) × (B, Skv, Hk, D) → (B, Sq, H, D), f32."""
+    """(B, H, Sq, Skv) × (B, Skv, Hk, D) → (B, H, Sq, D), f32."""
     b, h, sq, skv = p.shape
     hk = h // g
-    out = torch.einsum("bkgqn,bnkd->bqkgd", p.reshape(b, hk, g, sq, skv),
+    out = torch.einsum("bkgqn,bnkd->bkgqd", p.reshape(b, hk, g, sq, skv),
                        v.to(torch.float32))
-    return out.reshape(b, sq, h, v.shape[-1])
-
-
-def causal_attention(q, k, v) -> torch.Tensor:
-    """Prefill attention of fresh tokens on themselves (positions 0..S-1):
-    max-subtracted exponentials, then the weighted sum divided by the row
-    sum — the reference's online-softmax arithmetic over a single chunk."""
-    b, s, h, d = q.shape
-    g = h // k.shape[2]
-    sc = _scores(q, k, g) * (1.0 / math.sqrt(d))
-    idx = torch.arange(s, device=q.device)
-    mask = idx[None, :] <= idx[:, None]                         # (Sq, Skv)
-    sc = torch.where(mask, sc, torch.tensor(float("-inf"), device=q.device))
-    m = sc.amax(dim=-1, keepdim=True)
-    p = torch.where(mask, torch.exp(sc - m), torch.zeros((), device=q.device))
-    l = p.sum(dim=-1)                                           # (B, H, Sq)
-    out = _pv(p, v, g)                                          # (B, Sq, H, D)
-    l = torch.clamp(l, min=1e-30).permute(0, 2, 1)[..., None]   # (B, Sq, H, 1)
-    return (out / l).to(q.dtype)
+    return out.reshape(b, h, sq, v.shape[-1])
 
 
 def decode_attention(q, k_cache, v_cache, q_positions) -> torch.Tensor:
     """New tokens against a slot cache (B, Smax, Hk, D): key index ≤ each
-    query's absolute position (the new K/V are already written)."""
+    query's absolute position (the new K/V are already written). The
+    unfused reference read (``use_fused_decode=False``)."""
     b, sq, h, d = q.shape
     g = h // k_cache.shape[2]
     sc = _scores(q, k_cache, g) / math.sqrt(d)
     k_idx = torch.arange(k_cache.shape[1], device=q.device)
     valid = k_idx[None, None, :] <= q_positions[:, :, None]     # (B, Sq, Smax)
-    sc = torch.where(valid[:, None], sc,
-                     torch.tensor(float("-inf"), device=q.device))
+    sc = sc.masked_fill(~valid[:, None], float("-inf"))
     p = torch.softmax(sc, dim=-1)
-    return _pv(p, v_cache, g).to(q.dtype)
+    return _pv(p, v_cache, g).permute(0, 2, 1, 3).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -169,16 +225,63 @@ def mlp_params(gen, cfg, *, lead=(), dtype=torch.float32, device="cpu",
     return p
 
 
+def _write_dense(cache: torch.Tensor, new: torch.Tensor, cache_pos,
+                 attend_cache: bool) -> None:
+    """Write ``new`` (B, s, Hk, D) into a dense (B, T, Hk, D) cache in place:
+    one token per row at a per-row position (``cache_pos`` a (B,) tensor,
+    s == 1), or s columns from a host-int position. The chunked prefill
+    (``attend_cache``) drops columns past the cache edge, as the
+    reference's per-column scatter does; the plain splice clamps its start
+    so the block fits, as ``dynamic_update_slice`` does."""
+    b, s = new.shape[0], new.shape[1]
+    t = cache.shape[1]
+    if torch.is_tensor(cache_pos) and cache_pos.dim() == 1:
+        if s != 1:
+            raise ValueError("per-slot cache writes are one token per step")
+        rows = torch.arange(b, device=cache.device)
+        cache[rows, cache_pos.to(torch.int64)] = new[:, 0].to(cache.dtype)
+        return
+    pos = int(cache_pos)
+    if attend_cache:
+        n = max(0, min(s, t - pos))
+        cache[:, pos:pos + n] = new[:, :n].to(cache.dtype)
+    else:
+        pos = max(0, min(pos, t - s))
+        cache[:, pos:pos + s] = new.to(cache.dtype)
+
+
 def attn_apply(p, x, cfg, *, positions=None, capture=None, kv_cache=None,
-               cache_pos: int = 0):
+               cache_pos=0, attend_cache: bool = False, block_table=None,
+               fused_decode: bool = False, attn_chunk: int = 1024):
     """Pre-norm attention block (residual added by the caller).
 
-    Without ``kv_cache``: causal self-attention over x, returns
-    ``(out, (k, v))``. With ``kv_cache=(k_cache, v_cache)`` (B, Smax, Hk, D)
-    — the static slot cache — this call's K/V are written in place at
-    ``[cache_pos, cache_pos + S)``; a prefill (S > 1, ``cache_pos`` 0)
-    attends its own tokens, a decode step (S == 1) attends the cache.
+    Returns ``(out, new_kv)``: the ``(k, v)`` of this call without a cache,
+    else the updated ``(k_cache, v_cache)``. Cache entries are dense
+    (B, T, Hk, D) tensors or INT8 :class:`QuantizedKV` storage (quantized
+    on write, expanded by K5 on the chunked-prefill read); either is
+    written IN PLACE (the reference's functional update with donation).
+    ``cache_pos`` is the write position: a host int (uniform over the
+    batch: the static path and the chunked prefill) or a (B,) tensor (the
+    engine's per-slot decode positions; needs s == 1).
+
+    - no cache: causal :func:`flash_attention` over x;
+    - s > 1 with a cache: prefill. The fresh K/V are written at
+      ``cache_pos`` and attended by :func:`flash_attention` (the serving
+      convention ``cache_pos`` == 0), or with ``attend_cache=True`` (the
+      chunked-prefill contract) the chunk's columns
+      [cache_pos, cache_pos + s) are written first — those past the cache
+      edge are dropped — and the queries attend the CACHE rows under the
+      offset causal mask (``flash_attention(q_offset=cache_pos)``);
+    - s == 1: decode. ``fused_decode=True`` reads the cache through K6
+      (:func:`~repro_torch.serving.kv_cache.fused_decode_attn`); False
+      keeps the expand-then-attend reference (:func:`decode_attention`).
+
+    ``block_table`` (the paged layout) is not ported yet.
     """
+    if block_table is not None:
+        raise NotImplementedError(
+            "the paged KV layout (block_table) belongs to the paging slice "
+            "of the port and is not ported yet")
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
     h, hk = cfg.num_heads, cfg.num_kv_heads
@@ -194,16 +297,38 @@ def attn_apply(p, x, cfg, *, positions=None, capture=None, kv_cache=None,
     k = rope(k, positions, cfg.rope_theta)
 
     if kv_cache is None:
-        out = causal_attention(q, k, v)
+        out = flash_attention(q, k, v, causal=True, q_chunk=attn_chunk,
+                              kv_chunk=attn_chunk)
         new_kv = (k, v)
     else:
         k_cache, v_cache = kv_cache
-        k_cache[:, cache_pos:cache_pos + s] = k.to(k_cache.dtype)
-        v_cache[:, cache_pos:cache_pos + s] = v.to(v_cache.dtype)
-        if s > 1:
-            out = causal_attention(q, k, v)
+        if isinstance(k_cache, QuantizedKV):
+            k_cache = kv_update(k_cache, k, cache_pos)
+            v_cache = kv_update(v_cache, v, cache_pos)
         else:
-            out = decode_attention(q, k_cache, v_cache, positions)
+            _write_dense(k_cache, k, cache_pos, attend_cache)
+            _write_dense(v_cache, v, cache_pos, attend_cache)
+        if s > 1 and attend_cache:
+            if isinstance(k_cache, QuantizedKV):
+                k_r = kv_dequantize(k_cache, q.dtype)
+                v_r = kv_dequantize(v_cache, q.dtype)
+            else:
+                k_r, v_r = k_cache, v_cache
+            out = flash_attention(q, k_r, v_r, causal=True,
+                                  q_offset=cache_pos, q_chunk=attn_chunk,
+                                  kv_chunk=attn_chunk)
+        elif s > 1:
+            out = flash_attention(q, k, v, causal=True, q_chunk=attn_chunk,
+                                  kv_chunk=attn_chunk)
+        elif fused_decode:
+            out = fused_decode_attn(q, k_cache, v_cache, positions)
+        else:
+            if isinstance(k_cache, QuantizedKV):
+                k_r = kv_dequantize(k_cache, q.dtype)
+                v_r = kv_dequantize(v_cache, q.dtype)
+            else:
+                k_r, v_r = k_cache, v_cache
+            out = decode_attention(q, k_r, v_r, positions)
         new_kv = (k_cache, v_cache)
 
     out = out.reshape(b, s, h * hd)
@@ -226,5 +351,5 @@ def mlp_apply(p, x, cfg, *, capture=None):
 
 
 __all__ = ["linear_apply", "dense_init", "embed_init", "rmsnorm", "rope",
-           "mlp_act", "causal_attention", "decode_attention", "attn_params",
+           "mlp_act", "flash_attention", "decode_attention", "attn_params",
            "mlp_params", "attn_apply", "mlp_apply"]

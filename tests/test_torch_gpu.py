@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1–K4 against their plain PyTorch versions
+"""The hand-written CUDA kernels K1–K6 against their plain PyTorch versions
 on the card, at small shapes and edge cases.
 
 Needs a CUDA card: every test takes the ``cuda`` fixture, which skips when
@@ -110,9 +110,89 @@ def test_dequant_matmul_matches_plain(cuda, m):
     torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-4)
 
 
+# K5 is exact: the same two roundings (subtract, multiply) per element.
+@pytest.mark.parametrize("r,k,group", [(2048, 512, 64), (37, 64, 16),
+                                       (5, 96, 32)])
+def test_kv_dequant_exact(cuda, r, k, group):
+    rng = np.random.default_rng(5)
+    codes = torch.from_numpy(rng.integers(0, 256, (r, k), np.uint8)).to(cuda)
+    scale = torch.from_numpy(rng.uniform(1e-4, 0.1, (r, k // group))
+                             .astype(np.float16)).to(cuda)
+    zero = torch.from_numpy(rng.integers(0, 256, (r, k // group))
+                            .astype(np.float16)).to(cuda)
+    out = _launched("kv_dequant", lambda: ops.kv_dequant(
+        codes, scale, zero, group))
+    assert torch.equal(out, ref.kv_dequant(codes, scale, zero, group))
+
+
+def _kv_case(rng, dev, b, t, hk, g, d, quant, group):
+    q = _randn(rng, (b, hk * g, d), dev)
+    k = _randn(rng, (b, t, hk, d), dev)
+    v = _randn(rng, (b, t, hk, d), dev)
+    if not quant:
+        return q, (k, v), {}
+    from repro_torch.serving.kv_cache import kv_quantize
+    qk, qv = kv_quantize(k, group), kv_quantize(v, group)
+    return q, (qk.codes, qv.codes), dict(
+        k_scale=qk.scale, k_zero=qk.zero, v_scale=qv.scale, v_zero=qv.zero,
+        group_size=group)
+
+
+# K6: online softmax over tiles against one softmax over the row: f32 sums
+# in another order, the reference's bar (tests/test_decode_attn.py) 1e-5.
+@pytest.mark.parametrize("hk,g,d,quant,group,block_t", [
+    (1, 1, 16, False, 0, 16), (2, 4, 16, False, 0, 7),
+    (2, 3, 16, True, 8, 16), (8, 4, 64, True, 64, 256),
+    (8, 4, 64, False, 0, 256), (2, 2, 32, True, 32, 64)])
+def test_decode_attn_matches_plain(cuda, hk, g, d, quant, group, block_t):
+    rng = np.random.default_rng(6)
+    t = 300 if d == 64 else 40
+    lens = [0, 1, 17, t // 2, t - 1, t]
+    q, (k, v), kw = _kv_case(rng, cuda, len(lens), t, hk, g, d, quant, group)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = _launched("decode_attn", lambda: ops.decode_attn(
+        q, k, v, lengths, block_t=block_t, **kw))
+    want = ref.decode_attn(q, k, v, lengths, **kw)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))  # length 0: zeros
+
+
+def test_decode_attn_bf16_and_nan_row(cuda):
+    rng = np.random.default_rng(7)
+    q, (k, v), _ = _kv_case(rng, cuda, 4, 64, 2, 2, 32, False, 0)
+    lengths = torch.tensor([64, 0, 33, 5], dtype=torch.int32, device=cuda)
+    kb, vb = k.bfloat16(), v.bfloat16()
+    out = _launched("decode_attn", lambda: ops.decode_attn(
+        q, kb, vb, lengths, block_t=16))
+    torch.testing.assert_close(out, ref.decode_attn(q, kb, vb, lengths),
+                               rtol=1e-5, atol=1e-5)
+    for quant in (False, True):
+        q, (k, v), kw = _kv_case(rng, cuda, 4, 64, 2, 2, 32, quant, 16)
+        if quant:
+            kw["k_scale"][2, 3] = float("nan")       # one poisoned token
+        else:
+            k[2, 3] = float("nan")
+        out = _launched("decode_attn", lambda: ops.decode_attn(
+            q, k, v, lengths, block_t=16, **kw))
+        assert torch.isnan(out[2]).all()              # the NaN row propagates
+        assert torch.isfinite(out[[0, 3]]).all()
+        assert torch.equal(out[1], torch.zeros_like(out[1]))
+        torch.testing.assert_close(out, ref.decode_attn(q, k, v, lengths,
+                                                        **kw),
+                                   rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
 def test_wrappers_refuse_mixed_devices(cuda):
     z = torch.zeros(4, 256, device=cuda)
     with pytest.raises(ValueError):
         ops.awp_pgd_step(z, z.cpu(), torch.zeros(256, 256, device=cuda), 0.1)
     with pytest.raises(TypeError):
         ops.topk_row(z.double(), 3)
+    codes = torch.zeros(4, 64, dtype=torch.uint8, device=cuda)
+    planes = torch.ones(4, 4, dtype=torch.float16)
+    with pytest.raises(ValueError):
+        ops.kv_dequant(codes, planes, planes.to(cuda), 16)
+    q = torch.zeros(2, 4, 16, device=cuda)
+    kv = torch.zeros(2, 8, 2, 16, device=cuda)
+    with pytest.raises(ValueError):
+        ops.decode_attn(q, kv, kv, torch.ones(2, dtype=torch.int32))
