@@ -23,7 +23,10 @@ Each path runs through the kernels, with every launch count set to 0 just
 before and read just after, and the script checks that every kernel of
 the path was launched and that the outputs are finite and well-formed.
 The same path through the kernels' plain versions is timed beside it and
-held to the repo's parity bars. This first process, with every time in its
+held to the repo's parity bars. One more engine run through the kernels,
+in PyTorch's sync-debug mode and apart from the timed ones, must show the
+host waiting on the card exactly once a decode step, batched prefill and
+chunked prompt. This first process, with every time in its
 JSON line, runs cuBLAS in its default configuration, as the port's CLIs do.
 
 cuBLAS splits K for short products (measured on the H100: 256-, 512- and
@@ -44,6 +47,7 @@ numbers, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -51,6 +55,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 PARITY = "--parity"
@@ -68,6 +73,11 @@ ENGINE = dict(num_slots=8, max_len=2048, prompt_buckets=(64, 128, 256, 512),
               kv_quantized=True)
 TRACE = dict(num_requests=24, max_prompt=1024, max_new=32, seed=SEED)
 LONG = ((1536, 32), (1900, 16))      # (prompt, new tokens): chunked prefill
+# what PyTorch's sync-debug mode warns at each wait of the host on the card
+# (its other warning, that the mode is a prototype, is not a wait)
+SYNC_WARNING = "called a synchronizing CUDA operation"
+# K4's rows: static decode, engine decode (8 slots), one prompt, 8 prompts
+K4_M = (4, 8, 512, 8 * 512)
 # K6 at the engine's decode shape: 8 slots, 32 heads over 8 KV heads, D 64
 K6_LENGTHS = (0, 1, 255, 256, 1000, 1536, 2047, 2048)
 
@@ -93,6 +103,16 @@ KERNELS = {   # wrapper name -> (CUDA source, the TPU kernel it replaces)
 COMPRESS_PATH = ("awp_pgd_step", "topk_row", "quant_project",
                  "dequant_matmul")
 ENGINE_PATH = ("dequant_matmul", "kv_dequant", "decode_attn")
+
+
+def check_path(launches: dict, path: tuple, label: str) -> None:
+    """Every kernel of ``path`` launched on it, and no other kernel."""
+    for name, n in launches.items():
+        if name in path:
+            check(n > 0, f"{name} was not launched on {label}")
+        else:
+            check(n == 0, f"{name} was launched {n} times on {label}, "
+                          f"which should not run it")
 
 
 def log(msg: str) -> None:
@@ -295,10 +315,13 @@ def phase_kernels(torch, dev):
                                          bound_by=by, library_ms=None,
                                          max_abs_err=0.0)
 
-    # -- K4: packed int4 matmul, decode (M=4) and prefill (M=512) --
+    # -- K4: packed int4 matmul at every M the two paths give it: the
+    # static decode (M=4), the engine's decode with all slots busy (M=8,
+    # the top of the GEMV branch), a prefill or chunk of one 512-token
+    # prompt (M=512) and the engine's largest batched prefill (8 x 512) --
     # tolerance: the dequantized weight is bit-equal, the f32 sum over K
     # runs in another order
-    k4_err = 0.0
+    k4_err, k4_shapes = 0.0, []
     group = 128
     for n, k in ((2048, 2048), (512, 2048), (8192, 2048), (2048, 8192)):
         packed = torch.randint(0, 256, (n, k // 2), generator=gen,
@@ -309,7 +332,7 @@ def phase_kernels(torch, dev):
         wbytes = n * k / 2 + 8.0 * n * k / group
         ws = [(packed.clone(), scale.clone(), zero.clone())
               for _ in range(copies_for(wbytes))]
-        for m in (4, 512):
+        for m in K4_M:
             x = randn(m, k)
             y = ops.dequant_matmul(x, packed, scale, zero, group)
             y_ref = ref.dequant_matmul(x, packed, scale, zero, group)
@@ -327,12 +350,16 @@ def phase_kernels(torch, dev):
             log(f"[K4] dequant_matmul M={m} N={n} K={k}: max|dy| {err:.2e} "
                 f"(|y|max {ymax:.1f}), kernel {ms:.4f} ms, plain "
                 f"{plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+            k4_shapes.append(dict(shape=f"M={m},N={n},K={k}", ms=ms,
+                                  plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                  max_abs_err=err))
             if (m, n, k) == (4, 8192, 2048):
                 rows["dequant_matmul"] = dict(shape="M=4,N=8192,K=2048",
                                               ms=ms, plain_ms=plain,
                                               bound_ms=bnd, bound_by=by,
                                               library_ms=None)
     rows["dequant_matmul"]["max_abs_err"] = k4_err
+    rows["dequant_matmul"]["by_shape"] = k4_shapes
     rows["kv_dequant"] = check_k5(torch, dev, gen)
     rows["decode_attn"] = check_k6(torch, dev, gen)
     return rows
@@ -512,8 +539,7 @@ def both_paths(torch, dev, cfg, tag):
                      f"{tag}kernels")
     launches = dict(ops.LAUNCHES)
     log(f"[{tag}kernels] launches on the main path: {launches}")
-    for name in COMPRESS_PATH:
-        check(launches[name] > 0, f"{name} was not launched on the main path")
+    check_path(launches, COMPRESS_PATH, "the compress and decode path")
 
     ops.reset_launches()
     with kernels.use_impl("reference"):
@@ -623,10 +649,32 @@ def engine_trace(cfg):
     return reqs
 
 
-def run_engine(torch, model, packed, reqs, label):
+@contextlib.contextmanager
+def host_waits(torch, on: bool):
+    """With ``on``, PyTorch's sync-debug mode warns at every wait of the
+    host on the card; the waits (and the count of other warnings) are in
+    the yielded dict when the block ends. Off, nothing changes."""
+    out = {"syncs": [], "other": 0}
+    if not on:
+        yield out
+        return
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield out
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    out["syncs"] = [w for w in caught if SYNC_WARNING in str(w.message)]
+    out["other"] = len(caught) - len(out["syncs"])
+
+
+def run_engine(torch, model, packed, reqs, label, watch_waits=False):
     """One engine run over ``reqs`` (warm-up first, uncounted): launch
     counts set to 0 just before the run and read just after,
-    ``check_invariants`` after every step, and the time of every step."""
+    ``check_invariants`` after every step, and the time of every step.
+    ``watch_waits`` also counts the host's waits on the card and fails
+    unless there is exactly one a step."""
     from repro_torch.kernels import ops
     from repro_torch.serving import Engine, EngineConfig, cache_is_finite
     engine = Engine(model, packed, EngineConfig(**ENGINE))
@@ -645,13 +693,27 @@ def run_engine(torch, model, packed, reqs, label):
         last[0], last[1] = now, admits
 
     ops.reset_launches()
-    t0 = last[0] = time.perf_counter()
-    for r in reqs:
-        engine.submit(r)
-    results = engine.run(step_hook=hook)
+    with host_waits(torch, watch_waits) as waits:
+        t0 = last[0] = time.perf_counter()
+        for r in reqs:
+            engine.submit(r)
+        results = engine.run(step_hook=hook)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    if watch_waits:
+        # one wait a step: the decode step's (S, 2) read, a prefill's
+        # first tokens, a chunked prompt's last token
+        reads = (engine.decode_steps + engine.prefill_dispatches
+                 + engine.chunked_admitted)
+        where = sorted({f"{Path(w.filename).name}:{w.lineno}"
+                        for w in waits["syncs"]})
+        log(f"[{label}] host waits on the card: {len(waits['syncs'])} for "
+            f"{reads} steps and admissions, at {where}; "
+            f"{waits['other']} other warnings")
+        check(len(waits["syncs"]) == reads,
+              f"{label}: {len(waits['syncs'])} host waits, expected one a "
+              f"step or admission ({reads})")
     by_rid = {r.rid: r for r in results}
     check(sorted(by_rid) == [r.rid for r in reqs], f"{label}: results")
     for r in reqs:
@@ -705,9 +767,13 @@ def phase_engine(torch, cfg, model, packed, tag, exact_first):
         f" new tokens; {ENGINE}")
     launches, tok_k, st_k = run_engine(torch, model, packed, reqs,
                                        f"{tag}engine kernels")
-    for name in ENGINE_PATH:
-        check(launches[name] > 0,
-              f"{name} was not launched on the engine path")
+    check_path(launches, ENGINE_PATH, "the engine path")
+    # the same run again, untimed by the numbers above, with every wait of
+    # the host on the card counted (sync-debug mode)
+    _, tok_w, st_w = run_engine(torch, model, packed, reqs,
+                                f"{tag}engine kernels, waits counted",
+                                watch_waits=True)
+    check(tok_w == tok_k, "the engine's tokens differ between two runs")
     with kernels.use_impl("reference"):
         plain_launches, tok_p, st_p = run_engine(torch, model, packed, reqs,
                                                  f"{tag}engine plain")
@@ -724,7 +790,8 @@ def phase_engine(torch, cfg, model, packed, tag, exact_first):
         f"others {parts}; first tokens equal in {first_equal}/{len(tok_k)}")
     check(not exact_first or first_equal == len(tok_k),
           "first tokens differ between the kernel and plain engine paths")
-    return launches, dict(kernels=st_k, plain=st_p, identical=len(same),
+    return launches, dict(kernels=st_k, waits_counted=st_w, plain=st_p,
+                          identical=len(same),
                           requests=len(tok_k), parts=parts,
                           first_equal=first_equal)
 
@@ -787,9 +854,8 @@ def main() -> None:
     out = []
     for name, (source, replaces) in KERNELS.items():
         row = rows[name]
-        by_path = {"compress_decode": launches[name] if name in COMPRESS_PATH
-                   else 0,
-                   "engine": eng_launches[name] if name in ENGINE_PATH else 0}
+        by_path = {"compress_decode": launches[name],
+                   "engine": eng_launches[name]}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -797,8 +863,9 @@ def main() -> None:
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"], "shape": row["shape"]}
-        if "dense" in row:
-            entry["dense"] = row["dense"]
+        for extra in ("dense", "by_shape"):
+            if extra in row:
+                entry[extra] = row[extra]
         out.append(entry)
     log(f"[engine] summary: {json.dumps(eng)}")
     log(f"[done] {time.time() - t_start:.1f}s; card {card}")

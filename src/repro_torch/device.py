@@ -1,6 +1,7 @@
 """Device resolution shared by every entry point of the port."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -16,4 +17,19 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+def to_device(arr, device) -> torch.Tensor:
+    """``arr`` (a numpy array) on ``device`` without making the host wait.
+
+    A copy from pageable host memory synchronizes the CUDA stream, so the
+    host would stall until every queued kernel has run before it could
+    queue the next. The array goes through pinned memory instead, copied
+    with ``non_blocking=True``; PyTorch's pinned allocator keeps the
+    buffer until the copy is done. On the CPU it is a plain tensor."""
+    host = torch.from_numpy(np.ascontiguousarray(arr))
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return host
+    return host.pin_memory().to(dev, non_blocking=True)
+
+
+__all__ = ["resolve_device", "to_device"]

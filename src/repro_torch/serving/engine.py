@@ -20,7 +20,8 @@ max_len tokens, dense or INT8 per-head-group) and three step functions:
   ``use_fused_decode``), per-slot sampling parameters ride along as
   tensors, and one (S, 2) int32 tensor — token and finite-logit flag —
   crosses to the host per step. No other value of the step is read on the
-  host.
+  host, and each step function's inputs go up in one non-blocking copy
+  from pinned memory, so the host never waits on the card mid-step.
 
 The host-side :class:`~.scheduler.Scheduler` feeds it: FIFO admission onto
 the slot free-list, prompt-length buckets, retire on completion. Retired
@@ -45,6 +46,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import to_device
 from repro_torch.serving.kv_cache import (KVCacheConfig, cache_bytes,
                                           init_slot_cache, set_slot_rows,
                                           slot_rows, write_slot)
@@ -174,14 +176,35 @@ class Engine:
                 else time.perf_counter())
 
     # -- device helpers ----------------------------------------------------
-    def _t(self, arr) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(arr), device=self.device)
+    def _upload(self, *arrays) -> List[torch.Tensor]:
+        """A step's host inputs on the device in ONE non-blocking copy,
+        issued before the forward (:func:`~repro_torch.device.to_device`:
+        a pageable copy would make the host wait for the queued forward
+        before it could queue the sampler). Integer arrays come back as
+        int64, float32 arrays travel as their bits and come back as
+        float32; each in its own shape."""
+        flat = [np.asarray(a) for a in arrays]
+        buf = np.concatenate([
+            (a.view(np.int32) if a.dtype == np.float32 else a)
+            .astype(np.int64).ravel() for a in flat])
+        dev = to_device(buf, self.device)
+        out, off = [], 0
+        for a in flat:
+            part = dev[off:off + a.size].view(a.shape)
+            off += a.size
+            if a.dtype == np.float32:
+                part = part.to(torch.int32).view(torch.float32)
+            out.append(part)
+        return out
 
     def _prefill(self, tokens, lengths, slots, temps, topks, seeds):
         """Batched prefill of right-padded prompts into a dense mini-cache,
         first tokens sampled, spliced into ``slots`` (host ints)."""
         mcfg = self.model.cfg
         b, w = tokens.shape
+        tokens_d, lengths_d, temps_d, topks_d, seeds_d, steps_d = \
+            self._upload(tokens, lengths, temps, topks, seeds,
+                         np.zeros(b, np.int64))
         mini_dtype = torch.float32 if self.cfg.kv_quantized \
             else self.cfg.kv_dtype
         shape = (mcfg.num_layers, b, w, mcfg.num_kv_heads,
@@ -190,25 +213,22 @@ class Engine:
                 "v": torch.zeros(shape, dtype=mini_dtype, device=self.device),
                 "pos": 0}
         logits, mini = self.model.prefill_at(
-            self.params, {"tokens": self._t(tokens)}, mini,
-            lengths=self._t(lengths))
-        toks = sample_tokens(logits[:, 0, :], self._t(temps), self._t(topks),
-                             self._t(seeds), self._t(np.zeros(b, np.int64)),
-                             max_top_k=self.cfg.max_top_k)
+            self.params, {"tokens": tokens_d}, mini, lengths=lengths_d)
+        toks = sample_tokens(logits[:, 0, :], temps_d, topks_d, seeds_d,
+                             steps_d, max_top_k=self.cfg.max_top_k)
         write_slot(self.kv, slots, mini["k"], mini["v"])
         return toks
 
     def _chunk(self, tokens, start: int, length: int, slot: int,
                temp: float, topk: int, seed: int):
         """One chunk of a long prompt against slot ``slot``'s own rows."""
+        tokens_d, length_d, temp_d, topk_d, seed_d, step_d = self._upload(
+            tokens, [length], np.float32([temp]), [topk], [seed], [0])
         row = {"k": slot_rows(self.kv["k"], slot),
                "v": slot_rows(self.kv["v"], slot), "pos": start}
         logits, row = self.model.prefill_chunk(
-            self.params, {"tokens": self._t(tokens)}, row,
-            lengths=self._t([length]))
-        tok = sample_tokens(logits[:, 0, :], self._t([temp]),
-                            self._t([topk]), self._t([seed]),
-                            self._t(np.zeros(1, np.int64)),
+            self.params, {"tokens": tokens_d}, row, lengths=length_d)
+        tok = sample_tokens(logits[:, 0, :], temp_d, topk_d, seed_d, step_d,
                             max_top_k=self.cfg.max_top_k)
         set_slot_rows(self.kv["k"], slot, row["k"])
         set_slot_rows(self.kv["v"], slot, row["v"])
@@ -217,13 +237,13 @@ class Engine:
     def _decode(self) -> torch.Tensor:
         """One token for every slot → (S, 2) int32 [token, finite] on the
         device."""
-        cache = {"k": self.kv["k"], "v": self.kv["v"],
-                 "pos": self._t(self._pos)}
-        logits, _ = self.model.decode_step(
-            self.params, self._t(self._tok[:, None]), cache)
+        pos, tok, temps, topks, seeds, steps = self._upload(
+            self._pos, self._tok[:, None], self._temps, self._topks,
+            self._seeds, self._steps)
+        cache = {"k": self.kv["k"], "v": self.kv["v"], "pos": pos}
+        logits, _ = self.model.decode_step(self.params, tok, cache)
         lg = logits[:, 0, :]
-        tok = sample_tokens(lg, self._t(self._temps), self._t(self._topks),
-                            self._t(self._seeds), self._t(self._steps),
+        tok = sample_tokens(lg, temps, topks, seeds, steps,
                             max_top_k=self.cfg.max_top_k)
         ok = torch.isfinite(lg).all(dim=-1)
         return torch.stack([tok.to(torch.int32), ok.to(torch.int32)], dim=-1)

@@ -30,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels import impl
 
 # the reference divides by the constant 255 in its source; compiled (it
@@ -204,10 +204,9 @@ def write_slot(cache: dict, slots, k_new: torch.Tensor,
     if keep.size == 0 or w == 0:
         return cache
     dev = store.device
-    rows = torch.as_tensor(keep, device=dev)
-    idx = torch.as_tensor(slots[keep], device=dev)
+    rows, idx = to_device(np.stack([keep, slots[keep]]), dev)
     for name, new in (("k", k_new), ("v", v_new)):
-        new = new.index_select(1, rows.to(new.device))[:, :, :w]
+        new = new.index_select(1, rows)[:, :, :w]
         entry = cache[name]
         if isinstance(entry, QuantizedKV):
             qn = kv_quantize(new, entry.group_size)

@@ -13,6 +13,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from numpy.testing import assert_array_equal
 
 from repro.configs import get_tiny_config as jget_tiny
 from repro.models import build_model as jbuild
@@ -261,6 +262,24 @@ def test_fused_and_unfused_decode_give_equal_tokens(tiny, quant):
         runs.append({rid: r.tokens for rid, r in got.items()})
     assert runs[0] == runs[1]
     assert model.use_fused_decode is False          # the caller's model
+
+
+def test_step_inputs_upload_in_one_copy_with_exact_values(tiny):
+    """The step functions' packed upload gives back every array with its
+    shape and exact values: ints as int64, float32 bit for bit."""
+    cfg, model, params, _, _ = tiny
+    eng = Engine(model, params, EngineConfig(num_slots=4, max_len=32))
+    ints = np.array([[0, -7], [2**31 - 1, 2**40]], np.int64)
+    temps = np.float32([0.0, -0.0, 0.7, 1e-38, np.inf, np.nan])
+    toks = np.arange(6, dtype=np.int32)[:, None]
+    got = eng._upload(ints, temps, toks, [3])
+    assert [tuple(t.shape) for t in got] == [(2, 2), (6,), (6, 1), (1,)]
+    assert [t.dtype for t in got] == [torch.int64, torch.float32,
+                                      torch.int64, torch.int64]
+    assert_array_equal(got[0].numpy(), ints)
+    assert_array_equal(got[1].numpy().view(np.int32), temps.view(np.int32))
+    assert_array_equal(got[2].numpy(), toks)
+    assert int(got[3]) == 3
 
 
 def test_int8_cache_is_about_half_of_bf16(tiny):

@@ -14,6 +14,9 @@ from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.gpu
 
+# PyTorch's sync-debug warning at each wait of the host on the card
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
 
 @pytest.fixture
 def cuda():
@@ -196,3 +199,43 @@ def test_wrappers_refuse_mixed_devices(cuda):
     kv = torch.zeros(2, 8, 2, 16, device=cuda)
     with pytest.raises(ValueError):
         ops.decode_attn(q, kv, kv, torch.ones(2, dtype=torch.int32))
+
+
+def test_engine_waits_on_the_card_once_a_step(cuda):
+    """The engine reads one tensor on the host a decode step, a batched
+    prefill and a chunked prompt, and waits on the card nowhere else:
+    PyTorch's sync-debug mode warns at every wait. INT8 cache, so K5
+    (the chunked prompt) and K6 (every decode step) run."""
+    import warnings
+
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine, EngineConfig, GenerationRequest
+
+    cfg = get_tiny_config("llama32-1b")
+    model = build_model(cfg)
+    eng = Engine(model, model.init(0, device=cuda), EngineConfig(
+        num_slots=4, max_len=64, prompt_buckets=(8, 16), kv_quantized=True))
+    rng = np.random.default_rng(0)
+    reqs = [GenerationRequest(rid=i, prompt=rng.integers(
+                1, cfg.vocab_size, n).astype(np.int32), max_new_tokens=g)
+            for i, (n, g) in enumerate([(5, 6), (12, 4), (40, 5), (7, 8),
+                                        (3, 3)])]
+    eng.warmup(reqs)
+    ops.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for r in reqs:
+                eng.submit(r)
+            got = eng.run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    waits = [w for w in caught if SYNC_WARNING in str(w.message)]
+    assert len(waits) == (eng.decode_steps + eng.prefill_dispatches
+                          + eng.chunked_admitted)
+    assert eng.chunked_admitted == 1
+    assert sorted(len(r.tokens) for r in got if r.status == "ok") == \
+        [3, 4, 5, 6, 8]
+    assert ops.LAUNCHES["kv_dequant"] > 0 and ops.LAUNCHES["decode_attn"] > 0
