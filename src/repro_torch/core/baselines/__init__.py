@@ -1,3 +1,3 @@
-"""Baseline compression methods. The port has Wanda, AWP's pruning
-initializer; magnitude, RTN and AWQ are not ported yet."""
-from repro_torch.core.baselines import wanda  # noqa: F401  (registers wanda)
+"""Baseline compression methods: Wanda (also AWP's pruning initializer)
+and magnitude pruning. RTN, AWQ, SparseGPT and GPTQ are not ported yet."""
+from repro_torch.core.baselines import magnitude, wanda  # noqa: F401  (register)

@@ -6,7 +6,7 @@ folded in one at a time, so the calibration set is never materialized.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -37,20 +37,21 @@ def update(stats: CalibStats, acts: torch.Tensor) -> CalibStats:
 
 
 def covariance(stats: CalibStats, damp: float = 0.0) -> torch.Tensor:
-    """C = (1/n) Σ xᵀx, damped by ``damp·mean(diag(C))·I`` when ``damp``."""
+    """C = (1/n) Σ xᵀx, damped by ``damp·mean(diag(C))·I`` when ``damp``.
+    Broadcasts over leading batch dims: stacked stats give (B, d_in, d_in)."""
     n = torch.clamp(stats.n, min=1.0)
-    c = stats.c_sum / n
+    c = stats.c_sum / n[..., None, None]
     if damp:
         d_in = c.shape[-1]
         tr = torch.diagonal(c, dim1=-2, dim2=-1).sum(-1)
-        c = c + (damp * tr / d_in) * torch.eye(d_in, dtype=c.dtype,
-                                               device=c.device)
+        c = c + (damp * tr[..., None, None] / d_in) * torch.eye(
+            d_in, dtype=c.dtype, device=c.device)
     return c
 
 
 def act_mean_abs(stats: CalibStats) -> torch.Tensor:
     """Per-channel mean |x| (AWQ's activation scale)."""
-    return stats.abs_sum / torch.clamp(stats.n, min=1.0)
+    return stats.abs_sum / torch.clamp(stats.n, min=1.0)[..., None]
 
 
 def col_l2(stats: CalibStats) -> torch.Tensor:
@@ -59,5 +60,15 @@ def col_l2(stats: CalibStats) -> torch.Tensor:
         torch.diagonal(stats.c_sum, dim1=-2, dim2=-1), min=0.0))
 
 
+def stack_stats(stats_list: Sequence[CalibStats]) -> CalibStats:
+    """Stack B layers' stats into one batched CalibStats (leading dim B)."""
+    return CalibStats(*(torch.stack(xs) for xs in zip(*stats_list)))
+
+
+def slice_stats(stats: CalibStats, i) -> CalibStats:
+    """Item ``i`` of a stacked CalibStats (views, no host read)."""
+    return CalibStats(*(x[i] for x in stats))
+
+
 __all__ = ["CalibStats", "init", "update", "covariance", "act_mean_abs",
-           "col_l2"]
+           "col_l2", "stack_stats", "slice_stats"]

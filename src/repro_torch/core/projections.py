@@ -7,7 +7,9 @@ plain versions of the hand-written kernels K2 (``topk_row``) and K3
 they match ``repro/core/projections.py`` bit for bit: exact-k top-k with
 leftmost ties, and the min/max quantizer with half-to-even rounding
 (``torch.round``), IEEE f32 division by the scale, and the scale itself
-as the reference's compiled code computes it (:func:`inv_qmax`).
+as the reference's compiled code computes it (:func:`inv_qmax`). Leading
+dims are independent matrices throughout, so the batched engine projects a
+whole (B, d_out, d_in) stack in one call.
 """
 from __future__ import annotations
 
@@ -57,6 +59,35 @@ def topk_row_mask(z: torch.Tensor, k: int) -> torch.Tensor:
                                                device=z.device))
 
 
+def topk_matrix(z: torch.Tensor, k_total: int) -> torch.Tensor:
+    """Whole-matrix top-k (the unconstrained C_sparse variant of Eq. (1))."""
+    return topk_row(z.reshape(1, -1), k_total).reshape(z.shape)
+
+
+def prune_n_m(z: torch.Tensor, n: int = 2, m: int = 4) -> torch.Tensor:
+    """N:M structured sparsity (e.g. 2:4): keep the n largest |.| of every
+    m consecutive entries along d_in, ties to the lower index (the ranking
+    of ``jax.lax.top_k``). Leading dims are independent."""
+    d_in = z.shape[-1]
+    if d_in % m:
+        raise ValueError(f"d_in={d_in} not divisible by m={m}")
+    g = z.reshape(z.shape[:-1] + (d_in // m, m))
+    keep = n_m_keep(g.abs(), n)
+    return torch.where(keep, g, torch.zeros_like(g)).reshape(z.shape)
+
+
+def n_m_keep(score: torch.Tensor, n: int) -> torch.Tensor:
+    """Keep-mask of the n largest entries along the last (group) axis:
+    an entry's rank is the count of larger entries plus equal entries at
+    a lower index, and it is kept when that rank is below n."""
+    m = score.shape[-1]
+    a, b = score[..., :, None], score[..., None, :]        # (…, m, m): i, j
+    lower = torch.ones((m, m), dtype=torch.bool,
+                       device=score.device).tril(-1)        # j < i
+    rank = ((b > a) | ((b == a) & lower)).sum(dim=-1)
+    return rank < n
+
+
 def ramp_ratio(t: Union[int, torch.Tensor], target: float,
                ramp_iters: int) -> torch.Tensor:
     """Linear pruning-ratio schedule of the joint recipe (§4.3):
@@ -64,6 +95,19 @@ def ramp_ratio(t: Union[int, torch.Tensor], target: float,
     t = torch.as_tensor(t, dtype=torch.float32)
     frac = torch.clamp((t + 1.0) / float(ramp_iters), max=1.0)
     return target * frac
+
+
+def ramp_keep_k(t: int, target: float, ramp_iters: int, d_in: int) -> int:
+    """Kept entries per row at step ``t`` of the joint recipe's ramp:
+    round((1 − ratio(t)) · d_in), every operation in f32 as the reference
+    traces ``topk_row_dynamic(z, 1 − ramp_ratio(t, …))``. The step index is
+    a host integer here, so k is computed on the host (no device read) and
+    the exact-k projection :func:`topk_row` (kernel K2 on the card) keeps
+    the same entries as ``topk_row_dynamic``."""
+    f32 = np.float32
+    frac = min(f32(1.0), (f32(t) + f32(1.0)) / f32(ramp_iters))
+    keep = f32(1.0) - f32(target) * frac
+    return int(np.round(keep * f32(d_in)))
 
 
 def topk_row_dynamic(z: torch.Tensor,
@@ -86,17 +130,18 @@ def topk_row_dynamic(z: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class QuantParams(NamedTuple):
-    """Integer codes + affine dequant parameters for one weight matrix."""
-    q: torch.Tensor        # (d_out, n_groups, group) integer codes
-    scale: torch.Tensor    # (d_out, n_groups, 1) f32
-    zero: torch.Tensor     # (d_out, n_groups, 1) f32 (integer-valued)
+    """Integer codes + affine dequant parameters for one weight matrix
+    (or a stack of them: leading dims ride along)."""
+    q: torch.Tensor        # (…, d_out, n_groups, group) integer codes
+    scale: torch.Tensor    # (…, d_out, n_groups, 1) f32
+    zero: torch.Tensor     # (…, d_out, n_groups, 1) f32 (integer-valued)
 
 
 def _group(z: torch.Tensor, group_size: int) -> torch.Tensor:
-    d_out, d_in = z.shape
+    d_in = z.shape[-1]
     if d_in % group_size:
         raise ValueError(f"d_in={d_in} not divisible by group {group_size}")
-    return z.reshape(d_out, d_in // group_size, group_size)
+    return z.reshape(z.shape[:-1] + (d_in // group_size, group_size))
 
 
 def inv_qmax(bits: int) -> float:
@@ -127,8 +172,7 @@ def quant_params(z: torch.Tensor, bits: int,
 
 def dequant(qp: QuantParams, dtype=torch.float32) -> torch.Tensor:
     g = (qp.q.to(torch.float32) - qp.zero) * qp.scale
-    d_out, n_groups, group = g.shape
-    return g.reshape(d_out, n_groups * group).to(dtype)
+    return g.reshape(g.shape[:-2] + (g.shape[-2] * g.shape[-1],)).to(dtype)
 
 
 def quant_project(z: torch.Tensor, bits: int,
@@ -137,5 +181,16 @@ def quant_project(z: torch.Tensor, bits: int,
     return dequant(quant_params(z, bits, group_size), dtype=z.dtype)
 
 
-__all__ = ["QuantParams", "inv_qmax", "topk_row", "topk_row_mask", "ramp_ratio",
-           "topk_row_dynamic", "quant_params", "dequant", "quant_project"]
+def joint_project(z: torch.Tensor, keep_ratio: Union[float, torch.Tensor],
+                  bits: int, group_size: int = 128) -> torch.Tensor:
+    """Joint prune+quant projection of §4.3, Proj_INTb(Proj_row(Z)): prune
+    to the support, quantize, re-apply the mask (the group zero point can
+    move a pruned zero off zero)."""
+    pruned = topk_row_dynamic(z, keep_ratio)
+    return quant_project(pruned, bits, group_size) * (pruned != 0)
+
+
+__all__ = ["QuantParams", "inv_qmax", "topk_row", "topk_row_mask",
+           "topk_matrix", "prune_n_m", "n_m_keep", "ramp_ratio", "ramp_keep_k",
+           "topk_row_dynamic", "quant_params", "dequant", "quant_project",
+           "joint_project"]

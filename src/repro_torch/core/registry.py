@@ -8,7 +8,9 @@ where ``w_paper`` is the weight in paper orientation (d_out, d_in),
 ``stats`` the layer's :class:`repro_torch.core.calibration.CalibStats`, and
 ``spec`` a :class:`repro_torch.core.specs.CompressSpec`. ``compress_model``
 dispatches to it through any policy naming it. The port registers
-``awp_prune``, ``awp_quant`` and ``wanda``.
+``awp_prune``, ``awp_prune_nm``, ``awp_quant``, ``awp_joint``, ``wanda`` and
+``magnitude``; each also has a batched form (:func:`register_batched`) that
+the batched engine (``core/batched.py``) runs over a whole shape bucket.
 """
 from __future__ import annotations
 
@@ -46,6 +48,8 @@ class _Entry:
 
 
 _REGISTRY: Dict[str, _Entry] = {}
+_BATCHED: Dict[str, Callable] = {}
+_BUILTINS_LOADED = False
 
 
 def register(name: str, *, spec_cls: type = JointSpec) -> Callable[[Method], Method]:
@@ -56,10 +60,31 @@ def register(name: str, *, spec_cls: type = JointSpec) -> Callable[[Method], Met
     return deco
 
 
+def register_batched(name: str) -> Callable[[Callable], Callable]:
+    """Decorator: register a *batched* implementation of method ``name``,
+
+        batched(w_b, c_b, stats_b, spec) -> List[CompressResult]   # len B
+
+    over a bucket of B same-shape linears sharing one spec: ``w_b`` is
+    (B, d_out, d_in), ``c_b`` the (B, d_in, d_in) damped covariances (built
+    once by the engine and reused for the loss), ``stats_b`` the stacked
+    :class:`CalibStats`. A method without one still runs in the batched
+    engine, per layer."""
+    def deco(fn: Callable) -> Callable:
+        _BATCHED[name] = fn
+        return fn
+    return deco
+
+
 def _load_builtins() -> None:
-    """Import the modules that register the built-in methods."""
-    import repro_torch.core.awp        # noqa: F401  (awp_prune, awp_quant)
-    import repro_torch.core.baselines  # noqa: F401  (wanda)
+    """Import the modules that register the built-in methods (once)."""
+    global _BUILTINS_LOADED
+    if _BUILTINS_LOADED:
+        return
+    import repro_torch.core.awp        # noqa: F401  (awp_*)
+    import repro_torch.core.baselines  # noqa: F401  (wanda, magnitude)
+    import repro_torch.core.batched    # noqa: F401  (the batched forms)
+    _BUILTINS_LOADED = True            # only after every import succeeded
 
 
 def _lookup(name: str) -> _Entry:
@@ -74,6 +99,14 @@ def _lookup(name: str) -> _Entry:
 
 def get_method(name: str) -> Method:
     return _lookup(name).fn
+
+
+def get_batched(name: str) -> Optional[Callable]:
+    """Batched implementation of ``name``, or None (the engine then runs
+    the method per layer)."""
+    _lookup(name)                      # unknown names raise
+    _load_builtins()
+    return _BATCHED.get(name)
 
 
 def spec_cls_for(name: str) -> type:
@@ -98,5 +131,6 @@ def available() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-__all__ = ["CompressResult", "Method", "register", "get_method",
-           "spec_cls_for", "validate_spec", "available"]
+__all__ = ["CompressResult", "Method", "register", "register_batched",
+           "get_method", "get_batched", "spec_cls_for", "validate_spec",
+           "available"]

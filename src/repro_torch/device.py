@@ -32,4 +32,23 @@ def to_device(arr, device) -> torch.Tensor:
     return host.pin_memory().to(dev, non_blocking=True)
 
 
-__all__ = ["resolve_device", "to_device"]
+def to_host(tensors) -> list:
+    """Numpy copies of device tensors in ONE device-to-host transfer (one
+    wait of the host on the card): their bytes are concatenated on the
+    device, copied once, and cut apart on the host."""
+    if not tensors:
+        return []
+    flat = [t.detach().contiguous().reshape(-1) for t in tensors]
+    raw = torch.cat([f.to(torch.uint8) if f.dtype == torch.bool
+                     else f.view(torch.uint8) for f in flat]).cpu().numpy()
+    out, off = [], 0
+    for t in tensors:
+        dtype = (np.dtype(np.bool_) if t.dtype == torch.bool
+                 else torch.empty((), dtype=t.dtype).numpy().dtype)
+        nbytes = t.numel() * dtype.itemsize
+        out.append(raw[off:off + nbytes].view(dtype).reshape(t.shape))
+        off += nbytes
+    return out
+
+
+__all__ = ["resolve_device", "to_device", "to_host"]

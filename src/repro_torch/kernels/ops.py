@@ -6,7 +6,8 @@ and raises if the launch reports an error. A tensor on the CPU takes the
 plain version in :mod:`repro_torch.kernels.ref` (that is the only reason
 the plain version runs); a CUDA tensor launches the kernel or raises.
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that its
-main path went through the kernels.
+main path went through the kernels; a batched (3-D) call of
+:func:`awp_pgd_step` is K1b and counts under ``awp_pgd_step_batched``.
 
 TF32 is switched off for the whole port at import: the PGD stop rule sits
 at tol 1e-4 on ‖∇f‖/‖W‖ (``repro/core/awp.py:46``) and TF32's 10-bit
@@ -22,8 +23,8 @@ from repro_torch.kernels import ref
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-KERNELS = ("awp_pgd_step", "topk_row", "quant_project", "dequant_matmul",
-           "kv_dequant", "decode_attn")
+KERNELS = ("awp_pgd_step", "awp_pgd_step_batched", "topk_row",
+           "quant_project", "dequant_matmul", "kv_dequant", "decode_attn")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -68,9 +69,10 @@ def awp_pgd_step(w, theta, c, eta):
     """K1: Z = Θ + η (W − Θ) C, and ‖(W − Θ) C‖_F summed from the kernel's
     per-tile f32 partials.
 
-    (M, K) operands with a scalar η, or batched (B, M, K) / (B, K, K) with
-    η of shape (B,) or scalar. η is a tensor on the operands' device, read
-    by the kernel from device memory (no host sync)."""
+    (M, K) operands with a scalar η (K1), or batched (B, M, K) / (B, K, K)
+    with η of shape (B,) or scalar and a norm per item (K1b: the same
+    kernel over a batch grid dimension). η is a tensor on the operands'
+    device, read by the kernel from device memory (no host sync)."""
     eta = torch.as_tensor(eta, dtype=torch.float32, device=w.device)
     if not _on_card("awp_pgd_step", w, theta, c, eta):
         return ref.awp_pgd_step(w, theta, c, eta)
@@ -92,22 +94,39 @@ def awp_pgd_step(w, theta, c, eta):
     z = torch.empty_like(w)
     partials = torch.empty((b, -(-m // bm), -(-k // bn)),
                            dtype=torch.float32, device=w.device)
-    _launch("awp_pgd_step", "awp_pgd_step_f32", w.data_ptr(),
+    _launch("awp_pgd_step_batched" if batched else "awp_pgd_step",
+            "awp_pgd_step_f32", w.data_ptr(),
             theta.data_ptr(), c.data_ptr(), eta_b.data_ptr(), z.data_ptr(),
             partials.data_ptr(), b, m, k)
     norm = torch.sqrt(partials.sum(dim=(-2, -1)))
     return z, (norm if batched else norm[0])
 
 
+def awp_pgd_step_batched(w, theta, c, eta):
+    """K1b: :func:`awp_pgd_step` over a (B, M, K) stack with (B, K, K)
+    covariances and η (B,) — the TPU's ``_step_batched`` — returning Z and
+    the (B,) norms."""
+    if w.dim() != 3:
+        raise ValueError(f"awp_pgd_step_batched: w must be 3-D, got {w.dim()}")
+    return awp_pgd_step(w, theta, c, eta)
+
+
+def _rows(name: str, z):
+    """(rows, d) of ``z`` (…, d): leading dims are rows. A non-contiguous
+    ``z`` raises rather than being copied."""
+    if z.dim() < 2:
+        raise ValueError(f"{name}: z must have 2 or more dims, got {z.dim()}")
+    _check(f"{name}.z", z, torch.float32, z.shape)
+    return z.numel() // z.shape[-1], z.shape[-1]
+
+
 def topk_row(z, k: int):
     """K2: keep the k largest |z| of each row (exactly k, lower index wins
-    ties), zero the rest. z: (rows, d) f32."""
+    ties), zero the rest. z: (…, d) f32, contiguous; leading dims are rows
+    (a (B, M, d) stack runs as B·M rows in one launch)."""
     if not _on_card("topk_row", z):
         return ref.topk_row(z, k)
-    if z.dim() != 2:
-        raise ValueError(f"topk_row: z must be 2-D, got {z.dim()}")
-    rows, d = z.shape
-    _check("topk_row.z", z, torch.float32, z.shape)
+    rows, d = _rows("topk_row", z)
     if k >= d:
         return z
     if k <= 0:
@@ -120,13 +139,11 @@ def topk_row(z, k: int):
 
 def quant_project(z, bits: int, group_size: int = 128):
     """K3: group-wise asymmetric INT-``bits`` quantize-dequantize of z
-    (rows, d) f32 with groups of ``group_size`` along d."""
+    (…, d) f32, contiguous, with groups of ``group_size`` along d; leading
+    dims are rows."""
     if not _on_card("quant_project", z):
         return ref.quant_project(z, bits, group_size)
-    if z.dim() != 2:
-        raise ValueError(f"quant_project: z must be 2-D, got {z.dim()}")
-    rows, d = z.shape
-    _check("quant_project.z", z, torch.float32, z.shape)
+    rows, d = _rows("quant_project", z)
     if d % group_size or not 1 <= bits <= 16:
         raise ValueError(f"quant_project: d={d}, group={group_size}, "
                          f"bits={bits} not supported")
@@ -237,6 +254,7 @@ def decode_attn(q, k, v, lengths, k_scale=None, k_zero=None, v_scale=None,
     return out
 
 
-__all__ = ["KERNELS", "LAUNCHES", "awp_pgd_step", "decode_attn",
+__all__ = ["KERNELS", "LAUNCHES", "awp_pgd_step", "awp_pgd_step_batched",
+           "decode_attn",
            "dequant_matmul", "kv_dequant", "quant_project", "reset_launches",
            "topk_row"]

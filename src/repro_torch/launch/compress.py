@@ -10,7 +10,8 @@ JSON of ``Policy.to_dict`` that both packages read, e.g.
              "default": {"kind": "QuantSpec", "bits": 4}}'
 
 Compresses the random init of ``--seed`` (loading a trained checkpoint is
-not ported) with the sequential driver, prints the per-layer losses and
+not ported) with the batched engine (``--engine sequential`` for the
+layer-at-a-time reference driver), prints the per-layer losses and
 saves the compressed params: packed QTensor codes included with
 ``--save-packed``, in the checkpoint format of the JAX package.
 """
@@ -61,6 +62,10 @@ def main(argv=None):
     ap.add_argument("--out", default="results/compressed_ckpt_torch")
     ap.add_argument("--save-packed", action="store_true",
                     help="store quantized layers as packed QTensor codes")
+    ap.add_argument("--engine", default="batched",
+                    choices=("batched", "sequential"),
+                    help="shape-bucketed batched engine (default) or the "
+                         "layer-at-a-time reference driver")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -74,7 +79,8 @@ def main(argv=None):
     calib = [{"tokens": torch.as_tensor(t, device=dev)}
              for t, _ in calibration_batches(dc, args.calib_batches)]
     policy = build_policy(args)
-    cp, report = compress_model(model, params, calib, policy, verbose=True)
+    cp, report = compress_model(model, params, calib, policy, verbose=True,
+                                engine=args.engine)
     print("[compress] " + report.summary().replace("\n", "\n[compress] "))
     if args.save_packed and report.packed_layers():
         path = save_packed_checkpoint(args.out, 0, cp, report)

@@ -124,6 +124,71 @@ def test_quantize_matches_jax(bits):
                         rtol=1e-5, atol=1e-7)
 
 
+@pytest.mark.parametrize("scale,k,iters", [
+    (6e-4, 90, 21), (1e-3, 100, 25), (7e-4, 90, 40), (1.0, 64, 200)])
+def test_prune_iteration_counts_match_jax_across_chunks(scale, k, iters):
+    """The port's loop reads the norm on the host once per chunk of
+    ``PGD_CHUNK_ITERS`` masked steps: a layer that converges inside the
+    first chunk, at its last step, inside the second, or never (the cap)
+    stops at JAX's ``while_loop`` count with its θ and norm."""
+    assert awp.PGD_CHUNK_ITERS == 25
+    w, x = _problem(32, 128, seed=3)
+    c = (x.T @ x / x.shape[0] * scale).astype(np.float32)
+    jres = jawp.prune(jnp.asarray(w), jnp.asarray(c), k)
+    res = awp.prune(torch.from_numpy(w), torch.from_numpy(c), k)
+    assert int(res.iters) == int(jres.iters) == iters
+    assert_allclose(res.theta.numpy(), np.asarray(jres.theta),
+                    rtol=2e-4, atol=2e-4)
+    assert_allclose(float(res.grad_norm), float(jres.grad_norm), rtol=2e-4)
+
+
+@pytest.mark.parametrize("nm", [(2, 4), (1, 8)])
+def test_prune_n_m_matches_jax(nm):
+    w, x = _problem(32, 128, seed=6)
+    c = (x.T @ x / x.shape[0]).astype(np.float32)
+    jres = jawp.prune(jnp.asarray(w), jnp.asarray(c), 64, nm=nm)
+    res = awp.prune(torch.from_numpy(w), torch.from_numpy(c), 64, nm=nm)
+    assert int(res.iters) == int(jres.iters)
+    assert_allclose(res.theta.numpy(), np.asarray(jres.theta),
+                    rtol=2e-4, atol=2e-4)
+    assert_array_equal(res.theta.numpy() != 0, np.asarray(jres.theta) != 0)
+    n, m = nm
+    assert ((res.theta.reshape(32, -1, m) != 0).sum(-1) <= n).all()
+
+
+@pytest.mark.parametrize("k,bits", [(64, 4), (40, 3)])
+def test_joint_matches_jax(k, bits):
+    w, x = _problem(32, 256, seed=7)
+    c = (x.T @ x / x.shape[0]).astype(np.float32)
+    jres = jawp.joint(jnp.asarray(w), jnp.asarray(c), k, bits, group_size=64)
+    res = awp.joint(torch.from_numpy(w), torch.from_numpy(c), k, bits,
+                    group_size=64)
+    assert int(res.iters) == int(jres.iters) == 100
+    assert_allclose(res.theta.numpy(), np.asarray(jres.theta),
+                    rtol=2e-4, atol=2e-4)
+    assert_array_equal(res.theta.numpy() != 0, np.asarray(jres.theta) != 0)
+    assert ((res.theta != 0).sum(-1) <= k).all()
+
+
+def test_baselines_n_m_and_magnitude_match_jax():
+    from repro.core.baselines import magnitude as jmagnitude
+    from repro_torch.core.baselines import magnitude
+    w, x = _problem(16, 64, seed=8)
+    c = x.T @ x / x.shape[0]
+    for n, m in ((2, 4), (1, 4), (3, 8)):
+        want = np.asarray(jwanda.prune_weight_n_m(jnp.asarray(w),
+                                                  jnp.asarray(c), n, m))
+        got = wanda.prune_weight_n_m(torch.from_numpy(w), torch.from_numpy(c),
+                                     n, m).numpy()
+        assert_array_equal(got, want)
+        assert_array_equal(np.signbit(got), np.signbit(want))
+    for k, per_row in ((1, True), (20, True), (20, False)):
+        want = np.asarray(jmagnitude.prune_weight(jnp.asarray(w), k,
+                                                  per_row=per_row))
+        got = magnitude.prune_weight(torch.from_numpy(w), k, per_row=per_row)
+        assert_array_equal(got.numpy(), want)
+
+
 def test_pgd_stops_on_nan_like_while_loop():
     """A NaN gradient norm ends the loop after that step, as in
     ``lax.while_loop`` (``nan >= tol`` is false)."""
@@ -139,12 +204,16 @@ def test_pgd_stops_on_nan_like_while_loop():
 
 @pytest.mark.parametrize("method,spec_kw", [
     ("awp_prune", {"ratio": 0.5}), ("wanda", {"ratio": 0.7}),
-    ("awp_quant", {"bits": 4, "group_size": 64})])
+    ("awp_quant", {"bits": 4, "group_size": 64}),
+    ("awp_prune_nm", {"nm": (2, 4)}),
+    ("awp_joint", {"ratio": 0.5, "bits": 4, "group_size": 64}),
+    ("wanda", {"nm": (2, 4)}), ("magnitude", {"ratio": 0.6})])
 def test_registry_adapters_match_jax(method, spec_kw):
     w, x = _problem(32, 128, seed=5)
     st_j, st_t = _both_stats(x)
-    cls = specs.QuantSpec if "bits" in spec_kw else specs.PruneSpec
-    jcls = jspecs.QuantSpec if "bits" in spec_kw else jspecs.PruneSpec
+    kind = ("JointSpec" if {"bits", "ratio"} <= set(spec_kw) else
+            "QuantSpec" if "bits" in spec_kw else "PruneSpec")
+    cls, jcls = getattr(specs, kind), getattr(jspecs, kind)
     res = registry.get_method(method)(torch.from_numpy(w), st_t,
                                       cls(method=method, **spec_kw))
     jres = jreg.get_method(method)(jnp.asarray(w), st_j,
@@ -185,4 +254,6 @@ def test_policy_and_specs_match_jax():
     registry.validate_spec(specs.QuantSpec())
     with pytest.raises(ValueError):
         registry.validate_spec(specs.QuantSpec(method="no_such_method"))
-    assert set(registry.available()) == {"awp_prune", "awp_quant", "wanda"}
+    assert set(registry.available()) == {"awp_prune", "awp_prune_nm",
+                                         "awp_quant", "awp_joint", "wanda",
+                                         "magnitude"}

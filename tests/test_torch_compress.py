@@ -64,7 +64,8 @@ def compressed():
     wo_before = params["blocks"]["attn"]["wo"].clone()
     jout = jcompress_model(jmodel, jparams, jcal, _policy(jspecs),
                            engine="sequential")
-    out = compress_model(model, params, cal, _policy(specs))
+    out = compress_model(model, params, cal, _policy(specs),
+                         engine="sequential")
     return {"model": model, "jmodel": jmodel, "params": params,
             "wo_before": wo_before, "jout": jout, "out": out}
 
@@ -176,4 +177,4 @@ def test_compress_and_serve_clis_on_cpu(tmp_path):
     assert seqs.shape == (2, 4)
     with pytest.raises(ValueError):
         compress_model(build_model(get_tiny_config(ARCH)), {}, [],
-                       specs.QuantSpec(), engine="batched")
+                       specs.QuantSpec(), engine="bogus")

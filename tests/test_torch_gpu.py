@@ -50,11 +50,64 @@ def test_awp_pgd_step_matches_plain(cuda, shape):
         eta = torch.tensor([0.3, 0.5, 0.7], device=cuda)
     else:
         eta = torch.tensor(0.4, device=cuda)
-    z, nrm = _launched("awp_pgd_step", lambda: ops.awp_pgd_step(
-        w, theta, c, eta))
+    # a 3-D call is K1b and counts under its own key
+    key = "awp_pgd_step_batched" if len(shape) == 3 else "awp_pgd_step"
+    z, nrm = _launched(key, lambda: ops.awp_pgd_step(w, theta, c, eta))
     z_ref, nrm_ref = ref.awp_pgd_step(w, theta, c, eta)
     torch.testing.assert_close(z, z_ref, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(nrm, nrm_ref, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("m,k", [(96, 160), (200, 136)])
+def test_awp_pgd_step_batched_distinct_eta(cuda, m, k):
+    """K1b at B = 2 with a different η per item (an indexing fault in the
+    batch dimension shows), each item against its own 2-D plain step."""
+    rng = np.random.default_rng(8)
+    w, theta = _randn(rng, (2, m, k), cuda), _randn(rng, (2, m, k), cuda)
+    c = _randn(rng, (2, k, k), cuda) / np.sqrt(k)
+    eta = 2.0 / torch.linalg.matrix_norm(c)                # (2,), distinct
+    assert float(eta[0]) != float(eta[1])
+    before = ops.LAUNCHES["awp_pgd_step"]
+    z, nrm = _launched("awp_pgd_step_batched",
+                       lambda: ops.awp_pgd_step_batched(w, theta, c, eta))
+    assert ops.LAUNCHES["awp_pgd_step"] == before
+    for i in range(2):
+        z_i, nrm_i = ref.awp_pgd_step(w[i], theta[i], c[i], eta[i])
+        torch.testing.assert_close(z[i], z_i, rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(nrm[i], nrm_i, rtol=1e-5, atol=0)
+
+
+def test_prune_batched_compacted_on_the_card(cuda):
+    """The compacting batched prune on the card (K1b and K2) against the
+    same run through the plain versions: equal iteration counts (items that
+    converge in a few steps and items that run to the cap), masks equal on
+    ≥ 99.9% of entries, losses within 1e-5 (the repo's compression bars:
+    the two sum the step's products in other orders)."""
+    from repro_torch import kernels
+    from repro_torch.core import awp, batched
+    rng = np.random.default_rng(9)
+    b, d_out, d_in, k = 4, 96, 256, 128
+    w = rng.standard_normal((b, d_out, d_in)).astype(np.float32)
+    x = rng.standard_normal((b, 512, d_in)).astype(np.float32)
+    x[1] *= 1e-4                          # converges in the first chunk
+    c = np.einsum("bti,btj->bij", x, x) / 512
+    w, c = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (w, c))
+    ops.reset_launches()
+    got = batched.prune_batched_compacted(w, c, k)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["awp_pgd_step_batched"] > 0
+    assert ops.LAUNCHES["topk_row"] > 0
+    ops.reset_launches()
+    with kernels.use_impl("reference"):
+        want = batched.prune_batched_compacted(w, c, k)
+    assert not any(ops.LAUNCHES.values())
+    assert torch.equal(got.iters, want.iters)
+    assert got.iters.tolist()[1] < 25 and max(got.iters.tolist()) == 200
+    agree = ((got.theta != 0) == (want.theta != 0)).float().mean()
+    assert float(agree) >= 0.999
+    loss = awp.activation_loss_batched(w, got.theta, c)
+    loss_ref = awp.activation_loss_batched(w, want.theta, c)
+    assert float((loss - loss_ref).abs().max()) <= 1e-5
 
 
 # K2 and K3 are exact: same keep-set, same bits as the plain versions.
