@@ -19,8 +19,9 @@ d_model 2048, d_ff 8192, padded vocab 129024, random weights from a seed):
      more batched compression in PyTorch's sync-debug mode counts the
      host's waits on the card per block;
   2. the paper's Table-1 prune policy (every linear AWP-pruned to 50%) on
-     blocks 0 and 1 with both engines on the kernels: buckets {wq, wo},
-     {wk, wv}, {wg, wu} through the compacting batched prune, wd alone;
+     blocks 0 and 1 with both engines on the kernels, the sequential one
+     held to the batched one: buckets {wq, wo}, {wk, wv}, {wg, wu} through
+     the compacting batched prune, wd alone;
   3. the continuous-batching engine on the packed model of 1: 8 slots of
      2048 tokens, an INT8 KV cache, prompt buckets 64..512, a 24-request
      Zipf trace plus two long prompts (1536 and 1900 tokens) that stream
@@ -30,8 +31,8 @@ d_model 2048, d_ff 8192, padded vocab 129024, random weights from a seed):
 Each path runs through the kernels, with every launch count set to 0 just
 before and read just after, and the script checks that every kernel of
 the path was launched, that no other was, and that the outputs are finite
-and well-formed. Paths 1 and 3 also run through the kernels' plain
-versions, timed beside them and held to the repo's parity bars. One more
+and well-formed. Every path also runs through the kernels' plain
+versions, held to the repo's parity bars (and paths 1 and 3 timed). One more
 engine run through the kernels, in sync-debug mode and apart from the
 timed ones, must show the host waiting on the card exactly once a decode
 step, batched prefill and chunked prompt. This first process, with every
@@ -288,9 +289,13 @@ def phase_kernels(torch, dev):
     rows["awp_pgd_step"]["max_abs_err"] = k1_err
     rows["awp_pgd_step_batched"] = check_k1b(torch, randn)
 
-    # -- K2: exact top-k per row: the wo shape, ties, one 73728-wide row --
+    # -- K2: exact top-k per row: the wo shape, ties, the Table-1 prune's
+    # wd rows (d_in 8192) and a bucket's (B, M, d) stack as the batched
+    # engine hands it over, one 73728-wide row --
     for name, z, k in (
             ("wo (2048, 2048)", randn(2048, 2048), 1024),
+            ("wd (2048, 8192)", randn(2048, 8192), 4096),
+            ("stack (2, 2048, 2048)", randn(2, 2048, 2048), 1024),
             ("ties (2048, 2048)", torch.randint(-8, 9, (2048, 2048),
                                                 generator=gen, device=dev
                                                 ).float(), 1024),
@@ -397,8 +402,8 @@ def check_k1b(torch, randn):
         c[1] *= 1.7
         eta = 2.0 / torch.linalg.matrix_norm(c)                   # (B,)
         check(len(set(eta.tolist())) == b, f"K1b {(b, m, k)}: η not distinct")
-        z, nrm = ops.awp_pgd_step_batched(w, theta, c, eta)
-        z_ref, nrm_ref = ref.awp_pgd_step_batched(w, theta, c, eta)
+        z, nrm = ops.awp_pgd_step(w, theta, c, eta)            # K1b: 3-D
+        z_ref, nrm_ref = ref.awp_pgd_step(w, theta, c, eta)
         err = float((z - z_ref).abs().max())
         scale = float(z_ref.abs().max())
         nerr = float(((nrm - nrm_ref).abs() / nrm_ref).max())
@@ -406,16 +411,15 @@ def check_k1b(torch, randn):
               f"K1b {(b, m, k)}: max|dZ| {err:.3e} (|Z| {scale:.3e}), "
               f"norm rel err {nerr:.3e}")
         err_all = max(err_all, err)
-        ms = time_ms(torch, lambda i: ops.awp_pgd_step_batched(
-            w, theta, c, eta), 5)
-        plain = time_ms(torch, lambda i: ref.awp_pgd_step_batched(
-            w, theta, c, eta), 5)
+        ms = time_ms(torch, lambda i: ops.awp_pgd_step(w, theta, c, eta), 5)
+        plain = time_ms(torch, lambda i: ref.awp_pgd_step(w, theta, c, eta),
+                        5)
         eta_f = float(eta[0])
         lib = time_ms(torch, lambda i: torch.baddbmm(
             theta, w - theta, c, alpha=eta_f), 5)
         bnd, by = bound_ms(2.0 * b * m * k * k,
                            4.0 * b * (3 * m * k + k * k))
-        log(f"[K1b] awp_pgd_step_batched {(b, m, k)}, η {eta.tolist()}: "
+        log(f"[K1b] awp_pgd_step {(b, m, k)}, η {eta.tolist()}: "
             f"max|dZ| {err:.2e} (|Z|max {scale:.2f}), norm rel err "
             f"{nerr:.1e}, kernel {ms:.3f} ms, plain {plain:.3f} ms, baddbmm "
             f"{lib:.3f} ms, bound {bnd:.3f} ms ({by}), "
@@ -782,6 +786,7 @@ def count_waits(torch, data, policy, tag):
     host's waits on the card per block and where each comes from (file and
     line of the call that waited)."""
     from collections import Counter
+    from repro_torch.core import awp
     from repro_torch.core.compress import compress_model
     model, params, calib, _ = data
     torch.cuda.synchronize()
@@ -807,8 +812,9 @@ def count_waits(torch, data, policy, tag):
         f"({starts[0]} before block 0); per block {per_block}; "
         f"{waits['other']} other warnings")
     # expected: the block's token counts and its end-of-block transfer,
-    # plus one read after each 25-step chunk of a prune that runs alone
-    # (the sequential loop; none after the chunk that ends at the cap)
+    # plus one read after each chunk of a prune that runs alone (the
+    # sequential loop; none after the chunk that ends at the cap)
+    chunk, cap = awp.PGD_CHUNK_ITERS, awp.PRUNE_CONFIG.max_iters
     expect = [2] * model.num_blocks()
     buckets = {}
     for r in report:
@@ -816,7 +822,7 @@ def count_waits(torch, data, policy, tag):
     for (block, method), layers in buckets.items():
         if method == "awp_prune" and len(layers) == 1:
             its = report.artifacts[layers[0].qualname].result.iters
-            expect[block] += min(math.ceil(its / 25), 200 // 25 - 1)
+            expect[block] += min(-(-its // chunk), -(-cap // chunk) - 1)
     check(per_block == expect, f"host waits per block {per_block}, "
                                f"expected {expect}")
     return per_block, report
@@ -859,7 +865,9 @@ def phase_prune_path(torch, cfg, data):
     """The Table-1 prune policy on blocks 0 and 1 at full width, which
     reaches ``prune_batched_compacted`` with buckets {wq, wo}, {wk, wv},
     {wg, wu} at B = 2 (wd alone): the batched engine on the kernels
-    (counted), then the sequential driver on the kernels, held to it."""
+    (counted), the same through the plain versions, held to it, then the
+    sequential driver on the kernels (counted), held to the batched one."""
+    from repro_torch import kernels
     from repro_torch.kernels import ops
     pol = policy_for("table1")
     ops.reset_launches()
@@ -869,18 +877,29 @@ def phase_prune_path(torch, cfg, data):
     log(f"[prune] launches on the prune path: {launches}")
     check_path(launches, PRUNE_PATH, "the prune path")
     ops.reset_launches()
+    with kernels.use_impl("reference"):
+        cp, rep_p, t_p = compress(torch, data, pol, "batched")
+    del cp
+    check(not any(ops.LAUNCHES.values()), "the plain prune run launched a "
+                                          "kernel")
+    plain = hold_reports(torch, rep_b, rep_p, "prune kernels-plain", 14,
+                         iters_equal=False)
+    ops.reset_launches()
     cp, rep_s, t_s = compress(torch, data, pol, "sequential")
     del cp
     seq_launches = dict(ops.LAUNCHES)
+    check_path(seq_launches, ("awp_pgd_step", "topk_row"),
+               "the sequential prune")
     held = hold_reports(torch, rep_b, rep_s, "engines table1", 14,
                         iters_equal=True)
     iters = {r.qualname: rep_b.artifacts[r.qualname].result.iters
              for r in rep_b}
     log(f"[prune] Table-1 policy, blocks 0-1: batched {t_b:.2f}s, "
-        f"sequential {t_s:.2f}s on the kernels; iterations {iters}; "
-        f"sequential launches {seq_launches}")
-    return launches, dict(batched_s=t_b, sequential_s=t_s, engines=held,
-                          iters=iters)
+        f"sequential {t_s:.2f}s on the kernels, batched plain {t_p:.2f}s; "
+        f"iterations {iters}; sequential launches {seq_launches}")
+    return launches, dict(batched_s=t_b, sequential_s=t_s,
+                          batched_plain_s=t_p, kernels_vs_plain=plain,
+                          engines=held, iters=iters)
 
 
 def engine_trace(cfg):

@@ -50,6 +50,10 @@ class PGDConfig:
     eta_scale: float = 2.0            # η = eta_scale / ‖C‖_F
 
 
+# §4.1: the prune recipe's loop, shared by the sequential and batched drivers
+PRUNE_CONFIG = PGDConfig(max_iters=200, tol=1e-4, eta_scale=2.0)
+
+
 def _eta(c: torch.Tensor, eta_scale: float) -> torch.Tensor:
     """η = eta_scale / ‖C‖_F; per item, (B,), for a (B, d, d) stack."""
     return eta_scale / torch.clamp(torch.linalg.matrix_norm(c), min=1e-12)
@@ -73,7 +77,7 @@ def _steps(w, c, eta, w_norm, project, theta, gnorm, iters, t0: int,
     only the steps an item took. The residual norm comes from the step's
     f32 accumulator (K1's tile partials on the card), never from
     ‖Z − Θ‖/η, which cancels near convergence. No host read."""
-    step = impl("awp_pgd_step_batched" if w.dim() == 3 else "awp_pgd_step")
+    step = impl("awp_pgd_step")              # K1b on a (B, d_out, d_in) stack
     for t in range(t0, t0 + n):
         active = gnorm >= tol
         z, resid_norm = step(w, theta, c, eta)
@@ -156,7 +160,8 @@ def prune_projection(k: int, nm: Optional[tuple] = None):
 
 
 def prune(w: torch.Tensor, c: torch.Tensor, k: int, *,
-          theta0: Optional[torch.Tensor] = None, max_iters: int = 200,
+          theta0: Optional[torch.Tensor] = None,
+          max_iters: int = PRUNE_CONFIG.max_iters,
           nm: Optional[tuple] = None) -> AWPResult:
     """§4.1 pruning recipe; ``k`` = kept entries per row = (1-p)·d_in.
     Θ⁰ defaults to the Wanda solution; ``nm=(2, 4)`` switches the
@@ -164,7 +169,7 @@ def prune(w: torch.Tensor, c: torch.Tensor, k: int, *,
     if theta0 is None:
         from repro_torch.core.baselines import wanda   # avoid import cycle
         theta0 = wanda.prune_weight(w, c, k)
-    cfg = PGDConfig(max_iters=max_iters, tol=1e-4, eta_scale=2.0)
+    cfg = dataclasses.replace(PRUNE_CONFIG, max_iters=max_iters)
     return pgd(w, c, prune_projection(k, nm), theta0, cfg)
 
 
@@ -226,15 +231,10 @@ def joint(w: torch.Tensor, c: torch.Tensor, k: int, bits: int = 4, *,
 
 def activation_loss(w: torch.Tensor, theta: torch.Tensor,
                     c: torch.Tensor) -> torch.Tensor:
-    """Public normalized activation-aware loss (Fig. 1 metric)."""
+    """Public normalized activation-aware loss (Fig. 1 metric); per item,
+    (B,), for (B, d_out, d_in) stacks."""
     return _loss(w.to(torch.float32), theta.to(torch.float32),
                  c.to(torch.float32))
-
-
-def activation_loss_batched(w_b: torch.Tensor, theta_b: torch.Tensor,
-                            c_b: torch.Tensor) -> torch.Tensor:
-    """Per-item Fig.-1 loss over a (B, d_out, d_in) stack, (B,)."""
-    return activation_loss(w_b, theta_b, c_b)
 
 
 # ---------------------------------------------------------------------------
@@ -292,7 +292,6 @@ def _awp_joint(w, stats, spec):
                                    aux={"covariance": c})
 
 
-__all__ = ["AWPResult", "PGDConfig", "PGD_CHUNK_ITERS", "pgd", "pgd_batched",
-           "prune", "prune_projection", "quantize", "joint",
-           "joint_projection", "joint_finish", "activation_loss",
-           "activation_loss_batched"]
+__all__ = ["AWPResult", "PGDConfig", "PGD_CHUNK_ITERS", "PRUNE_CONFIG", "pgd",
+           "pgd_batched", "prune", "prune_projection", "quantize", "joint",
+           "joint_projection", "joint_finish", "activation_loss"]

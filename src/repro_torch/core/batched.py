@@ -94,7 +94,7 @@ def _compress_bucket(bucket: List[LayerWork]):
     c_b = calib.covariance(stats_b, damp=spec.damp)     # once per bucket
     results = fn(w_b, c_b, stats_b, spec)
     theta_b = torch.stack([r.theta for r in results])
-    losses = awp.activation_loss_batched(w_b, theta_b, c_b)
+    losses = awp.activation_loss(w_b, theta_b, c_b)
     for r in results:
         r.aux.pop("covariance", None)
     return results, list(losses)
@@ -104,14 +104,12 @@ def _compress_bucket(bucket: List[LayerWork]):
 # batched recipes
 # ---------------------------------------------------------------------------
 
-def prune_batched(w_b, c_b, k: int, *, max_iters: int = 200,
-                  nm: Optional[tuple] = None) -> awp.AWPResult:
+def prune_batched(w_b, c_b, k: int, *, nm: Optional[tuple] = None
+                  ) -> awp.AWPResult:
     """§4.1 pruning recipe over a (B, d_out, d_in) stack (Wanda init), as
-    one run of ``max_iters`` masked steps."""
-    return _prune_chunk(w_b, c_b, None, k, iters=max_iters, nm=nm)
-
-
-PRUNE_CHUNK_ITERS = 25     # steps between the compacting driver's reads
+    one run of the recipe's 200 masked steps."""
+    return _prune_chunk(w_b, c_b, None, k, iters=awp.PRUNE_CONFIG.max_iters,
+                        nm=nm)
 
 
 def _prune_chunk(w_b, c_b, theta_b, k: int, *, iters: int,
@@ -122,63 +120,49 @@ def _prune_chunk(w_b, c_b, theta_b, k: int, *, iters: int,
     leaves every item's trajectory that of one uninterrupted run."""
     if theta_b is None:
         theta_b = _wanda.prune_weight(w_b, c_b, k)
-    cfg = awp.PGDConfig(max_iters=iters, tol=1e-4, eta_scale=2.0)
+    cfg = dataclasses.replace(awp.PRUNE_CONFIG, max_iters=iters)
     return awp.pgd_batched(w_b, c_b, awp.prune_projection(k, nm), theta_b,
                            cfg)
 
 
-def _pow2_pad(idx: np.ndarray) -> np.ndarray:
-    """``idx`` padded to the next power of two with copies of its first
-    entry: the copies compute independently and are discarded, and the
-    stack sizes stay in {1, 2, 4, …}, as the reference's compiled chunk
-    programs are."""
-    n = len(idx)
-    p = 1 if n <= 1 else 1 << (n - 1).bit_length()
-    return np.concatenate([idx, np.repeat(idx[:1], p - n)])
-
-
 def _take(x: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
     """Items ``idx`` (host integers) of a stack: basic-index views stacked
-    on the device, so no index tensor goes up to the card; the stack
-    itself when ``idx`` is all of it in order."""
-    if np.array_equal(idx, np.arange(x.shape[0])):
-        return x
+    on the device, so no index tensor goes up to the card."""
     return torch.stack([x[int(i)] for i in idx])
 
 
-def prune_batched_compacted(w_b, c_b, k: int, *, max_iters: int = 200,
-                            chunk_iters: int = PRUNE_CHUNK_ITERS,
-                            tol: float = 1e-4,
+def prune_batched_compacted(w_b, c_b, k: int, *,
                             nm: Optional[tuple] = None) -> awp.AWPResult:
     """§4.1 prune over a stack, re-compacted between chunks of
-    ``chunk_iters`` steps.
+    ``awp.PGD_CHUNK_ITERS`` steps.
 
     :func:`prune_batched` pays the whole stack's step until its last item
     converges. This driver reads the (B,) norms and iteration counts on the
     host once per chunk (one transfer), retires the items whose norm fell
-    below ``tol``, and restacks the rest (padded to a power of two), so the
-    late chunks pay only for the items still moving. Per-item results are
+    below the recipe's tol, and restacks the rest, so the late chunks pay
+    only for the items still moving. Per-item results are
     :func:`prune_batched`'s exactly: within a chunk the masking applies as
-    before, and the projection does not depend on the step index."""
+    before, and the projection does not depend on the step index. The
+    survivors are restacked as they are: the reference pads them to a power
+    of two to bound how many chunk shapes JAX compiles, and eager PyTorch
+    has no per-shape compile to bound."""
+    cfg = awp.PRUNE_CONFIG
     b = w_b.shape[0]
     theta_parts: Dict[int, torch.Tensor] = {}
     gnorm_parts: Dict[int, float] = {}
     iter_counts = np.zeros(b, np.int32)
     active = np.arange(b)
-    pad = _pow2_pad(active)
-    w_act, c_act = _take(w_b, pad), _take(c_b, pad)
-    theta_act = None                                  # Wanda init chunk
+    w_act, c_act, theta_act = w_b, c_b, None          # Wanda init chunk
     done = 0
-    while len(active) and done < max_iters:
-        it = min(chunk_iters, max_iters - done)
+    while len(active) and done < cfg.max_iters:
+        it = min(awp.PGD_CHUNK_ITERS, cfg.max_iters - done)
         res = _prune_chunk(w_act, c_act, theta_act, k, iters=it, nm=nm)
         done += it
-        n = len(active)
-        host = torch.stack([res.grad_norm[:n],
-                            res.iters[:n].to(torch.float32)]).cpu().numpy()
+        host = torch.stack([res.grad_norm,
+                            res.iters.to(torch.float32)]).cpu().numpy()
         gn = host[0]                                  # the chunk's one read
         iter_counts[active] += host[1].astype(np.int32)
-        conv = (gn < tol) | (done >= max_iters)
+        conv = (gn < cfg.tol) | (done >= cfg.max_iters)
         if not conv.any():                            # nothing retired:
             theta_act = res.theta                     # keep the stacks
             continue
@@ -188,9 +172,8 @@ def prune_batched_compacted(w_b, c_b, k: int, *, max_iters: int = 200,
         keep = np.nonzero(~conv)[0]
         active = active[keep]
         if len(active):
-            padk = _pow2_pad(keep)
-            w_act, c_act = _take(w_act, padk), _take(c_act, padk)
-            theta_act = _take(res.theta, padk)
+            w_act, c_act = _take(w_act, keep), _take(c_act, keep)
+            theta_act = _take(res.theta, keep)
     gnorms = np.array([gnorm_parts[i] for i in range(b)], np.float32)
     return awp.AWPResult(
         theta=torch.stack([theta_parts[i] for i in range(b)]),
@@ -209,8 +192,8 @@ def quantize_batched(w_b, c_b, bits: int, *, group_size: int = 128,
     res = awp.pgd_batched(w_b, c_b,
                           lambda z, t: quant_project(z, bits, group_size),
                           theta0, cfg)
-    better = (awp.activation_loss_batched(w_b, res.theta, c_b)
-              <= awp.activation_loss_batched(w_b, theta0, c_b))
+    better = (awp.activation_loss(w_b, res.theta, c_b)
+              <= awp.activation_loss(w_b, theta0, c_b))
     theta = torch.where(better[:, None, None], res.theta, theta0)
     return res._replace(theta=theta)
 
@@ -325,4 +308,4 @@ def _magnitude_b(w_b, c_b, stats_b, spec):
 
 __all__ = ["LayerWork", "bucket_key", "bucket_works", "compress_block",
            "prune_batched", "prune_batched_compacted", "quantize_batched",
-           "joint_batched", "PRUNE_CHUNK_ITERS"]
+           "joint_batched"]

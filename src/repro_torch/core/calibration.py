@@ -65,10 +65,5 @@ def stack_stats(stats_list: Sequence[CalibStats]) -> CalibStats:
     return CalibStats(*(torch.stack(xs) for xs in zip(*stats_list)))
 
 
-def slice_stats(stats: CalibStats, i) -> CalibStats:
-    """Item ``i`` of a stacked CalibStats (views, no host read)."""
-    return CalibStats(*(x[i] for x in stats))
-
-
 __all__ = ["CalibStats", "init", "update", "covariance", "act_mean_abs",
-           "col_l2", "stack_stats", "slice_stats"]
+           "col_l2", "stack_stats"]

@@ -181,16 +181,6 @@ def quant_project(z: torch.Tensor, bits: int,
     return dequant(quant_params(z, bits, group_size), dtype=z.dtype)
 
 
-def joint_project(z: torch.Tensor, keep_ratio: Union[float, torch.Tensor],
-                  bits: int, group_size: int = 128) -> torch.Tensor:
-    """Joint prune+quant projection of §4.3, Proj_INTb(Proj_row(Z)): prune
-    to the support, quantize, re-apply the mask (the group zero point can
-    move a pruned zero off zero)."""
-    pruned = topk_row_dynamic(z, keep_ratio)
-    return quant_project(pruned, bits, group_size) * (pruned != 0)
-
-
 __all__ = ["QuantParams", "inv_qmax", "topk_row", "topk_row_mask",
            "topk_matrix", "prune_n_m", "n_m_keep", "ramp_ratio", "ramp_keep_k",
-           "topk_row_dynamic", "quant_params", "dequant", "quant_project",
-           "joint_project"]
+           "topk_row_dynamic", "quant_params", "dequant", "quant_project"]

@@ -23,13 +23,15 @@ from repro_torch.kernels import ref
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-KERNELS = ("awp_pgd_step", "awp_pgd_step_batched", "topk_row",
-           "quant_project", "dequant_matmul", "kv_dequant", "decode_attn")
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+KERNELS = ("awp_pgd_step", "topk_row", "quant_project", "dequant_matmul",
+           "kv_dequant", "decode_attn")
+# launches per kernel: K1b (a 3-D awp_pgd_step) has its own count
+LAUNCHES = dict.fromkeys(("awp_pgd_step", "awp_pgd_step_batched")
+                         + KERNELS[1:], 0)
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
+    for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 
@@ -100,15 +102,6 @@ def awp_pgd_step(w, theta, c, eta):
             partials.data_ptr(), b, m, k)
     norm = torch.sqrt(partials.sum(dim=(-2, -1)))
     return z, (norm if batched else norm[0])
-
-
-def awp_pgd_step_batched(w, theta, c, eta):
-    """K1b: :func:`awp_pgd_step` over a (B, M, K) stack with (B, K, K)
-    covariances and η (B,) — the TPU's ``_step_batched`` — returning Z and
-    the (B,) norms."""
-    if w.dim() != 3:
-        raise ValueError(f"awp_pgd_step_batched: w must be 3-D, got {w.dim()}")
-    return awp_pgd_step(w, theta, c, eta)
 
 
 def _rows(name: str, z):
@@ -254,7 +247,6 @@ def decode_attn(q, k, v, lengths, k_scale=None, k_zero=None, v_scale=None,
     return out
 
 
-__all__ = ["KERNELS", "LAUNCHES", "awp_pgd_step", "awp_pgd_step_batched",
-           "decode_attn",
+__all__ = ["KERNELS", "LAUNCHES", "awp_pgd_step", "decode_attn",
            "dequant_matmul", "kv_dequant", "quant_project", "reset_launches",
            "topk_row"]

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the hand-written kernels K1–K6 (and K1b, the
-batched K1).
+"""Plain PyTorch versions of the hand-written kernels K1–K6 (K1b, the
+batched K1, is :func:`awp_pgd_step` on a stack).
 
 Each has the signature of its wrapper in :mod:`repro_torch.kernels.ops`, so
 the two are interchangeable: the wrappers take these on CPU tensors, the
@@ -24,11 +24,6 @@ def awp_pgd_step(w, theta, c, eta):
     scale = eta.reshape(-1, 1, 1) if w.dim() == 3 else eta
     z = (theta.float() + scale * resid).to(w.dtype)
     return z, torch.linalg.vector_norm(resid, dim=(-2, -1))
-
-
-def awp_pgd_step_batched(w, theta, c, eta):
-    """The batched form of :func:`awp_pgd_step` (K1b's plain version)."""
-    return awp_pgd_step(w, theta, c, eta)
 
 
 def topk_row(z, k: int):
@@ -120,6 +115,5 @@ def decode_attn(q, k, v, lengths, k_scale=None, k_zero=None, v_scale=None,
     return out.reshape(b, h, d).to(q.dtype)
 
 
-__all__ = ["awp_pgd_step", "awp_pgd_step_batched", "topk_row",
-           "quant_project", "unpack_int4", "dequant", "dequant_matmul",
-           "kv_dequant", "decode_attn"]
+__all__ = ["awp_pgd_step", "topk_row", "quant_project", "unpack_int4",
+           "dequant", "dequant_matmul", "kv_dequant", "decode_attn"]

@@ -261,7 +261,7 @@ def test_prune_batched_compacted_matches_monolithic(nm):
     bits: the projection does not depend on the step index."""
     w, c = (torch.from_numpy(a) for a in _mixed_stack(5, 12, 16))
     ref = batched.prune_batched(w, c, 8, nm=nm)
-    got = batched.prune_batched_compacted(w, c, 8, nm=nm, chunk_iters=25)
+    got = batched.prune_batched_compacted(w, c, 8, nm=nm)
     assert torch.equal(got.theta, ref.theta)
     assert torch.equal(got.iters, ref.iters)
     assert torch.equal(got.grad_norm, ref.grad_norm)

@@ -69,7 +69,7 @@ def test_awp_pgd_step_batched_distinct_eta(cuda, m, k):
     assert float(eta[0]) != float(eta[1])
     before = ops.LAUNCHES["awp_pgd_step"]
     z, nrm = _launched("awp_pgd_step_batched",
-                       lambda: ops.awp_pgd_step_batched(w, theta, c, eta))
+                       lambda: ops.awp_pgd_step(w, theta, c, eta))
     assert ops.LAUNCHES["awp_pgd_step"] == before
     for i in range(2):
         z_i, nrm_i = ref.awp_pgd_step(w[i], theta[i], c[i], eta[i])
@@ -105,8 +105,8 @@ def test_prune_batched_compacted_on_the_card(cuda):
     assert got.iters.tolist()[1] < 25 and max(got.iters.tolist()) == 200
     agree = ((got.theta != 0) == (want.theta != 0)).float().mean()
     assert float(agree) >= 0.999
-    loss = awp.activation_loss_batched(w, got.theta, c)
-    loss_ref = awp.activation_loss_batched(w, want.theta, c)
+    loss = awp.activation_loss(w, got.theta, c)
+    loss_ref = awp.activation_loss(w, want.theta, c)
     assert float((loss - loss_ref).abs().max()) <= 1e-5
 
 
