@@ -3,7 +3,8 @@
 
   python3 chip_smoke.py
 
-Builds the hand-written kernels K1–K6 (and K1b, K1 over a batch) from
+Builds the hand-written kernels K1–K6 (and K1b, K1 over a batch, and K6p,
+K6 through a block table) from
 ``src/repro_torch/kernels/csrc``, holds each against its plain PyTorch
 version at the shapes of the main paths (and a few edge cases), timing
 both, then drives the port at the full width of llama32-1b (16 layers,
@@ -26,29 +27,37 @@ d_model 2048, d_ff 8192, padded vocab 129024, random weights from a seed):
      2048 tokens, an INT8 KV cache, prompt buckets 64..512, a 24-request
      Zipf trace plus two long prompts (1536 and 1900 tokens) that stream
      through the chunked prefill. Every packed linear runs K4, every
-     decode step K6, every chunk of a long prompt K5.
+     decode step K6, every chunk of a long prompt K5;
+  4. the paged engine on the same model: the engine of 3 over a pool of
+     144 pages of 16 tokens (fewer than 8 slots of 2048 tokens need),
+     serving the requests of 3 and 8 more behind one shared 256-token
+     system prompt. Every decode step reads through the block tables with
+     K6p, every chunk (long prompts and prefix-hit suffixes) expands its
+     gathered pages with K5; requests are preempted (their pages spill to
+     host memory) and resumed, and the prefix cache is hit. A spill and
+     restore of a 97-page request must give back the same bytes.
 
 Each path runs through the kernels, with every launch count set to 0 just
 before and read just after, and the script checks that every kernel of
 the path was launched, that no other was, and that the outputs are finite
 and well-formed. Every path also runs through the kernels' plain
-versions, held to the repo's parity bars (and paths 1 and 3 timed). One more
-engine run through the kernels, in sync-debug mode and apart from the
-timed ones, must show the host waiting on the card exactly once a decode
-step, batched prefill and chunked prompt. This first process, with every
-time in its JSON line, runs cuBLAS in its default configuration, as the
-port's CLIs do.
+versions, held to the repo's parity bars (and paths 1, 3 and 4 timed).
+One more run of each engine through the kernels, in sync-debug mode and
+apart from the timed ones, must show the host waiting on the card exactly
+once a decode step, batched prefill, chunked prompt and preemption. This
+first process, with every time in its JSON line, runs cuBLAS in its
+default configuration, as the port's CLIs do.
 
 cuBLAS splits K for short products (measured on the H100: 256-, 512- and
 1024-row f32 products), so the plain K1 sums each output in another order
 than the kernel's one FMA chain, and PGD turns those last-ulp differences
 into code and mask flips. A second process (``chip_smoke.py --parity``,
-started by the first) therefore runs paths 1 and 3 again with
+started by the first) therefore runs paths 1, 3 and 4 again with
 ``CUBLAS_WORKSPACE_CONFIG=:0:0``: with no workspace cuBLAS cannot split, so
 every product sums in K1's and K4's order, and there the kernels' path must
 equal the plain one with the sequential driver — same iteration counts,
 same greedy tokens on the static path — and the same first token of every
-engine request (prefill is K4's tile path and K5, which is exact; K6 sums
+engine request (prefill is K4's tile path and K5, which is exact; K6 and K6p sum
 in tile order, so later engine tokens may part). With the batched engine
 the plain K1b is cuBLAS's strided-batched product: if it also sums in
 K1b's order the two paths must agree as well; if not, the first differing
@@ -86,6 +95,16 @@ ENGINE = dict(num_slots=8, max_len=2048, prompt_buckets=(64, 128, 256, 512),
               kv_quantized=True)
 TRACE = dict(num_requests=24, max_prompt=1024, max_new=32, seed=SEED)
 LONG = ((1536, 32), (1900, 16))      # (prompt, new tokens): chunked prefill
+# the paged engine phase: the slot phase's engine over a pool of 16-token
+# pages, too small for every request at once and big enough for one
+# max_len request (128 pages). The page decisions depend only on token
+# counts and prompt tokens; at 144 pages the trace below preempts twice in
+# decode extension and hits the prefix cache 7 times (a narrow model with
+# the same vocabulary and trace on the CPU makes the same decisions)
+PAGED_ENGINE = dict(ENGINE, kv_layout="paged", page_size=16, num_pages=144)
+# its traffic beyond the slot phase's: requests behind one shared system
+# prompt (16 full pages), Zipf tails of 1..200 tokens, 16 new tokens each
+PREFIX = dict(requests=8, prefix=256, max_tail=200, new=16)
 # what PyTorch's sync-debug mode warns at each wait of the host on the card
 # (its other warning, that the mode is a prototype, is not a wait)
 SYNC_WARNING = "called a synchronizing CUDA operation"
@@ -114,11 +133,17 @@ KERNELS = {   # wrapper name -> (CUDA source, the TPU kernel it replaces)
                    "src/repro/kernels/kv_dequant.py:29"),
     "decode_attn": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                     "src/repro/kernels/decode_attn.py:134"),
+    "decode_attn_paged": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+                          "src/repro/kernels/decode_attn.py:163"),
 }
 COMPRESS_PATH = ("awp_pgd_step", "awp_pgd_step_batched", "topk_row",
                  "quant_project", "dequant_matmul")
 PRUNE_PATH = ("awp_pgd_step", "awp_pgd_step_batched", "topk_row")
 ENGINE_PATH = ("dequant_matmul", "kv_dequant", "decode_attn")
+PAGED_PATH = ("dequant_matmul", "kv_dequant", "decode_attn_paged")
+# K6p at the paged engine's decode shape: pages of 16 tokens, tables of
+# 128 pages (max_len 2048) into a pool of 512 pages
+K6P_PAGE, K6P_PAGES, K6P_POOL = 16, 128, 512
 # K1b at the batched engine's buckets: {wk, wv}, {wg, wu} and {wq, wo}
 K1B_SHAPES = ((2, 512, 2048), (2, 8192, 2048), (2, 2048, 2048),
               (3, 512, 2048))
@@ -224,8 +249,10 @@ def phase_build():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 raw = m.group(1)
-                k = re.search(r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", raw)
-                fn = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+                k = re.search(r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?"
+                              r"(?:Lb(\d)E)?", raw)
+                args = [a for a in (k.group(2), k.group(3)) if a] if k else []
+                fn = (k.group(1) + (f"<{', '.join(args)}>" if args else "")
                       if k else raw)
                 spills = ""
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -384,6 +411,7 @@ def phase_kernels(torch, dev):
     rows["dequant_matmul"]["by_shape"] = k4_shapes
     rows["kv_dequant"] = check_k5(torch, dev, gen)
     rows["decode_attn"] = check_k6(torch, dev, gen)
+    rows["decode_attn_paged"] = check_k6p(torch, dev, gen)
     return rows
 
 
@@ -544,6 +572,112 @@ def check_k6(torch, dev, gen):
         res[name] = dict(shape=f"B={b},H={h},Hk={hk},D={d},T={t},{name}",
                          ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                          library_ms=lib, max_abs_err=err)
+    row = dict(res["int8"])              # the engine path's variant
+    row["dense"] = res["dense"]
+    return row
+
+
+def k6p_tables(torch, dev, gen):
+    """Block tables for K6_LENGTHS over a pool of K6P_POOL pages: each row's
+    live pages drawn from a shuffle of the pool, rows 2 and 3 sharing their
+    first 4 pages (a shared prefix), every entry past a row's live pages
+    the sentinel K6P_POOL. Row 4 (the NaN check's) shares nothing."""
+    perm = torch.randperm(K6P_POOL, generator=gen, device=dev).to(torch.int32)
+    table = torch.full((len(K6_LENGTHS), K6P_PAGES), K6P_POOL,
+                       dtype=torch.int32, device=dev)
+    used = 0
+    for i, n in enumerate(K6_LENGTHS):
+        live = -(-n // K6P_PAGE)
+        table[i, :live] = perm[used:used + live]
+        used += live
+    table[3, :4] = table[2, :4]
+    return table
+
+
+def check_k6p(torch, dev, gen):
+    """K6p at the paged engine's decode shape, dense f32 and INT8 (group
+    64): shuffled pool pages, pages shared between rows, sentinel tails,
+    a pool larger than the tables use. Within 1e-5 of the plain version
+    (one softmax over the gathered row), equal to the slot kernel K6 on
+    the same tokens laid out contiguously (the same tiles in the same
+    order: the same bits), a length-0 row exactly zero and a NaN token
+    poisoning only its row's heads of that KV head. No single PyTorch call
+    reads through a block table, so there is no library time."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving.kv_cache import kv_quantize
+    b, h, hk, d, group = len(K6_LENGTHS), 32, 8, 64, 64
+    q = torch.randn((b, h, d), generator=gen, device=dev)
+    k = torch.randn((K6P_POOL, K6P_PAGE, hk, d), generator=gen, device=dev)
+    v = torch.randn((K6P_POOL, K6P_PAGE, hk, d), generator=gen, device=dev)
+    table = k6p_tables(torch, dev, gen)
+    lengths = torch.tensor(K6_LENGTHS, dtype=torch.int32, device=dev)
+    qk, qv = kv_quantize(k, group), kv_quantize(v, group)
+    variants = {
+        "dense": ((k, v), {}),
+        "int8": ((qk.codes, qv.codes),
+                 dict(k_scale=qk.scale, k_zero=qk.zero, v_scale=qv.scale,
+                      v_zero=qv.zero, group_size=group))}
+    live = sum(K6_LENGTHS)
+    io = 4.0 * 2 * b * h * d + 4 * b + 4.0 * table.numel()
+    tok_bytes = {"dense": 2 * hk * d * 4.0,
+                 "int8": 2 * hk * (d + 4.0 * d / group)}
+    res = {}
+    for name, ((kk, vv), kw) in variants.items():
+        out = ops.decode_attn_paged(q, kk, vv, table, lengths, **kw)
+        want = ref.decode_attn_paged(q, kk, vv, table, lengths, **kw)
+        err = float((out - want).abs().max())
+        rel = float(((out - want).abs() / (want.abs() + 1.0)).max())
+        check(err <= 1e-5 or rel <= 1e-5,
+              f"K6p {name}: max|d| {err:.3e} against the plain version")
+        slot_kw = {n: (ref.gather_pages(x, table) if torch.is_tensor(x)
+                       else x) for n, x in kw.items()}
+        slot = ops.decode_attn(q, ref.gather_pages(kk, table),
+                               ref.gather_pages(vv, table), lengths,
+                               **slot_kw)
+        check(torch.equal(out, slot), f"K6p {name}: differs from K6 on the "
+              f"same tokens laid out in slot rows (max|d| "
+              f"{float((out - slot).abs().max()):.3e})")
+        check(torch.equal(out[0], torch.zeros_like(out[0])),
+              f"K6p {name}: the length-0 row is not exactly zero")
+        # one poisoned token of row 4 (length 1000), KV head 3: only that
+        # row's heads 12..15 become NaN
+        page = int(table[4, 10 // K6P_PAGE])
+        if name == "dense":
+            bad_k = kk.clone()
+            bad_k[page, 10 % K6P_PAGE, 3] = float("nan")
+            bad = ops.decode_attn_paged(q, bad_k, vv, table, lengths)
+        else:
+            bad_kw = dict(kw, k_scale=kw["k_scale"].clone())
+            bad_kw["k_scale"][page, 10 % K6P_PAGE, 3] = float("nan")
+            bad = ops.decode_attn_paged(q, kk, vv, table, lengths, **bad_kw)
+        keep = torch.ones((b, h), dtype=torch.bool, device=dev)
+        keep[4, 12:16] = False
+        check(bool(torch.isnan(bad[4, 12:16]).all())
+              and torch.equal(bad[keep], out[keep]),
+              f"K6p {name}: the NaN token does not propagate alone")
+        nbytes = live * tok_bytes[name] + io
+        pool_bytes = K6P_POOL * K6P_PAGE * tok_bytes[name]
+        ins = [tuple(x.clone() for x in (kk, vv)) + (
+               {n: x.clone() if hasattr(x, "clone") else x
+                for n, x in kw.items()},)
+               for _ in range(copies_for(pool_bytes))]
+        ms = time_ms(torch, lambda i: ops.decode_attn_paged(
+            q, ins[i % len(ins)][0], ins[i % len(ins)][1], table, lengths,
+            **ins[i % len(ins)][2]), 50)
+        plain = time_ms(torch, lambda i: ref.decode_attn_paged(
+            q, ins[i % len(ins)][0], ins[i % len(ins)][1], table, lengths,
+            **ins[i % len(ins)][2]), 20)
+        bnd, by = bound_ms(4.0 * h * d * live, nbytes)
+        log(f"[K6p] decode_attn_paged {name} B={b} H={h} Hk={hk} D={d} "
+            f"page={K6P_PAGE} n_pages={K6P_PAGES} pool={K6P_POOL} lengths "
+            f"{list(K6_LENGTHS)}: max|d| {err:.2e}, equal to K6 on slot rows, "
+            f"zero row exact, NaN head group alone, kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}), "
+            f"{nbytes / ms / 1e9:.2f} TB/s of live bytes")
+        res[name] = dict(shape=f"B={b},H={h},Hk={hk},D={d},page={K6P_PAGE},"
+                               f"n_pages={K6P_PAGES},{name}",
+                         ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                         library_ms=None, max_abs_err=err)
     row = dict(res["int8"])              # the engine path's variant
     row["dense"] = res["dense"]
     return row
@@ -920,6 +1054,28 @@ def engine_trace(cfg):
     return reqs
 
 
+def paged_trace(cfg):
+    """The paged phase's requests: :func:`engine_trace`, then
+    ``PREFIX["requests"]`` requests that share one system prompt of
+    ``PREFIX["prefix"]`` tokens, each with its own Zipf-length tail."""
+    import numpy as np
+    from repro_torch.data import DataConfig, ZipfMarkov
+    from repro_torch.serving import GenerationRequest
+    reqs = engine_trace(cfg)
+    n, pre, tail = PREFIX["requests"], PREFIX["prefix"], PREFIX["max_tail"]
+    toks, _ = ZipfMarkov(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=pre + tail, global_batch=n,
+                                    seed=SEED + 2)).batch(0)
+    rng = np.random.default_rng(SEED + 2)
+    for i in range(n):
+        k = int(np.clip(rng.zipf(1.6), 1, tail))
+        reqs.append(GenerationRequest(
+            rid=len(reqs), prompt=np.concatenate(
+                [toks[0, :pre], toks[i, pre:pre + k]]).astype("int32"),
+            max_new_tokens=PREFIX["new"]))
+    return reqs
+
+
 @contextlib.contextmanager
 def host_waits(torch, on: bool):
     """With ``on``, PyTorch's sync-debug mode warns at every wait of the
@@ -942,15 +1098,17 @@ def host_waits(torch, on: bool):
     out["other"] = len(caught) - len(out["syncs"])
 
 
-def run_engine(torch, model, packed, reqs, label, watch_waits=False):
-    """One engine run over ``reqs`` (warm-up first, uncounted): launch
-    counts set to 0 just before the run and read just after,
-    ``check_invariants`` after every step, and the time of every step.
-    ``watch_waits`` also counts the host's waits on the card and fails
-    unless there is exactly one a step."""
+def run_engine(torch, model, packed, reqs, label, watch_waits=False,
+               ecfg=None):
+    """One engine run over ``reqs`` (warm-up first, uncounted) with
+    ``ecfg`` (the slot phase's ``ENGINE`` by default): launch counts set
+    to 0 just before the run and read just after, ``check_invariants``
+    after every step, and the time of every step. ``watch_waits`` also
+    counts the host's waits on the card and fails unless there is exactly
+    one a decode step, batched prefill, chunked prompt and preemption."""
     from repro_torch.kernels import ops
     from repro_torch.serving import Engine, EngineConfig, cache_is_finite
-    engine = Engine(model, packed, EngineConfig(**ENGINE))
+    engine = Engine(model, packed, EngineConfig(**(ecfg or ENGINE)))
     engine.warmup(reqs)
     torch.cuda.synchronize()
     steps = []          # (seconds, admitted in the step)
@@ -961,7 +1119,7 @@ def run_engine(torch, model, packed, reqs, label, watch_waits=False):
         # sees the device's work done
         eng.check_invariants()
         now = time.perf_counter()
-        admits = eng.prefill_dispatches + eng.chunk_dispatches
+        admits = eng.prefill_dispatches + eng.chunk_dispatches + eng.resumes
         steps.append((now - last[0], admits != last[1]))
         last[0], last[1] = now, admits
 
@@ -975,18 +1133,18 @@ def run_engine(torch, model, packed, reqs, label, watch_waits=False):
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     if watch_waits:
-        # one wait a step: the decode step's (S, 2) read, a prefill's
-        # first tokens, a chunked prompt's last token
+        # one wait each: a decode step's (S, 2) read, a prefill's first
+        # tokens, a chunked prompt's last token, a spill's one transfer
         reads = (engine.decode_steps + engine.prefill_dispatches
-                 + engine.chunked_admitted)
+                 + engine.chunked_admitted + engine.preemptions)
         where = sorted({f"{Path(w.filename).name}:{w.lineno}"
                         for w in waits["syncs"]})
         log(f"[{label}] host waits on the card: {len(waits['syncs'])} for "
-            f"{reads} steps and admissions, at {where}; "
-            f"{waits['other']} other warnings")
+            f"{reads} decode steps, prefills, chunked prompts and "
+            f"preemptions, at {where}; {waits['other']} other warnings")
         check(len(waits["syncs"]) == reads,
               f"{label}: {len(waits['syncs'])} host waits, expected one a "
-              f"step or admission ({reads})")
+              f"decode step, prefill, chunked prompt or preemption ({reads})")
     by_rid = {r.rid: r for r in results}
     check(sorted(by_rid) == [r.rid for r in reqs], f"{label}: results")
     for r in reqs:
@@ -1010,16 +1168,19 @@ def run_engine(torch, model, packed, reqs, label, watch_waits=False):
                  prefills=engine.prefill_dispatches,
                  chunks=engine.chunk_dispatches,
                  chunked=engine.chunked_admitted,
-                 utilization=engine.utilization())
+                 utilization=engine.utilization(),
+                 page_stats=engine.page_stats())
     log(f"[{label}] {len(reqs)} requests, {n_tok} tokens in {wall:.3f}s "
         f"({stats['tok_s']:.1f} tok/s); {engine.decode_steps} decode steps, "
         f"{stats['step_ms']:.2f} ms a step overall, "
         f"{stats['decode_only_step_ms']:.2f} ms a decode-only step "
         f"({len(dec)} steps), {stats['admission_s']:.3f}s in steps with "
-        f"admissions ({engine.prefill_dispatches} prefills, "
+        f"admissions or resumes ({engine.prefill_dispatches} prefills, "
         f"{engine.chunk_dispatches} chunks for {engine.chunked_admitted} "
-        f"long prompts); slot utilization {stats['utilization']:.3f}; "
+        f"chunked prompts); slot utilization {stats['utilization']:.3f}; "
         f"KV cache {stats['kv_bytes'] / 1e6:.1f} MB (INT8)")
+    if stats["page_stats"]:
+        log(f"[{label}] pages: {stats['page_stats']}")
     log(f"[{label}] launches: {launches}")
     del engine
     torch.cuda.empty_cache()
@@ -1063,10 +1224,131 @@ def phase_engine(torch, cfg, model, packed, tag, exact_first):
         f"others {parts}; first tokens equal in {first_equal}/{len(tok_k)}")
     check(not exact_first or first_equal == len(tok_k),
           "first tokens differ between the kernel and plain engine paths")
+    return launches, tok_k, dict(kernels=st_k, waits_counted=st_w,
+                                 plain=st_p, identical=len(same),
+                                 requests=len(tok_k), parts=parts,
+                                 first_equal=first_equal)
+
+
+def check_spill_restore(torch, model, packed, reqs):
+    """The preemption round trip at full width on the paged engine: admit
+    the 1536-token prompt (96 pages of the INT8 pools) and one decode
+    step, then preempt it (its pages spill to host memory in one transfer)
+    and resume it (one upload into other pages): every code, scale and
+    zero of its pages must come back with the same bytes."""
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.serving.kv_cache import take_pages
+    eng = Engine(model, packed, EngineConfig(**dict(
+        PAGED_ENGINE, prefix_caching=False)))
+    req = next(r for r in reqs if r.prompt_len == LONG[0][0])
+    eng.submit(req)
+    eng.step()
+    (slot,) = eng.scheduler.active_slots()
+    pages = list(eng._slot_pages[slot])
+    before = [t.clone() for name in ("k", "v")
+              for t in take_pages(eng.kv[name], pages)]
+    # the free list hands out the pages past the request's first, so the
+    # resume lands on other pages
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._preempt(slot)
+    t1 = time.perf_counter()
+    check(eng._try_resume(), "spill/restore: the ticket did not resume")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    (slot,) = eng.scheduler.active_slots()
+    moved = list(eng._slot_pages[slot])
+    after = [t for name in ("k", "v") for t in take_pages(eng.kv[name],
+                                                          moved)]
+    same = all(torch.equal(a, b) for a, b in zip(before, after))
+    nbytes = sum(t.numel() * t.element_size() for t in before)
+    log(f"[spill] {len(pages)} pages ({nbytes / 1e6:.2f} MB of codes and "
+        f"planes, {model.cfg.num_layers} layers, K and V) spilled in "
+        f"{1e3 * (t1 - t0):.2f} ms "
+        f"and restored into {sum(p != q for p, q in zip(pages, moved))} "
+        f"other pages in {1e3 * (t2 - t1):.2f} ms: "
+        f"{'the same bytes' if same else 'BYTES DIFFER'}")
+    check(same and moved != pages, "spill/restore round trip not byte-exact")
+    out = {r.rid: r for r in eng.run()}
+    check(out[req.rid].status == "ok", "spill/restore: the request failed")
+    return dict(pages=len(pages), bytes=nbytes, spill_ms=1e3 * (t1 - t0),
+                restore_ms=1e3 * (t2 - t1), byte_exact=same)
+
+
+def phase_paged_engine(torch, cfg, model, packed, tag, exact_first,
+                       slot_tokens=None):
+    """The paged engine (``PAGED_ENGINE``) over ``paged_trace``: through
+    the kernels (K4, K5 and K6p must launch, K6p once a layer a decode
+    step, nothing else), once more in sync-debug mode (one host wait a
+    decode step, prefill, chunked prompt and preemption), then through the
+    plain versions (nothing may launch), ``check_invariants`` after every
+    step. It must preempt and resume, hit the prefix cache, end with no
+    page in use and count the same in all three runs. Its tokens are held
+    to the kernels' slot-engine run (``slot_tokens``) on the requests the
+    two traces share; with ``exact_first`` every request's first token
+    must equal on the kernel and plain paths. Then the spill/restore round
+    trip at full width."""
+    from repro_torch import kernels
+    reqs = paged_trace(cfg)
+    log(f"[{tag}paged] {len(reqs)} requests ({PREFIX['requests']} behind a "
+        f"{PREFIX['prefix']}-token shared prefix), "
+        f"{sum(r.max_new_tokens for r in reqs)} new tokens; {PAGED_ENGINE}")
+    launches, tok_k, st_k = run_engine(torch, model, packed, reqs,
+                                       f"{tag}paged kernels",
+                                       ecfg=PAGED_ENGINE)
+    check_path(launches, PAGED_PATH, "the paged engine path")
+    per_step = model.cfg.num_layers * st_k["decode_steps"]
+    check(launches["decode_attn_paged"] == per_step,
+          f"K6p launched {launches['decode_attn_paged']} times, expected "
+          f"{per_step} (one a layer a decode step)")
+    _, tok_w, st_w = run_engine(torch, model, packed, reqs,
+                                f"{tag}paged kernels, waits counted",
+                                watch_waits=True, ecfg=PAGED_ENGINE)
+    check(tok_w == tok_k, "the paged engine's tokens differ between runs")
+    with kernels.use_impl("reference"):
+        plain_launches, tok_p, st_p = run_engine(
+            torch, model, packed, reqs, f"{tag}paged plain",
+            ecfg=PAGED_ENGINE)
+    check(not any(plain_launches.values()),
+          "the plain paged engine run launched a kernel")
+    ps = st_k["page_stats"]
+    check(ps["preemptions"] >= 1 and ps["resumes"] == ps["preemptions"],
+          f"paged engine: {ps['preemptions']} preemptions, "
+          f"{ps['resumes']} resumes")
+    check(ps["prefix_hits"] >= 1, "paged engine: no prefix-cache hit")
+    check(ps["pages_in_use"] == ps["prefix_cached_pages"],
+          f"paged engine: {ps['pages_in_use']} pages in use at the end, "
+          f"{ps['prefix_cached_pages']} held by the prefix cache")
+    check(st_w["page_stats"] == ps and st_p["page_stats"] == ps,
+          "page_stats differ between the paged engine's runs")
+    same = [rid for rid in tok_k if tok_k[rid] == tok_p[rid]]
+    parts = {rid: next(i for i, (a, b) in enumerate(zip(tok_k[rid],
+                                                         tok_p[rid]))
+                       if a != b)
+             for rid in tok_k if rid not in same}
+    first_equal = sum(tok_k[rid][0] == tok_p[rid][0] for rid in tok_k)
+    log(f"[{tag}paged] kernels against plain: {len(same)}/{len(tok_k)} "
+        f"requests with identical tokens; first parting position of the "
+        f"others {parts}; first tokens equal in {first_equal}/{len(tok_k)}")
+    check(not exact_first or first_equal == len(tok_k),
+          "first tokens differ between the kernel and plain paged paths")
+    vs_slot = {}
+    if slot_tokens is not None:
+        shared = sorted(set(slot_tokens) & set(tok_k))
+        eq = [rid for rid in shared if slot_tokens[rid] == tok_k[rid]]
+        slot_parts = {rid: next(i for i, (a, b) in enumerate(
+            zip(tok_k[rid], slot_tokens[rid])) if a != b)
+            for rid in shared if rid not in eq}
+        log(f"[{tag}paged] against the slot engine's kernel run: {len(eq)}"
+            f"/{len(shared)} shared requests with identical tokens; first "
+            f"parting position of the others {slot_parts}")
+        vs_slot = dict(identical=len(eq), shared=len(shared),
+                       parts=slot_parts)
+    spill = check_spill_restore(torch, model, packed, reqs)
     return launches, dict(kernels=st_k, waits_counted=st_w, plain=st_p,
-                          identical=len(same),
-                          requests=len(tok_k), parts=parts,
-                          first_equal=first_equal)
+                          identical=len(same), requests=len(tok_k),
+                          parts=parts, first_equal=first_equal,
+                          vs_slot=vs_slot, spill_restore=spill)
 
 
 def phase_parity():
@@ -1101,6 +1383,8 @@ def parity_main(torch, dev, cfg):
     del data
     torch.cuda.empty_cache()
     phase_engine(torch, cfg, model, packed, "parity ", exact_first=True)
+    phase_paged_engine(torch, cfg, model, packed, "parity ",
+                       exact_first=True)
 
 
 def main() -> None:
@@ -1132,8 +1416,11 @@ def main() -> None:
     model = data[0]
     del data
     torch.cuda.empty_cache()
-    eng_launches, eng = phase_engine(torch, cfg, model, packed, "",
-                                     exact_first=False)
+    eng_launches, slot_tokens, eng = phase_engine(torch, cfg, model, packed,
+                                                  "", exact_first=False)
+    paged_launches, paged = phase_paged_engine(
+        torch, cfg, model, packed, "", exact_first=False,
+        slot_tokens=slot_tokens)
     del model, packed
     torch.cuda.empty_cache()
     phase_parity()
@@ -1143,7 +1430,8 @@ def main() -> None:
         row = rows[name]
         by_path = {"compress_decode": launches[name],
                    "prune": prune_launches[name],
-                   "engine": eng_launches[name]}
+                   "engine": eng_launches[name],
+                   "paged_engine": paged_launches[name]}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -1158,6 +1446,7 @@ def main() -> None:
     log(f"[compress] summary: {json.dumps(comp)}")
     log(f"[prune] summary: {json.dumps(prune)}")
     log(f"[engine] summary: {json.dumps(eng)}")
+    log(f"[paged] summary: {json.dumps(paged)}")
     log(f"[done] {time.time() - t_start:.1f}s; card {card}")
     log(json.dumps({"kernels": out}))
     log(card)

@@ -1,13 +1,21 @@
-// K6: flash-decode attention over the serving slot cache. One query token
-// per row b attends that row's cache history [0, lengths[b]):
+// K6 and K6p: flash-decode attention over the serving KV cache. One query
+// token per row b attends that row's cache history [0, lengths[b]):
 //   out (B, H, D) = softmax(q · Kᵀ / √D) · V
-// with grouped-query heads (head h reads KV head h / g, g = H / Hk). K and
-// V are (B, T, Hk, D) f32 or bf16, or INT8 codes with per-(token, head,
-// group) f16 scale and zero planes (B, T, Hk, D/group), expanded inside
-// the tile.
+// with grouped-query heads (head h reads KV head h / g, g = H / Hk).
+//
+// - K6, slot layout (entry decode_attn): K and V are (B, T, Hk, D) f32 or
+//   bf16, or INT8 codes with per-(token, head, group) f16 scale and zero
+//   planes (B, T, Hk, D/group), expanded inside the tile.
+// - K6p, paged layout (entry decode_attn_paged): K and V are one layer's
+//   page pools (P, page, Hk, D) of the same kinds (planes (P, page, Hk,
+//   D/group)), routed through a block table (B, n_pages) int32 in device
+//   memory. Position t of row b lives at page table[b, t / page], clipped
+//   to [0, P − 1] (the sentinel entry P clips to P − 1 and is never read:
+//   it lies past the row's length), offset t % page. The row attends
+//   [0, min(lengths[b], n_pages·page)).
 //
 // Replaces: src/repro/kernels/decode_attn.py, flash_decode (pallas_call at
-// :225), slot layout. The paged layout (block table) is not ported yet.
+// :225), slot layout (K6) and paged layout with `table` (K6p, :163-185).
 //
 // Bound on an H100: memory. Each live token's K and V rows are read once
 // (2·Hk·D·elem bytes a token, plus 8·Hk·D/group for the INT8 planes) at
@@ -28,6 +36,15 @@
 // reference's: l == 0 exactly (a length-0 row) gives zeros, and a NaN l
 // (poisoned cache rows) reaches the output, which the engine's
 // non-finite-logit guard relies on. The lengths stay in device memory.
+//
+// K6p is the same body with page addressing in the stage function (the
+// PAGED template flag): each staged token reads its page index from the
+// row's table (L1-cached) and loads its K or V row from that page. The
+// reference's paged tile is one page (16 tokens at the default page size);
+// here a tile is block_t tokens (256 by default: 16 pages), staged 64
+// tokens at a time, as on the slot layout, so the online softmax carries
+// once per 256 tokens and the two layouts give the same bits on the same
+// tokens. Pages past ceil(len / page) are never read.
 //
 // One block per (b, KV head) is B·Hk blocks: 64 at B = 8, Hk = 8, half of
 // the 132 SMs. A split over T (flash-decoding) is left to a later change.
@@ -78,18 +95,29 @@ __device__ __forceinline__ float4 load4(const void* base, const __half* sc,
 }
 
 // Stage tokens [tok0, tok0 + n) of row b, KV head hk into dst (SUB rows of
-// D + 1 floats).
-template <int KIND>
+// D + 1 floats). Slot layout: row b's T positions. Paged layout: position
+// p lives at page tbl[p / page] (row b's table entries, clipped to
+// [0, P − 1]), offset p % page.
+template <int KIND, bool PAGED>
 __device__ __forceinline__ void stage(float* dst, const void* src,
                                       const __half* sc, const __half* zp,
-                                      int b, int hk, int tok0, int n, int T,
-                                      int Hk, int D, int group) {
+                                      const int* tbl, int b, int hk,
+                                      int tok0, int n, int T, int P,
+                                      int page, int Hk, int D, int group) {
   const int q4 = D / 4;
   const int dg = KIND == KV_U8 ? D / group : 1;
   for (int i = threadIdx.x; i < n * q4; i += THREADS) {
     const int t = i / q4;
     const int d = (i - t * q4) * 4;
-    const size_t row = ((size_t)b * T + tok0 + t) * Hk + hk;
+    size_t row;
+    if constexpr (PAGED) {
+      const int pos = tok0 + t;
+      const int pi = pos / page;
+      const int pg = min(max(__ldg(tbl + pi), 0), P - 1);
+      row = ((size_t)pg * page + (pos - pi * page)) * Hk + hk;
+    } else {
+      row = ((size_t)b * T + tok0 + t) * Hk + hk;
+    }
     const size_t ge = KIND == KV_U8 ? row * dg + d / group : 0;
     const float4 x = load4<KIND>(src, sc, zp, row * D + d, ge);
     float* out = dst + t * (D + 1) + d;
@@ -100,17 +128,18 @@ __device__ __forceinline__ void stage(float* dst, const void* src,
   }
 }
 
-template <int KIND>
+template <int KIND, bool PAGED>
 __global__ void __launch_bounds__(THREADS)
 decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
                    const void* __restrict__ v,
                    const int* __restrict__ lengths,
+                   const int* __restrict__ table,
                    const __half* __restrict__ ks,
                    const __half* __restrict__ kz,
                    const __half* __restrict__ vs,
                    const __half* __restrict__ vz, float* __restrict__ out,
-                   int T, int H, int Hk, int D, int group, int bt,
-                   float sm_scale) {
+                   int T, int n_pages, int P, int page, int H, int Hk, int D,
+                   int group, int bt, float sm_scale) {
   extern __shared__ float smem[];
   __shared__ float m_sh[MAX_G], l_sh[MAX_G], corr_sh[MAX_G];
   const int b = blockIdx.x / Hk;
@@ -124,6 +153,7 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
   float* s_s = q_s + GD;              // G·bt scores, then probabilities
   float* kv_s = s_s + G * bt;         // SUB·(D + 1)
 
+  const int* tbl = PAGED ? table + (size_t)b * n_pages : nullptr;
   const int len = min(max(lengths[b], 0), T);
   const float* qb = q + ((size_t)b * H + (size_t)hk * G) * D;
   for (int i = tid; i < GD; i += THREADS) q_s[i] = qb[i];
@@ -141,7 +171,8 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
     // scores of the tile's live tokens
     for (int s0 = 0; s0 < n; s0 += SUB) {
       const int ns = min(SUB, n - s0);
-      stage<KIND>(kv_s, k, ks, kz, b, hk, start + s0, ns, T, Hk, D, group);
+      stage<KIND, PAGED>(kv_s, k, ks, kz, tbl, b, hk, start + s0, ns, T, P,
+                         page, Hk, D, group);
       __syncthreads();
       for (int i = tid; i < G * SUB; i += THREADS) {
         const int gi = i / SUB;
@@ -189,7 +220,8 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
     for (int j = 0; j < MAX_ACC; ++j) pv[j] = 0.0f;
     for (int s0 = 0; s0 < n; s0 += SUB) {
       const int ns = min(SUB, n - s0);
-      stage<KIND>(kv_s, v, vs, vz, b, hk, start + s0, ns, T, Hk, D, group);
+      stage<KIND, PAGED>(kv_s, v, vs, vz, tbl, b, hk, start + s0, ns, T, P,
+                         page, Hk, D, group);
       __syncthreads();
 #pragma unroll
       for (int j = 0; j < MAX_ACC; ++j) {
@@ -226,32 +258,57 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
   }
 }
 
-template <int KIND>
+template <int KIND, bool PAGED>
 int launch(const float* q, const void* k, const void* v, const int* lengths,
-           const void* ks, const void* kz, const void* vs, const void* vz,
-           float* out, int B, int T, int H, int Hk, int D, int group, int bt,
+           const int* table, const void* ks, const void* kz, const void* vs,
+           const void* vz, float* out, int B, int T, int n_pages, int P,
+           int page, int H, int Hk, int D, int group, int bt,
            cudaStream_t stream) {
   const int G = H / Hk;
   const size_t smem = sizeof(float) * ((size_t)G * D + (size_t)G * bt +
                                        (size_t)SUB * (D + 1));
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        decode_attn_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        decode_attn_kernel<KIND, PAGED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const float sm_scale = (float)(1.0 / sqrt((double)D));
-  decode_attn_kernel<KIND><<<B * Hk, THREADS, smem, stream>>>(
-      q, k, v, lengths, reinterpret_cast<const __half*>(ks),
+  decode_attn_kernel<KIND, PAGED><<<B * Hk, THREADS, smem, stream>>>(
+      q, k, v, lengths, table, reinterpret_cast<const __half*>(ks),
       reinterpret_cast<const __half*>(kz), reinterpret_cast<const __half*>(vs),
-      reinterpret_cast<const __half*>(vz), out, T, H, Hk, D, group, bt,
-      sm_scale);
+      reinterpret_cast<const __half*>(vz), out, T, n_pages, P, page, H, Hk, D,
+      group, bt, sm_scale);
   return (int)cudaGetLastError();
+}
+
+template <bool PAGED>
+int dispatch(int kind, const float* q, const void* k, const void* v,
+             const int* lengths, const int* table, const void* ks,
+             const void* kz, const void* vs, const void* vz, float* out,
+             int B, int T, int n_pages, int P, int page, int H, int Hk, int D,
+             int group, int bt, cudaStream_t s) {
+  switch (kind) {
+    case KV_F32:
+      return launch<KV_F32, PAGED>(q, k, v, lengths, table, ks, kz, vs, vz,
+                                   out, B, T, n_pages, P, page, H, Hk, D,
+                                   group, bt, s);
+    case KV_BF16:
+      return launch<KV_BF16, PAGED>(q, k, v, lengths, table, ks, kz, vs, vz,
+                                    out, B, T, n_pages, P, page, H, Hk, D,
+                                    group, bt, s);
+    case KV_U8:
+      return launch<KV_U8, PAGED>(q, k, v, lengths, table, ks, kz, vs, vz,
+                                  out, B, T, n_pages, P, page, H, Hk, D,
+                                  group, bt, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// q (B, H, D) f32; k, v (B, T, Hk, D) of kind 0 (f32), 1 (bf16) or 2
+// K6. q (B, H, D) f32; k, v (B, T, Hk, D) of kind 0 (f32), 1 (bf16) or 2
 // (uint8 codes, with k/v scale and zero (B, T, Hk, D/group) f16; null
 // otherwise); lengths (B,) int32; out (B, H, D) f32. All contiguous on the
 // device, k and v 16-byte aligned; D % 4 == 0, H % Hk == 0,
@@ -262,18 +319,24 @@ extern "C" int decode_attn(const float* q, const void* k, const void* v,
                            const void* v_zero, float* out, int B, int T,
                            int H, int Hk, int D, int group, int bt, int kind,
                            void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (kind) {
-    case KV_F32:
-      return launch<KV_F32>(q, k, v, lengths, k_scale, k_zero, v_scale,
-                            v_zero, out, B, T, H, Hk, D, group, bt, s);
-    case KV_BF16:
-      return launch<KV_BF16>(q, k, v, lengths, k_scale, k_zero, v_scale,
-                             v_zero, out, B, T, H, Hk, D, group, bt, s);
-    case KV_U8:
-      return launch<KV_U8>(q, k, v, lengths, k_scale, k_zero, v_scale,
-                           v_zero, out, B, T, H, Hk, D, group, bt, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(kind, q, k, v, lengths, nullptr, k_scale, k_zero,
+                         v_scale, v_zero, out, B, T, 0, 0, 1, H, Hk, D,
+                         group, bt, (cudaStream_t)stream);
+}
+
+// K6p. k, v are one layer's pools (P, page, Hk, D) of the same kinds (INT8
+// planes (P, page, Hk, D/group)); table (B, n_pages) int32, entries
+// clipped to [0, P − 1]; row b attends [0, min(lengths[b], n_pages·page)).
+// The other operands and limits are K6's, with 1 ≤ bt ≤ n_pages·page.
+extern "C" int decode_attn_paged(const float* q, const void* k,
+                                 const void* v, const int* table,
+                                 const int* lengths, const void* k_scale,
+                                 const void* k_zero, const void* v_scale,
+                                 const void* v_zero, float* out, int B,
+                                 int P, int page, int n_pages, int H, int Hk,
+                                 int D, int group, int bt, int kind,
+                                 void* stream) {
+  return dispatch<true>(kind, q, k, v, lengths, table, k_scale, k_zero,
+                        v_scale, v_zero, out, B, n_pages * page, n_pages, P,
+                        page, H, Hk, D, group, bt, (cudaStream_t)stream);
 }

@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written kernels K1–K6 (``csrc/*.cu``).
+"""Wrappers of the hand-written kernels K1–K6 and K6p (``csrc/*.cu``).
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on ``torch.cuda.current_stream()``
@@ -24,7 +24,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 KERNELS = ("awp_pgd_step", "topk_row", "quant_project", "dequant_matmul",
-           "kv_dequant", "decode_attn")
+           "kv_dequant", "decode_attn", "decode_attn_paged")
 # launches per kernel: K1b (a 3-D awp_pgd_step) has its own count
 LAUNCHES = dict.fromkeys(("awp_pgd_step", "awp_pgd_step_batched")
                          + KERNELS[1:], 0)
@@ -196,6 +196,45 @@ def kv_dequant(codes, scale, zero, group_size: int):
 _KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
 
+def _decode_checks(name, q, k, v, lengths, planes, group_size, rows):
+    """Checks shared by K6 and K6p: q (B, H, D) f32, k/v (rows, T, Hk, D)
+    of one kind — f32, bf16, or uint8 with four f16 (rows, T, Hk, D/g)
+    planes — and lengths (B,) int32. Returns (kind, plane pointers)."""
+    if q.dim() != 3 or k.dim() != 4:
+        raise ValueError(f"{name}: q must be (B, H, D), k/v 4-D")
+    b, h, d = q.shape
+    hk = k.shape[2]
+    if k.shape[3] != d or h % hk:
+        raise ValueError(f"{name}: q {tuple(q.shape)} against k "
+                         f"{tuple(k.shape)}")
+    g = h // hk
+    if d % 4 or g > 32 or g * d > 1024:
+        raise ValueError(f"{name}: D={d}, {g} query heads per KV head "
+                         f"not supported (D % 4 == 0, g <= 32, g*D <= 1024)")
+    _check(f"{name}.q", q, torch.float32, (b, h, d))
+    _check(f"{name}.lengths", lengths, torch.int32, (b,))
+    quant = bool(planes)
+    kind = _KV_KINDS.get(k.dtype)
+    if kind is None or (kind == 2) != quant:
+        raise TypeError(f"{name}: k/v {k.dtype} "
+                        f"{'with' if quant else 'without'} scale planes")
+    shape = (rows,) + tuple(k.shape[1:])
+    _check(f"{name}.k", k, k.dtype, shape)
+    _check(f"{name}.v", v, k.dtype, shape)
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name}: k/v must be 16-byte aligned")
+    ptrs = [0] * 4
+    if quant:
+        if group_size <= 0 or d % group_size or group_size % 4:
+            raise ValueError(f"{name}: group {group_size} for D={d}")
+        for i, (pname, pl) in enumerate(zip(
+                ("k_scale", "k_zero", "v_scale", "v_zero"), planes)):
+            _check(f"{name}.{pname}", pl, torch.float16,
+                   shape[:3] + (d // group_size,))
+            ptrs[i] = pl.data_ptr()
+    return kind, ptrs
+
+
 def decode_attn(q, k, v, lengths, k_scale=None, k_zero=None, v_scale=None,
                 v_zero=None, group_size: int = 0, block_t: int = 256):
     """K6: one-token GQA decode attention over a slot cache. q (B, H, D)
@@ -209,37 +248,12 @@ def decode_attn(q, k, v, lengths, k_scale=None, k_zero=None, v_scale=None,
     if not _on_card("decode_attn", q, k, v, lengths, *planes):
         return ref.decode_attn(q, k, v, lengths, k_scale, k_zero, v_scale,
                                v_zero, group_size, block_t)
-    if q.dim() != 3 or k.dim() != 4:
-        raise ValueError("decode_attn: q must be (B, H, D), k/v (B, T, Hk, D)")
-    b, h, d = q.shape
+    b = q.shape[0] if q.dim() == 3 else -1
+    kind, ptrs = _decode_checks("decode_attn", q, k, v, lengths, planes,
+                                group_size, b)
+    _, h, d = q.shape
     t, hk = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != d or h % hk:
-        raise ValueError(f"decode_attn: q {tuple(q.shape)} against k "
-                         f"{tuple(k.shape)}")
-    g = h // hk
     bt = max(1, min(block_t, t))
-    if d % 4 or g > 32 or g * d > 1024:
-        raise ValueError(f"decode_attn: D={d}, {g} query heads per KV head "
-                         f"not supported (D % 4 == 0, g <= 32, g*D <= 1024)")
-    _check("decode_attn.q", q, torch.float32, (b, h, d))
-    _check("decode_attn.lengths", lengths, torch.int32, (b,))
-    kind = _KV_KINDS.get(k.dtype)
-    if kind is None or (kind == 2) != quant:
-        raise TypeError(f"decode_attn: k/v {k.dtype} "
-                        f"{'with' if quant else 'without'} scale planes")
-    _check("decode_attn.k", k, k.dtype, (b, t, hk, d))
-    _check("decode_attn.v", v, k.dtype, (b, t, hk, d))
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("decode_attn: k/v must be 16-byte aligned")
-    ptrs = [0] * 4
-    if quant:
-        if group_size <= 0 or d % group_size or group_size % 4:
-            raise ValueError(f"decode_attn: group {group_size} for D={d}")
-        for i, (name, pl) in enumerate(zip(
-                ("k_scale", "k_zero", "v_scale", "v_zero"), planes)):
-            _check(f"decode_attn.{name}", pl, torch.float16,
-                   (b, t, hk, d // group_size))
-            ptrs[i] = pl.data_ptr()
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     _launch("decode_attn", "decode_attn", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), lengths.data_ptr(), *ptrs, out.data_ptr(), b, t, h,
@@ -247,6 +261,44 @@ def decode_attn(q, k, v, lengths, k_scale=None, k_zero=None, v_scale=None,
     return out
 
 
+def decode_attn_paged(q, k_pool, v_pool, table, lengths, k_scale=None,
+                      k_zero=None, v_scale=None, v_zero=None,
+                      group_size: int = 0, block_t: int = 256):
+    """K6p: :func:`decode_attn` over one layer's page pools (P, page, Hk,
+    D) — f32, bf16, or uint8 codes with (P, page, Hk, D/g) f16 planes —
+    through a block table (B, n_pages) int32 in device memory: position t
+    of row b is page ``table[b, t // page]`` (clipped to [0, P − 1]; the
+    sentinel P is never read), offset ``t % page``. Row b attends
+    [0, min(lengths[b], n_pages·page)); tiles of ``block_t`` tokens.
+    Returns (B, H, D) f32."""
+    quant = k_scale is not None
+    planes = (k_scale, k_zero, v_scale, v_zero) if quant else ()
+    if not _on_card("decode_attn_paged", q, k_pool, v_pool, table, lengths,
+                    *planes):
+        return ref.decode_attn_paged(q, k_pool, v_pool, table, lengths,
+                                     k_scale, k_zero, v_scale, v_zero,
+                                     group_size, block_t)
+    if table.dim() != 2 or k_pool.dim() != 4:
+        raise ValueError("decode_attn_paged: table must be (B, n_pages), "
+                         "k/v pools (P, page, Hk, D)")
+    kind, ptrs = _decode_checks("decode_attn_paged", q, k_pool, v_pool,
+                                lengths, planes, group_size, k_pool.shape[0])
+    b, h, d = q.shape
+    p_num, page, hk = k_pool.shape[:3]
+    npg = table.shape[1]
+    _check("decode_attn_paged.table", table, torch.int32, (b, npg))
+    if p_num < 1 or npg < 1:
+        raise ValueError(f"decode_attn_paged: {p_num} pages, {npg} table "
+                         f"columns")
+    bt = max(1, min(block_t, npg * page))
+    out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    _launch("decode_attn_paged", "decode_attn_paged", q.data_ptr(),
+            k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
+            lengths.data_ptr(), *ptrs, out.data_ptr(), b, p_num, page, npg,
+            h, hk, d, group_size if quant else 0, bt, kind)
+    return out
+
+
 __all__ = ["KERNELS", "LAUNCHES", "awp_pgd_step", "decode_attn",
-           "dequant_matmul", "kv_dequant", "quant_project", "reset_launches",
+           "decode_attn_paged", "dequant_matmul", "kv_dequant", "quant_project", "reset_launches",
            "topk_row"]

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the hand-written kernels K1–K6 (K1b, the
-batched K1, is :func:`awp_pgd_step` on a stack).
+"""Plain PyTorch versions of the hand-written kernels K1–K6 and K6p (K1b,
+the batched K1, is :func:`awp_pgd_step` on a stack).
 
 Each has the signature of its wrapper in :mod:`repro_torch.kernels.ops`, so
 the two are interchangeable: the wrappers take these on CPU tensors, the
@@ -115,5 +115,35 @@ def decode_attn(q, k, v, lengths, k_scale=None, k_zero=None, v_scale=None,
     return out.reshape(b, h, d).to(q.dtype)
 
 
+def gather_pages(pool, table):
+    """Each table row's pages of one layer's pool (P, page, …) as a
+    contiguous (B, n_pages·page, …) view. Entries are clipped to
+    [0, P − 1]: the sentinel P reads page P − 1, whose positions lie past
+    every row's length."""
+    b, npg = table.shape
+    idx = table.to(torch.int64).clamp(0, pool.shape[0] - 1)
+    return pool[idx].reshape(b, npg * pool.shape[1], *pool.shape[2:])
+
+
+def decode_attn_paged(q, k_pool, v_pool, table, lengths, k_scale=None,
+                      k_zero=None, v_scale=None, v_zero=None,
+                      group_size: int = 0, block_t: int = 256):
+    """:func:`decode_attn` through a block table: k/v are one layer's page
+    pools (P, page, Hk, D) — dense, or uint8 codes with (P, page, Hk, D/g)
+    planes — and ``table`` (B, n_pages) int32 maps row b's positions to
+    pages. Each row's contiguous view is gathered (:func:`gather_pages`,
+    planes alike), then attended by :func:`decode_attn`, which
+    dequantizes INT8 views through :func:`kv_dequant`; row b attends
+    [0, min(lengths[b], n_pages·page)). After the reference's
+    ``kernels/ref.py::decode_attn_paged`` and its
+    ``ops.decode_attn_paged(use_pallas=False)``."""
+    planes = [None if x is None else gather_pages(x, table)
+              for x in (k_scale, k_zero, v_scale, v_zero)]
+    return decode_attn(q, gather_pages(k_pool, table),
+                       gather_pages(v_pool, table), lengths, *planes,
+                       group_size=group_size, block_t=block_t)
+
+
 __all__ = ["awp_pgd_step", "topk_row", "quant_project", "unpack_int4",
-           "dequant", "dequant_matmul", "kv_dequant", "decode_attn"]
+           "dequant", "dequant_matmul", "kv_dequant", "decode_attn",
+           "decode_attn_paged", "gather_pages"]

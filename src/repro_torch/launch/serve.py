@@ -6,16 +6,18 @@ Static path (one prefill and a fixed-length greedy decode, uniform batch):
   PYTHONPATH=src python -m repro_torch.launch.serve --tiny --arch llama32-1b \
       --batch 4 --prompt-len 16 --gen 8 [--ckpt DIR --packed] [--device cpu]
 
-Engine path (slot continuous batching over a mixed-length trace, batched
+Engine path (continuous batching over a mixed-length trace, batched
 same-bucket admissions, chunked prefill beyond the largest bucket,
 per-request sampling, optional INT8 KV cache; K6 reads the decode cache and
-K5 expands INT8 rows for the chunked prefill):
+K5 expands INT8 rows for the chunked prefill). ``--kv paged`` serves from a
+pool of ``--page-size``-token pages through block tables (K6p reads the
+decode cache), with shared-prefix reuse (off with ``--no-prefix-cache``)
+and preemption when ``--pages`` oversubscribes the pool:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --tiny --engine continuous \
       --requests 32 --slots 8 --gen 32 [--buckets 8,16] [--kv-quant] \
+      [--kv paged --page-size 16 --pages N --no-prefix-cache] \
       [--mixed-admission] [--verify] [--device cpu]
-
-``--kv paged`` is the paging slice's and errors here.
 
 With ``--packed`` the checkpoint is a packed QTensor checkpoint (written by
 ``repro_torch.launch.compress --save-packed`` or by the JAX package's
@@ -138,7 +140,9 @@ def _serve_engine(args, cfg, model, params):
         if args.buckets else ()
     ecfg = EngineConfig(num_slots=args.slots, max_len=max_len,
                         prompt_buckets=buckets, kv_quantized=args.kv_quant,
-                        kv_layout=args.kv,
+                        kv_layout=args.kv, page_size=args.page_size,
+                        num_pages=args.pages,
+                        prefix_caching=not args.no_prefix_cache,
                         mixed_admission=args.mixed_admission,
                         max_queue=args.max_queue,
                         use_fused_decode=not args.no_fused_decode)
@@ -183,6 +187,17 @@ def _serve_engine(args, cfg, model, params):
     print(note)
     print(f"[serve] kv cache resident {engine.kv_cache_bytes() / 1e6:.2f}MB "
           f"({'int8' if args.kv_quant else 'dense'}, {args.kv})")
+    ps = engine.page_stats()
+    if ps:
+        print(f"[serve] pages: {ps['pages_in_use']}/{ps['num_pages']} in use "
+              f"(peak {ps['peak_pages_in_use']}, size {ps['page_size']}), "
+              f"{ps['prefix_cached_pages']} prefix-cached")
+        hits, misses = ps["prefix_hits"], ps["prefix_misses"]
+        rate = hits / max(hits + misses, 1)
+        print(f"[serve] prefix cache: {hits} hits / {misses} misses "
+              f"({rate:.0%}), {ps['prefix_hit_tokens']} prompt tokens reused")
+        print(f"[serve] preemptions {ps['preemptions']}, resumes "
+              f"{ps['resumes']}, pages spilled {ps['pages_spilled']}")
     if args.verify:
         if args.temperature > 0:
             print("[serve] --verify needs greedy (temperature 0); skipping")
@@ -267,7 +282,20 @@ def main(argv=None):
     ap.add_argument("--kv-quant", action="store_true",
                     help="engine: INT8 per-head-group KV cache")
     ap.add_argument("--kv", choices=("slots", "paged"), default="slots",
-                    help="engine KV layout (paged is not ported yet)")
+                    help="engine KV layout: slots (one contiguous max-len "
+                         "row per slot) or paged (a pool of fixed-size "
+                         "pages with shared-prefix reuse and preemption)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="engine --kv paged: tokens per KV page (greedy "
+                         "tokens equal the slot layout's when it divides "
+                         "max-len)")
+    ap.add_argument("--pages", type=int, default=0,
+                    help="engine --kv paged: page-pool size (0 -> "
+                         "slots * ceil(max-len / page-size), the slot "
+                         "layout's footprint; smaller pools oversubscribe "
+                         "and preempt)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="engine --kv paged: no shared-prefix page reuse")
     ap.add_argument("--mixed-admission", action="store_true",
                     help="engine: admit mixed-bucket FIFO head-runs in one "
                          "right-padded prefill")
@@ -283,8 +311,6 @@ def main(argv=None):
                     help="engine: check greedy outputs against the static "
                          "path per request")
     args = ap.parse_args(argv)
-    if args.kv == "paged":
-        ap.error("--kv paged: the paged KV layout is not ported yet")
     if args.packed != bool(args.ckpt):
         ap.error("--ckpt takes a packed checkpoint and needs --packed "
                  "(dense checkpoints are not ported)")

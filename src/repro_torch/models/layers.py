@@ -7,8 +7,10 @@ Conventions (as ``repro/models/layers.py``):
 - Prefill attention is the reference's double-chunked online softmax
   (:func:`flash_attention`), f32 throughout, in the same order of
   operations; it is arithmetic, not a kernel. Decode reads of the serving
-  cache go through K6 (:func:`~repro_torch.serving.kv_cache.fused_decode_attn`)
-  and INT8 cache rows are expanded by K5 (``kv_cache.kv_dequantize``).
+  cache go through K6, or K6p through a block table
+  (:func:`~repro_torch.serving.kv_cache.fused_decode_attn`), and INT8
+  cache rows are expanded by K5 (``kv_cache.kv_dequantize``), on the paged
+  chunk path one gathered tile at a time.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ import torch
 
 from repro_torch.quant import QTensor
 from repro_torch.serving.kv_cache import (QuantizedKV, fused_decode_attn,
-                                          kv_dequantize, kv_update)
+                                          kv_dequantize, kv_quantize,
+                                          kv_update, paged_view)
 
 
 # ---------------------------------------------------------------------------
@@ -106,9 +109,9 @@ def _pad_to(x: torch.Tensor, mult: int, dim: int):
     return torch.cat([x, x.new_zeros(shape)], dim=dim), n
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, q_offset=0, q_chunk: int = 1024,
-                    kv_chunk: int = 1024) -> torch.Tensor:
+def flash_attention(q: torch.Tensor, k, v, *, causal: bool = True,
+                    q_offset=0, q_chunk: int = 1024, kv_chunk: int = 1024,
+                    kv_pages=None) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Skv, Hk, D) with H % Hk == 0.
 
     The reference's double-chunked online-softmax attention
@@ -118,21 +121,64 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     in f32, rows with no valid key yet are guarded (``m_safe``, ``corr``),
     and the output is ``acc / max(l, 1e-30)``. ``q_offset`` is the absolute
     position of q[0] (the chunked prefill attends the cache under the
-    offset causal mask). The paged ``kv_pages`` form is not ported.
+    offset causal mask).
+
+    ``kv_pages=(table, page_size)`` reads K/V through the paged layout: k
+    and v are one layer's page pools (P, page, Hk, D), dense or
+    :class:`QuantizedKV`, and ``table`` (B, n_pages) int32 maps each row's
+    positions to pages. KV chunks are page-aligned (``kv_chunk // page``
+    pages, the table padded with the sentinel P to whole chunks), and each
+    inner step gathers only its own pages (sentinel entries clip to page
+    P − 1, past every live query's causal mask); a quantized pool expands
+    each gathered tile through :func:`kv_dequantize` (K5 on the card).
     """
     b, sq, h, d = q.shape
-    _, skv, hk, _ = k.shape
+    if kv_pages is not None:
+        table, page_size = kv_pages
+        store = k.codes if isinstance(k, QuantizedKV) else k
+        hk = store.shape[-2]
+        skv = table.shape[1] * page_size
+    else:
+        _, skv, hk, _ = k.shape
     if h % hk:
         raise ValueError(f"flash_attention: {h} heads over {hk} KV heads")
     g = h // hk
     q_chunk = min(q_chunk, sq)
     kv_chunk = min(kv_chunk, skv)
     q, sq0 = _pad_to(q, q_chunk, 1)
-    k, skv0 = _pad_to(k, kv_chunk, 1)
-    v, _ = _pad_to(v, kv_chunk, 1)
     scale = 1.0 / math.sqrt(d)
     dev = q.device
-    sq_p, skv_p = q.shape[1], k.shape[1]
+
+    if kv_pages is not None:
+        ppc = max(kv_chunk // page_size, 1)
+        kv_chunk = ppc * page_size
+        npg = table.shape[1]
+        npg_p = -(-npg // ppc) * ppc
+        if npg_p != npg:                     # sentinel-pad the table itself
+            table = torch.cat([table, table.new_full(
+                (b, npg_p - npg), store.shape[0])], dim=1)
+        skv0, skv_p = skv, npg_p * page_size
+        idx = table.to(torch.int64).clamp(0, store.shape[0] - 1)
+
+        def fetch(k0):
+            pages = idx[:, k0 // page_size:k0 // page_size + ppc]
+
+            def grab(pool):                  # (B, ppc, page, ...) → chunk
+                return pool[pages].reshape(b, kv_chunk, *pool.shape[2:])
+            if isinstance(k, QuantizedKV):
+                return tuple(kv_dequantize(QuantizedKV(
+                    grab(e.codes), grab(e.scale), grab(e.zero), e.group_size),
+                    q.dtype) for e in (k, v))
+            return grab(k), grab(v)
+    else:
+        k, skv0 = _pad_to(k, kv_chunk, 1)
+        v, _ = _pad_to(v, kv_chunk, 1)
+        skv_p = k.shape[1]
+
+        def fetch(k0):
+            return k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
+
+    sq_p = q.shape[1]
     q_pos = torch.arange(sq_p, device=dev) + q_offset
     k_pos = torch.arange(skv_p, device=dev)
     kv_valid = k_pos < skv0
@@ -145,7 +191,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l = torch.zeros((b, h, q_chunk), device=dev)
         acc = torch.zeros((b, h, q_chunk, d), device=dev)
         for k0 in range(0, skv_p, kv_chunk):
-            kc, vc = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
+            kc, vc = fetch(k0)
             s = _scores(qc, kc, g) * scale                  # (B, H, qc, kc)
             mask = kv_valid[k0:k0 + kv_chunk][None, None, None, :]
             if causal:
@@ -195,6 +241,58 @@ def decode_attention(q, k_cache, v_cache, q_positions) -> torch.Tensor:
     sc = sc.masked_fill(~valid[:, None], float("-inf"))
     p = torch.softmax(sc, dim=-1)
     return _pv(p, v_cache, g).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def paged_write(entry, table: torch.Tensor, pos, new: torch.Tensor,
+                page_size: int):
+    """Scatter ``new`` (B, s, Hk, D) tokens into one layer's page pool
+    (P, page, Hk, D), dense or :class:`QuantizedKV`, through the block
+    table (B, n_pages), in place.
+
+    ``pos`` a (B,) tensor with s == 1 (the engine's decode: each row writes
+    at its own position) or a host int with s >= 1 (the chunked prefill: s
+    consecutive positions from ``pos``). A position past the table or on a
+    sentinel entry (a parked slot's row, a final chunk's padded tail past
+    the request's pages) is dropped, never written, as the reference's
+    scatter drops it. The drop is made without reading anything on the
+    host: a dropped write is redirected onto the target of the first kept
+    one, with that write's own values (duplicate writes of equal values
+    leave one result), or, when every write drops, onto page 0 offset 0
+    with the values it already holds."""
+    b, s = new.shape[0], new.shape[1]
+    leaves = (entry[:3] if isinstance(entry, QuantizedKV) else (entry,))
+    num_pages = leaves[0].shape[0]
+    npg = table.shape[1]
+    dev = leaves[0].device
+    if torch.is_tensor(pos) and pos.dim() == 1:
+        if s != 1:
+            raise ValueError("per-slot paged writes are one token per step")
+        cols = pos.to(device=dev, dtype=torch.int64)[:, None]      # (B, 1)
+    else:
+        cols = (int(pos) + torch.arange(s, device=dev))[None, :].expand(b, s)
+    pidx = torch.clamp(cols // page_size, 0, npg - 1)
+    pages = torch.gather(table.to(torch.int64), 1, pidx)             # (B, s)
+    keep = ((cols < npg * page_size) & (pages >= 0)
+            & (pages < num_pages)).reshape(-1)
+    pages, offs = pages.reshape(-1), (cols % page_size).reshape(-1)
+    # (1,) index of the first kept write; a 0-dim index would be read on
+    # the host
+    first = torch.argmax(keep.to(torch.int32)).reshape(1)
+    some = keep.any()
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    pages = torch.where(keep, pages, torch.where(
+        some, pages.index_select(0, first), zero))
+    offs = torch.where(keep, offs, torch.where(
+        some, offs.index_select(0, first), zero))
+    src = torch.where(keep, torch.arange(b * s, device=dev), first)
+    flat = new.reshape(b * s, *new.shape[2:])
+    vals = (kv_quantize(flat, entry.group_size)[:3]
+            if isinstance(entry, QuantizedKV) else (flat,))
+    for dst, val in zip(leaves, vals):
+        val = val[src].to(dst.dtype)
+        held = dst[0, 0].expand_as(val)             # page 0 offset 0 as is
+        dst[pages, offs] = torch.where(some, val, held)
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -276,12 +374,17 @@ def attn_apply(p, x, cfg, *, positions=None, capture=None, kv_cache=None,
       (:func:`~repro_torch.serving.kv_cache.fused_decode_attn`); False
       keeps the expand-then-attend reference (:func:`decode_attention`).
 
-    ``block_table`` (the paged layout) is not ported yet.
+    ``block_table`` (B, n_pages) int32 switches the cache to the paged
+    layout: the entries are one layer's page pools (P, page, Hk, D), the
+    page size read off the pool, and every position routes through the
+    table — writes through :func:`paged_write`, the decode read through
+    K6p (``fused_decode``) or :func:`~repro_torch.serving.kv_cache.paged_view`
+    then expand then :func:`decode_attention`, and s > 1 only as the
+    chunked-prefill contract (``attend_cache``), read by the paged
+    :func:`flash_attention`. The views hold the same written values at the
+    same positions as a slot row, so greedy tokens equal the slot
+    layout's, dense and INT8 alike.
     """
-    if block_table is not None:
-        raise NotImplementedError(
-            "the paged KV layout (block_table) belongs to the paging slice "
-            "of the port and is not ported yet")
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
     h, hk = cfg.num_heads, cfg.num_kv_heads
@@ -300,6 +403,33 @@ def attn_apply(p, x, cfg, *, positions=None, capture=None, kv_cache=None,
         out = flash_attention(q, k, v, causal=True, q_chunk=attn_chunk,
                               kv_chunk=attn_chunk)
         new_kv = (k, v)
+    elif block_table is not None:
+        if s > 1 and not attend_cache:
+            raise ValueError(
+                "paged s > 1 is the chunked-prefill contract (attend_cache);"
+                " the batched prefill fills a dense mini-cache, then "
+                "write_pages")
+        k_cache, v_cache = kv_cache                  # pools (P, page, Hk, D)
+        page = (k_cache.codes if isinstance(k_cache, QuantizedKV)
+                else k_cache).shape[1]
+        paged_write(k_cache, block_table, cache_pos, k, page)
+        paged_write(v_cache, block_table, cache_pos, v, page)
+        if s > 1:
+            out = flash_attention(q, k_cache, v_cache, causal=True,
+                                  q_offset=cache_pos, q_chunk=attn_chunk,
+                                  kv_chunk=attn_chunk,
+                                  kv_pages=(block_table, page))
+        elif fused_decode:
+            out = fused_decode_attn(q, k_cache, v_cache, positions,
+                                    table=block_table)
+        else:
+            k_r = paged_view(k_cache, block_table)
+            v_r = paged_view(v_cache, block_table)
+            if isinstance(k_r, QuantizedKV):
+                k_r = kv_dequantize(k_r, q.dtype)
+                v_r = kv_dequantize(v_r, q.dtype)
+            out = decode_attention(q, k_r, v_r, positions)
+        new_kv = (k_cache, v_cache)
     else:
         k_cache, v_cache = kv_cache
         if isinstance(k_cache, QuantizedKV):
@@ -351,5 +481,5 @@ def mlp_apply(p, x, cfg, *, capture=None):
 
 
 __all__ = ["linear_apply", "dense_init", "embed_init", "rmsnorm", "rope",
-           "mlp_act", "flash_attention", "decode_attention", "attn_params",
-           "mlp_params", "attn_apply", "mlp_apply"]
+           "mlp_act", "flash_attention", "decode_attention", "paged_write",
+           "attn_params", "mlp_params", "attn_apply", "mlp_apply"]

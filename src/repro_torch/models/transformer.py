@@ -149,7 +149,11 @@ class DenseModel(nn.Module):
         """Every block against its layer of the cache. Cache storage (dense
         (L, B, T, Hk, D) tensors or :class:`QuantizedKV`) is written in
         place; ``cache["pos"]`` is a host int (uniform batch) or a (B,)
-        tensor of per-slot positions (the engine's decode)."""
+        tensor of per-slot positions (the engine's decode). With
+        ``cache["table"]`` (B, n_pages) int32 the storage is the paged
+        layout's (L, P, page, Hk, D) pools and every access routes through
+        the table, which has no layer dim and goes to every block as it
+        is (the returned cache keeps it)."""
         for i in range(self.num_blocks()):
             layer_kv = tuple(_layer(cache[n], i) for n in ("k", "v"))
             h, _ = block_apply(self.block_slice(params, i), h, self.cfg,
@@ -199,12 +203,15 @@ class DenseModel(nn.Module):
         chunk's K/V is written at [pos, pos + W) — columns past the cache
         edge dropped — and the queries attend the cache under the offset
         causal mask. Logits at the chunk-local ``lengths - 1`` (meaningful
-        on the final chunk only)."""
+        on the final chunk only). With ``cache["table"]`` (1, n_pages) the
+        chunk writes and reads the page pools through that table row (a
+        prefix hit's suffix, or a prompt beyond the largest bucket)."""
         return self._prefill_rows(params, batch, cache, lengths, True)
 
     def decode_step(self, params, tokens, cache):
         """One decode step. tokens: (B, 1) int. ``cache["pos"]`` is a host
-        int (uniform batch) or a per-slot (B,) tensor (engine path)."""
+        int (uniform batch) or a per-slot (B,) tensor (engine path); with
+        ``cache["table"]`` (B, n_pages) the read is K6p through it."""
         h = params["embed"][tokens.to(torch.int64)]
         pos = cache["pos"]
         if torch.is_tensor(pos) and pos.dim() == 1:

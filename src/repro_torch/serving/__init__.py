@@ -1,8 +1,11 @@
-"""Serving runtime of the port: continuous batching over a slot KV cache,
-dense or INT8, with per-request sampling, deadlines, cancel, load shedding
-and the seeded fault harness (``repro/serving`` minus the paged layout).
+"""Serving runtime of the port: continuous batching over a slot or paged
+KV cache, dense or INT8, with per-request sampling, deadlines, cancel, load
+shedding and the seeded fault harness; the paged layout adds page
+allocation, copy-free shared-prefix reuse and preemption with spill and
+resume (``repro/serving`` minus the metrics registry).
 
-``kv_cache``, ``sampling``, ``scheduler`` and ``faults`` are model-free and
+``kv_cache``, ``paging``, ``prefix_cache``, ``sampling``, ``scheduler``
+and ``faults`` are model-free and
 import eagerly (``models/layers.py`` uses ``kv_cache``); the ``Engine``
 imports the model stack, so it loads lazily, which keeps
 ``repro_torch.serving.kv_cache`` importable from inside
@@ -12,10 +15,15 @@ from repro_torch.serving.faults import (ALLOC_FAIL, KINDS, NAN_LOGITS,
                                         SPILL_FAIL, FaultPlan, InjectedFault)
 from repro_torch.serving.kv_cache import (KVCacheConfig, QuantizedKV,
                                           cache_bytes, cache_is_finite,
+                                          init_paged_storage,
                                           init_slot_cache, kv_dequantize,
-                                          kv_quantize, kv_update,
-                                          set_slot_rows, slot_rows,
+                                          kv_quantize, kv_update, paged_view,
+                                          put_pages, set_slot_rows,
+                                          slot_rows, take_pages, write_pages,
                                           write_slot)
+from repro_torch.serving.paging import (PageAllocator, pow2_at_least,
+                                        restore_pages, spill_pages)
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampling import SamplingParams, sample_tokens
 from repro_torch.serving.scheduler import (AdmittedBatch,
                                            DuplicateRequestError, EngineError,
@@ -41,9 +49,12 @@ __all__ = ["ALLOC_FAIL", "AdmittedBatch", "DuplicateRequestError", "Engine",
            "EngineConfig", "EngineError", "EngineInvariantError",
            "EngineStalledError", "FaultPlan", "GenerationRequest",
            "GenerationResult", "InjectedFault", "InvalidRequestError",
-           "KINDS", "KVCacheConfig", "NAN_LOGITS", "QuantizedKV",
-           "QueueFullError", "RequestStatus", "ResumeTicket", "SPILL_FAIL",
-           "SamplingParams", "Scheduler", "batch_buckets", "cache_bytes",
-           "cache_is_finite", "init_slot_cache", "kv_dequantize",
-           "kv_quantize", "kv_update", "sample_tokens", "set_slot_rows",
-           "slot_rows", "write_slot"]
+           "KINDS", "KVCacheConfig", "NAN_LOGITS", "PageAllocator",
+           "PrefixCache", "QuantizedKV", "QueueFullError", "RequestStatus",
+           "ResumeTicket", "SPILL_FAIL", "SamplingParams", "Scheduler",
+           "batch_buckets", "cache_bytes", "cache_is_finite",
+           "init_paged_storage", "init_slot_cache", "kv_dequantize",
+           "kv_quantize", "kv_update", "paged_view", "pow2_at_least",
+           "put_pages", "restore_pages", "sample_tokens", "set_slot_rows",
+           "slot_rows", "spill_pages", "take_pages", "write_pages",
+           "write_slot"]

@@ -17,9 +17,9 @@ injected faults that hooks into three places:
   flag for a step, exercising the guard that fails the offending slot and
   keeps the batch serving.
 
-The port's slot engine reads ``nan_logits`` and the clock; ``alloc_fail``
-and ``spill_fail`` are carried for the paged engine, which is not ported
-yet.
+In the port all three act: the slot engine reads ``nan_logits`` and the
+clock, and the paged engine attaches the plan to its page allocator
+(``alloc_fail``) and checks ``spill_fail`` at every spill and restore.
 
 ``slow_step_s`` switches the engine onto the plan's VIRTUAL clock (one
 tick per engine step), making deadline expiry deterministic in tests — no

@@ -1,5 +1,5 @@
-"""Slot-indexed, optionally INT8-quantized KV cache for the serving engine
-(the port of ``repro/serving/kv_cache.py``, slot layout).
+"""Slot-indexed or paged, optionally INT8-quantized KV cache for the
+serving engine (the port of ``repro/serving/kv_cache.py``).
 
 The cache is a plain dict ``{"k": <storage>, "v": <storage>, "pos": ...}``
 where ``<storage>`` is a dense ``(L, S, T, Hk, D)`` tensor (``L`` layers,
@@ -8,19 +8,25 @@ per-(token, head, group) float16 scale and zero, groups tiling the head
 dim. INT8 storage costs ``1 + 4/group`` bytes per element against 4 for
 f32.
 
+The paged layout keeps per-layer page pools ``(L, P, page, Hk, D)`` (dense
+or :class:`QuantizedKV` with per-(page, token, head, group) planes) that
+requests reach through block tables; ``serving/paging.py`` owns the
+allocator, this module the storage and its scatters and gathers
+(:func:`init_paged_storage`, :func:`write_pages`, :func:`paged_view`,
+:func:`take_pages`, :func:`put_pages`). The page index P is the sentinel:
+writes through it are dropped and reads clip to page P − 1, whose
+positions lie past every row's length.
+
 Reads expand INT8 rows at the attention boundary through K5
-(``kernels.impl("kv_dequant")``), and the decode read is K6
-(:func:`fused_decode_attn`). Writes quantize the incoming K/V. Unlike the
+(``kernels.impl("kv_dequant")``), and the decode read is K6, or K6p
+through a block table (:func:`fused_decode_attn`). Writes quantize the incoming K/V. Unlike the
 reference, whose arrays are immutable, every write here updates the
 storage IN PLACE and returns it: the cache of full-width llama32-1b is
 hundreds of MB, and the reference's jitted steps donate it for the same
 reason. Out-of-range writes are dropped explicitly, as JAX's scatters drop
 them: batch-padding rows of :func:`write_slot` and the columns of a final
-prefill chunk past the cache edge.
-
-The paged storage functions (``init_paged_storage``, ``write_pages``,
-``paged_view``, ``take_pages``, ``put_pages``) belong to the paging slice
-and are not ported yet.
+prefill chunk past the cache edge, and the sentinel page columns of a
+paged write.
 """
 from __future__ import annotations
 
@@ -101,16 +107,18 @@ def kv_dequantize(q: QuantizedKV, dtype=torch.float32) -> torch.Tensor:
 
 
 def fused_decode_attn(q: torch.Tensor, k_entry, v_entry,
-                      positions: torch.Tensor, *,
+                      positions: torch.Tensor, *, table=None,
                       block_t: int = 256) -> torch.Tensor:
-    """K6: one query token per row attends its own cache history.
+    """K6 (K6p with ``table``): one query token per row attends its own
+    cache history.
 
     q: (B, 1, H, D) (RoPE applied); positions: (B, 1) absolute decode
     positions — row b attends ``positions[b] + 1`` live tokens (the current
     token's K/V is already written). ``k_entry``/``v_entry``: one layer's
-    (B, T, Hk, D) slot storage, dense or :class:`QuantizedKV` (dequantized
-    inside the kernel's tile). The lengths stay on the device. Returns
-    (B, 1, H, D)."""
+    (B, T, Hk, D) slot storage, or with ``table`` (B, n_pages) int32 one
+    layer's (P, page, Hk, D) page pools; dense or :class:`QuantizedKV`
+    either way (dequantized inside the kernel's tile). The lengths and the
+    table stay on the device. Returns (B, 1, H, D)."""
     lengths = positions[:, 0].to(torch.int32) + 1
     kw = {}
     if isinstance(k_entry, QuantizedKV):
@@ -118,8 +126,13 @@ def fused_decode_attn(q: torch.Tensor, k_entry, v_entry,
                   v_scale=v_entry.scale, v_zero=v_entry.zero,
                   group_size=k_entry.group_size)
         k_entry, v_entry = k_entry.codes, v_entry.codes
-    out = impl("decode_attn")(q[:, 0].contiguous(), k_entry, v_entry,
-                              lengths, block_t=block_t, **kw)
+    if table is not None:
+        out = impl("decode_attn_paged")(q[:, 0].contiguous(), k_entry,
+                                        v_entry, table, lengths,
+                                        block_t=block_t, **kw)
+    else:
+        out = impl("decode_attn")(q[:, 0].contiguous(), k_entry, v_entry,
+                                  lengths, block_t=block_t, **kw)
     return out[:, None].to(q.dtype)
 
 
@@ -242,6 +255,128 @@ def set_slot_rows(entry, slot: int, rows):
     return entry
 
 
+# ---------------------------------------------------------------------------
+# paged storage (the block-table layout; serving/paging.py owns the
+# allocator and refcounts, this layer the device tensors and the scatters)
+# ---------------------------------------------------------------------------
+
+def _leaves(entry):
+    """The tensors of one storage entry: (codes, scale, zero) or (dense,)."""
+    return tuple(entry[:3]) if isinstance(entry, QuantizedKV) else (entry,)
+
+
+def _rebuild(entry, leaves):
+    """An entry of ``entry``'s kind around ``leaves``."""
+    if isinstance(entry, QuantizedKV):
+        return QuantizedKV(*leaves, entry.group_size)
+    return leaves[0]
+
+
+def init_paged_storage(model_cfg, num_pages: int, page_size: int,
+                       dtype=torch.float32, quantized: bool = False,
+                       group_size: int = 0, *, device="cuda") -> dict:
+    """Fresh ``{"k", "v"}`` page pools: (L, P, page_size, Hk, D) storage.
+
+    Every page is allocatable; ``num_pages`` (P itself) is the sentinel
+    page index (writes through it are dropped, reads clip to page P − 1).
+    Quantized pools carry per-(page, token, head, group) scale and zero
+    (initialized to 1e-4 and 0, as the reference's), so pages move
+    (spill and restore, prefix sharing) without re-quantization."""
+    dev = resolve_device(device)
+    hd = model_cfg.resolved_head_dim
+    shape = (model_cfg.num_layers, num_pages, page_size,
+             model_cfg.num_kv_heads, hd)
+
+    def store():
+        if not quantized:
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        g = group_size or hd
+        if hd % g:
+            raise ValueError(f"KV group {g} does not divide head_dim {hd}")
+        planes = shape[:-1] + (hd // g,)
+        return QuantizedKV(
+            codes=torch.zeros(shape, dtype=torch.uint8, device=dev),
+            scale=torch.full(planes, 1e-4, dtype=torch.float16, device=dev),
+            zero=torch.zeros(planes, dtype=torch.float16, device=dev),
+            group_size=g)
+
+    return {"k": store(), "v": store()}
+
+
+def write_pages(kv: dict, page_map, k_new: torch.Tensor,
+                v_new: torch.Tensor, page_size: int) -> dict:
+    """Splice B freshly prefilled (L, B, W, Hk, D) mini-caches into the
+    page pools through per-row page maps, in place — the paged mirror of
+    :func:`write_slot`.
+
+    ``page_map``: (B, ceil(W / page_size)) host ints (the engine's own
+    bookkeeping), the physical page of each page column of each row.
+    Columns whose page is the sentinel (>= P) are dropped: batch-padding
+    rows carry all-sentinel maps, and a row's map holds exactly
+    ceil(prompt_len / page_size) live pages, so the bucket-padded tail past
+    the last allocated page is dropped (the garbage inside the last live
+    page is overwritten by decode writes in position order before it is
+    ever attended)."""
+    page_map = np.asarray(page_map, dtype=np.int64)
+    if page_map.ndim == 1:
+        page_map = page_map[None]
+    store = _leaves(kv["k"])[0]
+    num_pages = store.shape[1]
+    w = k_new.shape[2]
+    cols = np.arange(w)
+    pages = page_map[:, cols // page_size]                      # (B, W)
+    rows, wi = np.nonzero((pages >= 0) & (pages < num_pages))
+    if rows.size == 0:
+        return kv
+    idx = to_device(np.stack([rows, wi, pages[rows, wi],
+                              wi % page_size]), store.device)
+    b_i, w_i, p_i, o_i = idx
+    for name, new in (("k", k_new), ("v", v_new)):
+        entry = kv[name]
+        sel = new[:, b_i, w_i]                                  # (L, N, Hk, D)
+        if isinstance(entry, QuantizedKV):
+            src = _leaves(kv_quantize(sel, entry.group_size))
+        else:
+            src = (sel,)
+        for dst, val in zip(_leaves(entry), src):
+            dst[:, p_i, o_i] = val.to(device=dst.device, dtype=dst.dtype)
+    return kv
+
+
+def paged_view(entry, table: torch.Tensor):
+    """Each block-table row's pages gathered into a contiguous view: one
+    layer's pool (P, page, Hk, D) + table (B, n_pages) → (B, n_pages·page,
+    Hk, D), planes alike. Sentinel entries clip to page P − 1; those
+    positions lie past every live query's causal mask."""
+    from repro_torch.kernels.ref import gather_pages
+    return _rebuild(entry, [gather_pages(t, table) for t in _leaves(entry)])
+
+
+def take_pages(entry, pages) -> tuple:
+    """Whole pages across all layers: (L, P, page, …) storage and N page
+    indices → a tuple of (L, N, page, …) tensors, one per leaf (codes,
+    scale, zero; or the dense values). The spill reads through this."""
+    leaves = _leaves(entry)
+    idx = to_device(np.asarray(pages, dtype=np.int64), leaves[0].device)
+    return tuple(t.index_select(1, idx) for t in leaves)
+
+
+def put_pages(entry, pages, rows) -> object:
+    """Scatter whole-page payloads (the leaves of :func:`take_pages`, on
+    the storage's device) back into the pools at ``pages``, in place:
+    host ints, or an int64 tensor on the storage's device (the restore's,
+    uploaded with its payload). Every index must be a page of the pool —
+    the reference drops sentinel indices because it pads the page count
+    to a power of two; the port moves exactly the request's pages."""
+    leaves = _leaves(entry)
+    if not torch.is_tensor(pages):
+        pages = to_device(np.asarray(pages, dtype=np.int64),
+                          leaves[0].device)
+    for dst, src in zip(leaves, rows):
+        dst[:, pages] = src.to(dst.dtype)
+    return entry
+
+
 def cache_bytes(cache: dict) -> int:
     """Resident bytes of the K/V storage (excludes the tiny pos vector)."""
     total = 0
@@ -268,6 +403,7 @@ def cache_is_finite(cache: dict) -> bool:
 
 
 __all__ = ["INV_255", "KVCacheConfig", "QuantizedKV", "cache_bytes",
-           "cache_is_finite", "fused_decode_attn", "init_slot_cache",
-           "kv_dequantize", "kv_quantize", "kv_update", "set_slot_rows",
-           "slot_rows", "write_slot"]
+           "cache_is_finite", "fused_decode_attn", "init_paged_storage",
+           "init_slot_cache", "kv_dequantize", "kv_quantize", "kv_update",
+           "paged_view", "put_pages", "set_slot_rows", "slot_rows",
+           "take_pages", "write_pages", "write_slot"]

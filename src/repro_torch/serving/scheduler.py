@@ -169,7 +169,7 @@ class ResumeTicket:
     The engine fills it at preemption (spilled page payloads + decode
     cursor) and consumes it on resume; the scheduler only orders it
     (by ``seq``) and re-binds it to a slot. ``payload`` is engine-opaque
-    (the pow2-padded spilled page bytes of both pools)."""
+    (the spilled page bytes of both pools, in host memory)."""
     request: GenerationRequest
     generated: int                     # tokens sampled before preemption
     last_token: int                    # next decode input token

@@ -3,7 +3,8 @@ scheduler invariants, per-request sampling, greedy parity on the
 reference's own traces (dense f32 and INT8 slot caches, slot reuse,
 chunked long prompts), fused against unfused decode, and the failure
 semantics (non-finite logits, deadlines on the virtual clock, cancel,
-``check_invariants`` after every step).
+``check_invariants`` after every step). The paged layout's parity tests
+are in tests/test_torch_paging.py.
 
 The JAX tiny llama32's random init is carried into the port through
 ``repro_torch.bridge``, and both engines see the same numpy prompts. On
@@ -292,9 +293,14 @@ def test_int8_cache_is_about_half_of_bf16(tiny):
 
 
 def test_paged_layout_is_not_ported(tiny):
+    """The paged layout is ported now (tests/test_torch_paging.py); what
+    stays refused is a layout the engine does not know."""
     cfg, model, params, _, _ = tiny
-    with pytest.raises(NotImplementedError, match="paging slice"):
-        Engine(model, params, EngineConfig(kv_layout="paged"))
+    eng = Engine(model, params, EngineConfig(kv_layout="paged"))
+    assert eng.page_stats()["num_pages"] == 8 * 16
+    assert Engine(model, params, EngineConfig()).page_stats() == {}
+    with pytest.raises(ValueError, match="kv_layout"):
+        Engine(model, params, EngineConfig(kv_layout="blocks"))
 
 
 # ---------------------------------------------------------------------------
@@ -364,7 +370,11 @@ def test_cancel_shedding_and_stall(tiny):
     assert {r.rid: r.status for r in eng.run()} == {50: "ok"}
 
 
-@pytest.mark.parametrize("flags", [["--kv-quant"], ["--verify"]])
+@pytest.mark.parametrize("flags", [["--kv-quant"], ["--verify"],
+                                   ["--kv", "paged", "--kv-quant",
+                                    "--page-size", "8", "--pages", "7"],
+                                   ["--kv", "paged", "--verify",
+                                    "--no-prefix-cache"]])
 def test_serve_engine_cli_runs_on_cpu(flags):
     from repro_torch.launch import serve
     results = serve.main(["--tiny", "--device", "cpu", "--engine",
@@ -374,4 +384,4 @@ def test_serve_engine_cli_runs_on_cpu(flags):
     assert len(results) == 6 and all(r.ok for r in results)
     with pytest.raises(SystemExit):
         serve.main(["--tiny", "--device", "cpu", "--engine", "continuous",
-                    "--kv", "paged"])
+                    "--kv", "blocks"])

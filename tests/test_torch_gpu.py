@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels K1–K6 against their plain PyTorch versions
-on the card, at small shapes and edge cases.
+"""The hand-written CUDA kernels K1–K6 and K6p against their plain PyTorch
+versions on the card, at small shapes and edge cases, and the engines'
+host waits and the paged engine's spill/restore round trip there.
 
 Needs a CUDA card: every test takes the ``cuda`` fixture, which skips when
 ``torch.cuda.is_available()`` is false (decided inside the fixture, never
@@ -238,6 +239,116 @@ def test_decode_attn_bf16_and_nan_row(cuda):
                                    rtol=1e-5, atol=1e-5, equal_nan=True)
 
 
+def _paged_case(rng, dev, lens, page, hk, g, d, quant, group, pool=None):
+    """Shuffled pools of ``pool`` pages and tables covering ``lens``: each
+    row's live pages distinct, the first page of rows 1 and 2 shared when
+    both have one, sentinel (== pool) tails."""
+    npg = -(-max(lens) // page) + 1
+    pool = pool or sum(-(-n // page) for n in lens) + 3
+    q = _randn(rng, (len(lens), hk * g, d), dev)
+    k = _randn(rng, (pool, page, hk, d), dev)
+    v = _randn(rng, (pool, page, hk, d), dev)
+    table = np.full((len(lens), npg), pool, np.int32)
+    perm, used = rng.permutation(pool), 0
+    for i, n in enumerate(lens):
+        live = -(-n // page)
+        table[i, :live] = perm[used:used + live]
+        used += live
+    if lens[1] and lens[2]:
+        table[2, 0] = table[1, 0]
+    table = torch.from_numpy(table).to(dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = {}
+    if quant:
+        from repro_torch.serving.kv_cache import kv_quantize
+        qk, qv = kv_quantize(k, group), kv_quantize(v, group)
+        k, v = qk.codes, qv.codes
+        kw = dict(k_scale=qk.scale, k_zero=qk.zero, v_scale=qv.scale,
+                  v_zero=qv.zero, group_size=group)
+    return q, k, v, table, lengths, kw
+
+
+# K6p: K6's arithmetic with page addressing — the same bar against the
+# plain version, and the same bits as K6 on the gathered rows.
+@pytest.mark.parametrize("page,hk,g,d,quant,group,block_t", [
+    (8, 1, 1, 16, False, 0, 16), (4, 2, 4, 16, False, 0, 7),
+    (8, 2, 3, 16, True, 8, 16), (16, 8, 4, 64, True, 64, 256),
+    (16, 8, 4, 64, False, 0, 256), (5, 2, 2, 32, True, 32, 64)])
+def test_decode_attn_paged_matches_plain(cuda, page, hk, g, d, quant, group,
+                                         block_t):
+    rng = np.random.default_rng(8)
+    t = 300 if d == 64 else 40
+    lens = [0, 1, 17, t // 2, t - 1, t]
+    q, k, v, table, lengths, kw = _paged_case(rng, cuda, lens, page, hk, g,
+                                              d, quant, group)
+    out = _launched("decode_attn_paged", lambda: ops.decode_attn_paged(
+        q, k, v, table, lengths, block_t=block_t, **kw))
+    want = ref.decode_attn_paged(q, k, v, table, lengths, **kw)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))  # length 0: zeros
+    rows = {n: ref.gather_pages(x, table) for n, x in kw.items()
+            if torch.is_tensor(x)}
+    slot = ops.decode_attn(q, ref.gather_pages(k, table),
+                           ref.gather_pages(v, table), lengths,
+                           block_t=block_t, **dict(kw, **rows))
+    assert torch.equal(out, slot)
+
+
+def test_decode_attn_paged_bf16_nan_and_lengths_past_the_table(cuda):
+    rng = np.random.default_rng(9)
+    lens = [64, 0, 33, 5]
+    q, k, v, table, lengths, _ = _paged_case(rng, cuda, lens, 8, 2, 2, 32,
+                                             False, 0)
+    kb, vb = k.bfloat16(), v.bfloat16()
+    out = _launched("decode_attn_paged", lambda: ops.decode_attn_paged(
+        q, kb, vb, table, lengths, block_t=16))
+    torch.testing.assert_close(
+        out, ref.decode_attn_paged(q, kb, vb, table, lengths),
+        rtol=1e-5, atol=1e-5)
+    # a length beyond the table's reach reads only the table's positions
+    long = torch.tensor([10**6, 0, 33, 5], dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(
+        ops.decode_attn_paged(q, k, v, table, long),
+        ops.decode_attn_paged(q, k, v, table, torch.clamp(
+            long, max=table.shape[1] * 8)), rtol=0, atol=0)
+    for quant in (False, True):
+        q, k, v, table, lengths, kw = _paged_case(rng, cuda, lens, 8, 2, 2,
+                                                  32, quant, 16)
+        pg = int(table[2, 0])                    # row 2's token 3
+        if quant:
+            kw["k_scale"][pg, 3] = float("nan")
+        else:
+            k[pg, 3] = float("nan")
+        out = _launched("decode_attn_paged", lambda: ops.decode_attn_paged(
+            q, k, v, table, lengths, block_t=16, **kw))
+        assert torch.isnan(out[2]).all()          # the NaN row propagates
+        assert torch.isfinite(out[[0, 3]]).all()
+        assert torch.equal(out[1], torch.zeros_like(out[1]))
+        torch.testing.assert_close(
+            out, ref.decode_attn_paged(q, k, v, table, lengths, **kw),
+            rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+def test_spill_restore_round_trip_on_the_card(cuda):
+    """Pages of INT8 pools spilled to the host in one transfer and restored
+    into other pages in one upload hold the same bytes."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.serving.kv_cache import (init_paged_storage,
+                                              take_pages, write_pages)
+    from repro_torch.serving.paging import restore_pages, spill_pages
+    cfg = get_tiny_config("llama32-1b")
+    kv = init_paged_storage(cfg, 12, 8, quantized=True, device=cuda)
+    rng = np.random.default_rng(10)
+    x = _randn(rng, (cfg.num_layers, 2, 24, cfg.num_kv_heads,
+                     cfg.resolved_head_dim), cuda)
+    write_pages(kv, np.array([[3, 9, 1], [0, 12, 12]]), x, x * 2, 8)
+    src, dst = [9, 3, 0, 1], [5, 11, 2, 7]
+    before = [t.clone() for n in ("k", "v") for t in take_pages(kv[n], src)]
+    restore_pages(kv, dst, spill_pages(kv, src))
+    after = [t for n in ("k", "v") for t in take_pages(kv[n], dst)]
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+
+
 def test_wrappers_refuse_mixed_devices(cuda):
     z = torch.zeros(4, 256, device=cuda)
     with pytest.raises(ValueError):
@@ -252,6 +363,12 @@ def test_wrappers_refuse_mixed_devices(cuda):
     kv = torch.zeros(2, 8, 2, 16, device=cuda)
     with pytest.raises(ValueError):
         ops.decode_attn(q, kv, kv, torch.ones(2, dtype=torch.int32))
+    table = torch.zeros(2, 3, dtype=torch.int32, device=cuda)
+    lengths = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ops.decode_attn_paged(q, kv, kv, table.cpu(), lengths)
+    with pytest.raises(TypeError):
+        ops.decode_attn_paged(q, kv, kv, table.long(), lengths)
 
 
 def test_engine_waits_on_the_card_once_a_step(cuda):
@@ -292,3 +409,57 @@ def test_engine_waits_on_the_card_once_a_step(cuda):
     assert sorted(len(r.tokens) for r in got if r.status == "ok") == \
         [3, 4, 5, 6, 8]
     assert ops.LAUNCHES["kv_dequant"] > 0 and ops.LAUNCHES["decode_attn"] > 0
+
+
+def test_paged_engine_waits_on_the_card_once_a_step(cuda):
+    """The paged engine waits on the card once a decode step, batched
+    prefill, chunked prompt and preemption (a spill's one transfer); a
+    resume's upload does not wait. A pool of 7 four-token pages for 3
+    slots preempts; a shared prefix hits the cache; INT8 pools, so K5 (the
+    chunked prompts) and K6p (every decode step) run."""
+    import warnings
+
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine, EngineConfig, GenerationRequest
+
+    cfg = get_tiny_config("llama32-1b")
+    model = build_model(cfg)
+    eng = Engine(model, model.init(0, device=cuda), EngineConfig(
+        num_slots=3, max_len=24, prompt_buckets=(4, 8), kv_quantized=True,
+        kv_layout="paged", page_size=4, num_pages=7))
+    rng = np.random.default_rng(0)
+    shared = rng.integers(1, cfg.vocab_size, 9).astype(np.int32)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 7, 3)]
+    prompts += [np.concatenate([shared, [7, 8]]).astype(np.int32),
+                np.concatenate([shared, [9]]).astype(np.int32)]
+    reqs = [GenerationRequest(rid=i, prompt=p, max_new_tokens=g)
+            for i, (p, g) in enumerate(zip(prompts, [9, 8, 10, 4, 4]))]
+    eng.warmup(reqs)
+    ops.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for r in reqs:
+                eng.submit(r)
+            got = []
+            while not eng.scheduler.idle:
+                eng.step()
+                eng.check_invariants()
+            got, eng._done = eng._done, []
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    waits = [w for w in caught if SYNC_WARNING in str(w.message)]
+    stats = eng.page_stats()
+    assert len(waits) == (eng.decode_steps + eng.prefill_dispatches
+                          + eng.chunked_admitted + eng.preemptions), \
+        sorted({f"{w.filename}:{w.lineno}" for w in waits})
+    assert stats["preemptions"] >= 1 and stats["resumes"] == \
+        stats["preemptions"]
+    assert stats["prefix_hits"] >= 1
+    assert all(r.status == "ok" for r in got) and len(got) == 5
+    assert ops.LAUNCHES["decode_attn_paged"] == \
+        cfg.num_layers * eng.decode_steps
+    assert ops.LAUNCHES["kv_dequant"] > 0 and ops.LAUNCHES["decode_attn"] == 0

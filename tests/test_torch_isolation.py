@@ -30,9 +30,10 @@ def _port_modules():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     mods = _port_modules()
-    assert "repro_torch.kernels.ops" in mods and len(mods) >= 37
+    assert "repro_torch.kernels.ops" in mods and len(mods) >= 39
     assert {f"repro_torch.serving.{m}" for m in (
-        "engine", "faults", "kv_cache", "sampling", "scheduler")} <= set(mods)
+        "engine", "faults", "kv_cache", "paging", "prefix_cache", "sampling",
+        "scheduler")} <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}: __import__(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -74,18 +75,22 @@ def test_entry_points_raise_without_card(no_card, tmp_path):
     from repro_torch.core import calibration
     from repro_torch.launch import compress, serve
     from repro_torch.models import build_model
-    from repro_torch.serving import KVCacheConfig, init_slot_cache
+    from repro_torch.serving import (KVCacheConfig, init_paged_storage,
+                                     init_slot_cache)
 
     cfg = get_tiny_config("llama32-1b")
     model = build_model(cfg)
     calls = [lambda: model.init(0),
              lambda: model.init_cache(1, 8),
              lambda: init_slot_cache(cfg, KVCacheConfig(1, 8)),
+             lambda: init_paged_storage(cfg, 4, 8),
              lambda: calibration.init(16),
              lambda: params_from_numpy({"w": [1.0]}),
              lambda: serve.main(["--tiny", "--gen", "2"]),
              lambda: serve.main(["--tiny", "--engine", "continuous",
                                  "--kv-quant", "--gen", "2"]),
+             lambda: serve.main(["--tiny", "--engine", "continuous",
+                                 "--kv", "paged", "--gen", "2"]),
              lambda: compress.main(["--tiny", "--out", str(tmp_path)])]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

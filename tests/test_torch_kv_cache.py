@@ -229,3 +229,165 @@ def test_fused_decode_attn_reads_the_cache_layer():
     want = J.fused_decode_attn(jnp.asarray(q), k, v, jnp.asarray(pos))
     got = P.fused_decode_attn(_t(q), _port_q(k), _port_q(v), _t(pos))
     assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# paged layout: K6p's plain version, the page scatters and gathers
+# ---------------------------------------------------------------------------
+
+PAGE = 8
+
+
+def _paged_case(rng, hk, g, d, quant, group, num_pages=16):
+    """Shuffled pools and tables holding LENS rows of T tokens: each row's
+    pages are distinct random pool pages (two rows share one page of the
+    parked row 0), tails are sentinel entries (== P). Returns the JAX
+    args, the port's args and the contiguous (B, T, Hk, D) rows."""
+    b, npg = len(LENS), T // PAGE
+    k = rng.standard_normal((num_pages, PAGE, hk, d)).astype(np.float32)
+    v = rng.standard_normal((num_pages, PAGE, hk, d)).astype(np.float32)
+    table = np.full((b, npg), num_pages, np.int32)
+    perm = rng.permutation(num_pages)
+    used = 0
+    for i, n in enumerate(LENS):
+        live = -(-n // PAGE)
+        table[i, :live] = perm[used:used + live]
+        used += live
+    table[0, 0] = table[3, 0]          # a page of row 3 in the parked row
+    q = rng.standard_normal((b, hk * g, d)).astype(np.float32)
+    lens = np.asarray(LENS, np.int32)
+    if quant:
+        qk, qv = (jit_quantize(jnp.asarray(a), group) for a in (k, v))
+        pk, pv = _port_q(qk), _port_q(qv)
+        jargs = (jnp.asarray(q), qk.codes, qv.codes, jnp.asarray(table),
+                 jnp.asarray(lens))
+        jkw = dict(k_scale=qk.scale, k_zero=qk.zero, v_scale=qv.scale,
+                   v_zero=qv.zero, group_size=group)
+        pargs = (_t(q), pk.codes, pv.codes, _t(table), _t(lens))
+        pkw = dict(k_scale=pk.scale, k_zero=pk.zero, v_scale=pv.scale,
+                   v_zero=pv.zero, group_size=group)
+    else:
+        jargs = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                 jnp.asarray(table), jnp.asarray(lens))
+        jkw, pkw = {}, {}
+        pargs = (_t(q), _t(k), _t(v), _t(table), _t(lens))
+    return jargs, jkw, pargs, pkw
+
+
+@pytest.mark.parametrize("hk,g,quant,group", [(1, 1, False, 0),
+                                              (2, 4, False, 0),
+                                              (1, 2, True, 16),
+                                              (2, 3, True, 8)])
+def test_plain_decode_attn_paged_against_pallas(hk, g, quant, group):
+    """K6p's plain version against the reference's interpreted Pallas
+    kernel (one page a tile) and its jnp oracle, within 1e-5 (the bar of
+    tests/test_decode_attn.py)."""
+    rng = np.random.default_rng(7)
+    jargs, jkw, pargs, pkw = _paged_case(rng, hk, g, 16, quant, group)
+    got = ref.decode_attn_paged(*pargs, **pkw)
+    for use_pallas in (True, False):
+        want = jops.decode_attn_paged(*jargs, use_pallas=use_pallas, **jkw)
+        assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+    assert np.all(got[0].numpy() == 0.0)                 # length 0: zeros
+    # the same tokens in slot rows give the slot version's output
+    q, k, v, table, lens = pargs
+    rows = [ref.gather_pages(x, table) for x in
+            (k, v, *(pkw[n] for n in ("k_scale", "k_zero", "v_scale",
+                                      "v_zero") if quant))]
+    slot_kw = (dict(zip(("k_scale", "k_zero", "v_scale", "v_zero"),
+                        rows[2:]), group_size=group) if quant else {})
+    assert torch.equal(got, ref.decode_attn(q, rows[0], rows[1], lens,
+                                            **slot_kw))
+
+
+def test_fused_decode_attn_paged_reads_the_pool():
+    """The cache-level entry point through a table against the JAX one."""
+    rng = np.random.default_rng(8)
+    jargs, jkw, pargs, pkw = _paged_case(rng, 2, 2, 32, True, 32)
+    jq = J.QuantizedKV(jargs[1], jkw["k_scale"], jkw["k_zero"], 32)
+    jv = J.QuantizedKV(jargs[2], jkw["v_scale"], jkw["v_zero"], 32)
+    pq = P.QuantizedKV(pargs[1], pkw["k_scale"], pkw["k_zero"], 32)
+    pv = P.QuantizedKV(pargs[2], pkw["v_scale"], pkw["v_zero"], 32)
+    pos = (np.maximum(np.asarray(LENS), 1) - 1)[:, None].astype(np.int32)
+    want = J.fused_decode_attn(jargs[0][:, None], jq, jv, jnp.asarray(pos),
+                               table=jargs[3])
+    got = P.fused_decode_attn(pargs[0][:, None], pq, pv, _t(pos),
+                              table=pargs[3])
+    assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def _pools(quantized, num_pages=6):
+    cfg, jcfg = get_tiny_config("llama32-1b"), jget_tiny("llama32-1b")
+    jkv = J.init_paged_storage(jcfg, num_pages, PAGE, quantized=quantized)
+    pkv = P.init_paged_storage(cfg, num_pages, PAGE, quantized=quantized,
+                               device="cpu")
+    return cfg, jkv, pkv
+
+
+def _same_pool(port, jax_entry):
+    if isinstance(port, P.QuantizedKV):
+        _assert_same_q(port, jax_entry)
+    else:
+        assert_array_equal(port.numpy(), np.asarray(jax_entry))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_paged_storage_init_write_view_take_put_exact(quantized):
+    """init_paged_storage, write_pages (sentinel columns and padding rows
+    dropped), paged_view, take_pages and put_pages give exactly the JAX
+    package's storage."""
+    cfg, jkv, pkv = _pools(quantized)
+    for name in ("k", "v"):
+        _same_pool(pkv[name], jkv[name])
+    rng = np.random.default_rng(9)
+    shape = (cfg.num_layers, 3, 20, cfg.num_kv_heads, cfg.resolved_head_dim)
+    k_new = rng.standard_normal(shape).astype(np.float32)
+    v_new = rng.standard_normal(shape).astype(np.float32)
+    maps = np.array([[4, 1, 6], [0, 6, 6], [6, 6, 6]], np.int32)  # 6 == P
+    jkv = jax.jit(J.write_pages, static_argnums=4)(
+        jkv, jnp.asarray(maps), jnp.asarray(k_new), jnp.asarray(v_new), PAGE)
+    pkv = P.write_pages(pkv, maps, _t(k_new), _t(v_new), PAGE)
+    for name in ("k", "v"):
+        _same_pool(pkv[name], jkv[name])
+    store = pkv["k"].codes if quantized else pkv["k"]
+    assert not store[:, [2, 3, 5]].any()               # never written
+    table = np.array([[4, 1, 6], [0, 6, 6]], np.int32)
+    for layer in (0, cfg.num_layers - 1):
+        jl = jax.tree.map(lambda a: a[layer], jkv["k"])
+        pl = (P.QuantizedKV(*(t[layer] for t in pkv["k"][:3]), 
+                            pkv["k"].group_size) if quantized
+              else pkv["k"][layer])
+        _same_pool(P.paged_view(pl, _t(table)),
+                   J.paged_view(jl, jnp.asarray(table)))
+    pages = [4, 0, 1]
+    rows = P.take_pages(pkv["v"], pages)
+    jrows = J.take_pages(jkv["v"], jnp.asarray(pages))
+    for mine, theirs in zip(rows, jax.tree.leaves(jrows)):
+        assert_array_equal(mine.numpy(), np.asarray(theirs))
+    dst = [2, 3, 5]
+    jkv["v"] = J.put_pages(jkv["v"], jnp.asarray(dst), jrows)
+    P.put_pages(pkv["v"], dst, rows)
+    _same_pool(pkv["v"], jkv["v"])
+
+
+def test_spill_restore_round_trip_is_byte_exact():
+    """A spilled payload (one host transfer) restored into other pages
+    (one upload) puts back the same bytes, codes and planes."""
+    from repro_torch.serving.paging import restore_pages, spill_pages
+    cfg = get_tiny_config("llama32-1b")
+    pkv = P.init_paged_storage(cfg, 8, PAGE, quantized=True, device="cpu")
+    rng = np.random.default_rng(10)
+    x = _t(rng.standard_normal((cfg.num_layers, 3, 2 * PAGE,
+                                cfg.num_kv_heads, cfg.resolved_head_dim)
+                               ).astype(np.float32))
+    P.write_pages(pkv, np.array([[1, 5], [2, 8], [8, 8]]), x, -x, PAGE)
+    before = {n: [t.clone() for t in pkv[n][:3]] for n in ("k", "v")}
+    payload = spill_pages(pkv, [5, 1, 2])
+    assert all(isinstance(a, np.ndarray) for a in payload["k"])
+    restore_pages(pkv, [7, 3, 0], payload)
+    for n in ("k", "v"):
+        for old, new in zip(before[n], pkv[n][:3]):
+            assert torch.equal(new[:, [7, 3, 0]], old[:, [5, 1, 2]])
+            assert torch.equal(new[:, [1, 2, 5]], old[:, [1, 2, 5]])
+    with pytest.raises(ValueError):
+        restore_pages(pkv, [7, 3], payload)
