@@ -52,9 +52,11 @@ cuBLAS splits K for short products (measured on the H100: 256-, 512- and
 1024-row f32 products), so the plain K1 sums each output in another order
 than the kernel's one FMA chain, and PGD turns those last-ulp differences
 into code and mask flips. A second process (``chip_smoke.py --parity``,
-started by the first) therefore runs paths 1, 3 and 4 again with
-``CUBLAS_WORKSPACE_CONFIG=:0:0``: with no workspace cuBLAS cannot split, so
-every product sums in K1's and K4's order, and there the kernels' path must
+started by the first) therefore runs with ``CUBLAS_WORKSPACE_CONFIG=:0:0``:
+with no workspace cuBLAS cannot split, so every product sums in K1's and
+K4's order. There K1's Z must equal its plain version bit for bit at its
+four shapes with every tile variant (K1b at its four shapes as the batched
+engine below), then paths 1, 3 and 4 run again, and the kernels' path must
 equal the plain one with the sequential driver — same iteration counts,
 same greedy tokens on the static path — and the same first token of every
 engine request (prefill is K4's tile path and K5, which is exact; K6 and K6p sum
@@ -144,6 +146,8 @@ PAGED_PATH = ("dequant_matmul", "kv_dequant", "decode_attn_paged")
 # K6p at the paged engine's decode shape: pages of 16 tokens, tables of
 # 128 pages (max_len 2048) into a pool of 512 pages
 K6P_PAGE, K6P_PAGES, K6P_POOL = 16, 128, 512
+# K1 at the four linears' shapes: wq and wo, wk and wv, wg and wu, wd
+K1_SHAPES = ((2048, 2048), (512, 2048), (8192, 2048), (2048, 8192))
 # K1b at the batched engine's buckets: {wk, wv}, {wg, wu} and {wq, wo}
 K1B_SHAPES = ((2, 512, 2048), (2, 8192, 2048), (2, 2048, 2048),
               (3, 512, 2048))
@@ -153,6 +157,13 @@ K1B_MAIN_LAUNCHES = 16 * 2 * 10
 # the engines' parity bars (tests/test_torch_compress.py,
 # tests/test_torch_batched.py): per-layer loss, share of equal entries
 LOSS_BAR, AGREE_BAR = 1e-5, 0.999
+
+
+def k1_variant(torch, b: int, m: int, k: int) -> int:
+    """The tile variant K1's wrapper picks for a (b, m, k) step on card 0."""
+    from repro_torch.kernels import ops
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return ops.awp_pgd_tiles(b, m, k, sms)[2]
 
 
 def check_path(launches: dict, path: tuple, label: str) -> None:
@@ -238,7 +249,7 @@ def phase_card(torch):
 
 
 def phase_build():
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
     t0 = time.time()
     lib = _build.build()
     log(f"[build] {lib.name} in {time.time() - t0:.1f}s "
@@ -249,11 +260,13 @@ def phase_build():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 raw = m.group(1)
-                k = re.search(r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?"
-                              r"(?:Lb(\d)E)?", raw)
-                args = [a for a in (k.group(2), k.group(3)) if a] if k else []
-                fn = (k.group(1) + (f"<{', '.join(args)}>" if args else "")
-                      if k else raw)
+                k = re.search(r"[a-z][a-z_]*_kernel", raw)
+                fn = k.group(0) if k else raw
+                if k and raw[k.end():].startswith("I"):
+                    # template arguments: integers and bools, in order
+                    args = re.findall(r"L[ib](\d+)E",
+                                      raw[k.end():].split("Ev", 1)[0])
+                    fn += f"<{', '.join(args)}>"
                 spills = ""
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
@@ -264,7 +277,10 @@ def phase_build():
                 log(f"[build] {src}: {fn}: {m.group(1)} registers, "
                     f"{m.group(2) or 0} B smem, {spills}")
                 fn = None
-    _build.library()
+    lib = _build.library()
+    for v, (bm, bn) in enumerate(ops.AWP_PGD_TILES):
+        log(f"[build] awp_pgd.cu: variant {v} ({bm} x {bn} tile): "
+            f"{lib.awp_pgd_smem_bytes(v)} B dynamic shared memory")
 
 
 def phase_kernels(torch, dev):
@@ -281,39 +297,53 @@ def phase_kernels(torch, dev):
     # -- K1: Z = Θ + η(W−Θ)C at the four linear shapes --
     # cuBLAS (the plain version) may split K into partial sums, another
     # order than the kernel's one FMA chain an output; the tolerance, 1e-5
-    # of max|Z|, admits that
-    k1_err = 0.0
-    for m, k in ((2048, 2048), (512, 2048), (8192, 2048), (2048, 8192)):
+    # of max|Z|, admits that. Every tile variant is held to it; the one the
+    # wrapper picks is timed beside the others
+    k1_err, k1_shapes = 0.0, []
+    for m, k in K1_SHAPES:
         w, theta = randn(m, k), randn(m, k)
         c = randn(k, k) / math.sqrt(k)
         # the prune recipe's η = 2/‖C‖_F: not a power of two, so a fused
         # multiply-add in the epilogue would show
         eta = 2.0 / torch.linalg.matrix_norm(c)
-        z, nrm = ops.awp_pgd_step(w, theta, c, eta)
         z_ref, nrm_ref = ref.awp_pgd_step(w, theta, c, eta)
-        err = float((z - z_ref).abs().max())
         scale = float(z_ref.abs().max())
-        nerr = float((nrm - nrm_ref).abs() / nrm_ref)
-        check(err <= 1e-5 * scale and nerr <= 1e-5,
-              f"K1 {(m, k)}: max|dZ| {err:.3e} (|Z| {scale:.3e}), "
-              f"norm rel err {nerr:.3e}")
-        k1_err = max(k1_err, err)
-        ms = time_ms(torch, lambda i: ops.awp_pgd_step(w, theta, c, eta), 5)
+        chosen = k1_variant(torch, 1, m, k)
+        times, err = {}, 0.0
+        for v in range(len(ops.AWP_PGD_TILES)):
+            z, nrm = ops.awp_pgd_step(w, theta, c, eta, variant=v)
+            err_v = float((z - z_ref).abs().max())
+            nerr = float((nrm - nrm_ref).abs() / nrm_ref)
+            check(err_v <= 1e-5 * scale and nerr <= 1e-5,
+                  f"K1 {(m, k)} variant {v}: max|dZ| {err_v:.3e} "
+                  f"(|Z| {scale:.3e}), norm rel err {nerr:.3e}")
+            err = max(err, err_v)
+            times[v] = time_ms(torch, lambda i: ops.awp_pgd_step(
+                w, theta, c, eta, variant=v), 5)
+        ms = times[chosen]
         plain = time_ms(torch, lambda i: ref.awp_pgd_step(w, theta, c, eta),
                         5)
-        bnd, by = bound_ms(2.0 * m * k * k, 4.0 * (3 * m * k + k * k))
+        flops = 2.0 * m * k * k
+        bnd, by = bound_ms(flops, 4.0 * (3 * m * k + k * k))
         eta_f = float(eta)
         lib_ms = time_ms(torch, lambda i: torch.addmm(
             theta, w - theta, c, alpha=eta_f), 5)
-        log(f"[K1] awp_pgd_step {(m, k)}: max|dZ| {err:.2e} "
-            f"(|Z|max {scale:.2f}), kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-            f"addmm {lib_ms:.3f} ms, bound {bnd:.3f} ms ({by}), "
-            f"{2.0 * m * k * k / ms / 1e9:.1f} TFLOP/s")
+        log(f"[K1] awp_pgd_step {(m, k)}: variant {chosen} "
+            f"{ops.AWP_PGD_TILES[chosen]}, max|dZ| {err:.2e} "
+            f"(|Z|max {scale:.2f}), kernel {ms:.3f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s, {bnd / ms:.0%} of the bound), "
+            f"addmm {lib_ms:.3f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s), "
+            f"plain {plain:.3f} ms, bound {bnd:.3f} ms ({by}); variants "
+            + ", ".join(f"{v}: {t:.3f} ms" for v, t in times.items()))
+        entry = dict(shape=f"M={m},K={k}", variant=chosen, ms=ms,
+                     plain_ms=plain, bound_ms=bnd, bound_by=by,
+                     library_ms=lib_ms, max_abs_err=err, variant_ms=times)
+        k1_err = max(k1_err, err)
+        k1_shapes.append(entry)
         if (m, k) == (2048, 8192):
-            rows["awp_pgd_step"] = dict(shape="M=2048,K=8192", ms=ms,
-                                        plain_ms=plain, bound_ms=bnd,
-                                        bound_by=by, library_ms=lib_ms)
+            rows["awp_pgd_step"] = dict(entry)
     rows["awp_pgd_step"]["max_abs_err"] = k1_err
+    rows["awp_pgd_step"]["by_shape"] = k1_shapes
     rows["awp_pgd_step_batched"] = check_k1b(torch, randn)
 
     # -- K2: exact top-k per row: the wo shape, ties, the Table-1 prune's
@@ -445,16 +475,18 @@ def check_k1b(torch, randn):
         eta_f = float(eta[0])
         lib = time_ms(torch, lambda i: torch.baddbmm(
             theta, w - theta, c, alpha=eta_f), 5)
-        bnd, by = bound_ms(2.0 * b * m * k * k,
-                           4.0 * b * (3 * m * k + k * k))
-        log(f"[K1b] awp_pgd_step {(b, m, k)}, η {eta.tolist()}: "
-            f"max|dZ| {err:.2e} (|Z|max {scale:.2f}), norm rel err "
-            f"{nerr:.1e}, kernel {ms:.3f} ms, plain {plain:.3f} ms, baddbmm "
-            f"{lib:.3f} ms, bound {bnd:.3f} ms ({by}), "
-            f"{2.0 * b * m * k * k / ms / 1e9:.1f} TFLOP/s")
-        entry = dict(shape=f"B={b},M={m},K={k}", ms=ms, plain_ms=plain,
-                     bound_ms=bnd, bound_by=by, library_ms=lib,
-                     max_abs_err=err)
+        flops = 2.0 * b * m * k * k
+        bnd, by = bound_ms(flops, 4.0 * b * (3 * m * k + k * k))
+        chosen = k1_variant(torch, b, m, k)
+        log(f"[K1b] awp_pgd_step {(b, m, k)}, η {eta.tolist()}: variant "
+            f"{chosen} {ops.AWP_PGD_TILES[chosen]}, max|dZ| {err:.2e} "
+            f"(|Z|max {scale:.2f}), norm rel err {nerr:.1e}, kernel "
+            f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {bnd / ms:.0%} of "
+            f"the bound), baddbmm {lib:.3f} ms ({flops / lib / 1e9:.1f} "
+            f"TFLOP/s), plain {plain:.3f} ms, bound {bnd:.3f} ms ({by})")
+        entry = dict(shape=f"B={b},M={m},K={k}", variant=chosen, ms=ms,
+                     plain_ms=plain, bound_ms=bnd, bound_by=by,
+                     library_ms=lib, max_abs_err=err)
         by_shape.append(entry)
         if (b, m, k) == (2, 8192, 2048):
             row = dict(entry)
@@ -1363,14 +1395,64 @@ def phase_parity():
           f"the parity run failed with exit code {proc.returncode}")
 
 
+def parity_kernels(torch, dev):
+    """Under unsplit cuBLAS, the PGD step's sum order held directly: K1's Z
+    bit-equal to the plain version at its four shapes with every tile
+    variant (a reordered sum shows here, not only as a compression
+    mismatch); K1b at its four shapes the same bits if cuBLAS's
+    strided-batched product sums in K1b's order — if not, the first
+    differing shape is printed and the pair held to 1e-5 of max|Z|."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    for m, k in K1_SHAPES:
+        w, theta = randn(m, k), randn(m, k)
+        c = randn(k, k) / math.sqrt(k)
+        eta = 2.0 / torch.linalg.matrix_norm(c)
+        z_ref, _ = ref.awp_pgd_step(w, theta, c, eta)
+        for v in range(len(ops.AWP_PGD_TILES)):
+            z, _ = ops.awp_pgd_step(w, theta, c, eta, variant=v)
+            n_diff = int((z != z_ref).sum())
+            check(n_diff == 0, f"K1 {(m, k)} variant {v}: {n_diff} entries "
+                               f"of Z differ from the plain version under "
+                               f"unsplit cuBLAS")
+        log(f"[parity K1] {(m, k)}: Z bit-equal to the plain version with "
+            f"every tile variant (the wrapper picks "
+            f"{k1_variant(torch, 1, m, k)})")
+    first = None
+    for b, m, k in K1B_SHAPES:
+        w, theta = randn(b, m, k), randn(b, m, k)
+        c = randn(b, k, k) / math.sqrt(k)
+        c[1] *= 1.7
+        eta = 2.0 / torch.linalg.matrix_norm(c)
+        z, _ = ops.awp_pgd_step(w, theta, c, eta)
+        z_ref, _ = ref.awp_pgd_step(w, theta, c, eta)
+        n_diff = int((z != z_ref).sum())
+        if n_diff:
+            err = float((z - z_ref).abs().max())
+            check(err <= 1e-5 * float(z_ref.abs().max()),
+                  f"K1b {(b, m, k)}: max|dZ| {err:.3e} under unsplit cuBLAS")
+            first = first or ((b, m, k), n_diff, z.numel())
+    log("[parity K1b] " + (
+        f"Z bit-equal to the plain version at all {len(K1B_SHAPES)} shapes"
+        if first is None else
+        f"first differing shape {first} (shape, differing entries, "
+        f"entries); held to 1e-5 of max|Z| instead"))
+
+
 def parity_main(torch, dev, cfg):
-    """Under unsplit cuBLAS: the sequential driver's kernel and plain paths
+    """Under unsplit cuBLAS: K1 and K1b against their plain versions
+    (:func:`parity_kernels`); the sequential driver's kernel and plain paths
     must give the same bits and tokens; the batched
     engine's must too if cuBLAS's strided-batched product sums in the
     plain K1b's order as K1b does — if not, the first differing layer is
     recorded and the pair held to the bars; then the engine."""
     check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == UNSPLIT_CUBLAS,
           f"{PARITY} needs CUBLAS_WORKSPACE_CONFIG={UNSPLIT_CUBLAS}")
+    parity_kernels(torch, dev)
     data = setup(torch, dev, cfg)
     model, _, _, prompts = data
     for engine, mode in (("sequential", "bits"), ("batched", "bits_if_same")):

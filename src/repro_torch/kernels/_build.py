@@ -28,9 +28,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of every entry point: (argtypes, restype)
 SIGNATURES = {
-    "awp_pgd_step_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "awp_pgd_tile_m": ([], _I),
-    "awp_pgd_tile_n": ([], _I),
+    "awp_pgd_step_f32": ([_P] * 6 + [_I] * 5 + [_P], _I),
+    "awp_pgd_smem_bytes": ([_I], _I),
     "topk_row_f32": ([_P, _P, _I, _I, _I, _P], _I),
     "quant_project_f32": ([_P, _P, _I, _I, _I, _I, _P], _I),
     "dequant_matmul_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),

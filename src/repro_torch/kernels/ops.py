@@ -67,14 +67,56 @@ def _launch(name: str, fn, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def awp_pgd_step(w, theta, c, eta):
+# K1/K1b tile variants, by the index the C entry point takes: (rows,
+# columns) of a block's output tile (csrc/awp_pgd.cu)
+AWP_PGD_TILES = ((128, 128), (64, 128))
+H100_SMS = 132
+
+
+def awp_pgd_tiles(b: int, m: int, k: int, sms: int = H100_SMS):
+    """(bm, bn, variant) of K1/K1b for a (b, m, k) step on a card with
+    ``sms`` SMs: the 128 × 128 tile (variant 0) unless the 64 × 128 tile
+    (variant 1) leaves the busiest SM less work. A variant's time goes as
+    the blocks on the busiest SM, ⌈blocks / sms⌉, times one block's time,
+    and a 64 × 128 block takes 0.575 of a 128 × 128 one (half the outputs
+    at 0.87 of the rate, measured on an H100). So M = 512 takes variant 1
+    at B = 1 (1 block an SM against 1) and B = 3 (3 against 2), variant 0
+    at B = 2 (2 against 1)."""
+    def busiest(variant):
+        bm, bn = AWP_PGD_TILES[variant]
+        return -(-(b * -(-m // bm) * -(-k // bn)) // sms)
+    variant = 1 if 23 * busiest(1) < 40 * busiest(0) else 0
+    return AWP_PGD_TILES[variant] + (variant,)
+
+
+def awp_pgd_grid(b: int, m: int, k: int, variant: int):
+    """(B, tiles_m, tiles_n) of a variant's grid: the shape of the
+    per-tile partials of the residual norm."""
+    bm, bn = AWP_PGD_TILES[variant]
+    return b, -(-m // bm), -(-k // bn)
+
+
+def awp_pgd_vector_copies(k: int, *tensors: torch.Tensor) -> bool:
+    """True when K1 can copy 16 bytes at a time: K % 4 == 0 and every
+    operand 16-byte aligned; else it runs its scalar-copy instantiation."""
+    return k % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def awp_pgd_step(w, theta, c, eta, variant=None):
     """K1: Z = Θ + η (W − Θ) C, and ‖(W − Θ) C‖_F summed from the kernel's
     per-tile f32 partials.
 
     (M, K) operands with a scalar η (K1), or batched (B, M, K) / (B, K, K)
     with η of shape (B,) or scalar and a norm per item (K1b: the same
     kernel over a batch grid dimension). η is a tensor on the operands'
-    device, read by the kernel from device memory (no host sync)."""
+    device, read by the kernel from device memory (no host sync). The tile
+    is :func:`awp_pgd_tiles`'s unless ``variant`` names one. Operands with
+    K % 4 ≠ 0 or not 16-byte aligned take the kernel's scalar-copy
+    instantiation (same tiles and sum order)."""
     eta = torch.as_tensor(eta, dtype=torch.float32, device=w.device)
     if not _on_card("awp_pgd_step", w, theta, c, eta):
         return ref.awp_pgd_step(w, theta, c, eta)
@@ -90,16 +132,18 @@ def awp_pgd_step(w, theta, c, eta):
     if eta.numel() not in (1, b):
         raise ValueError(f"awp_pgd_step: eta must be scalar or ({b},)")
     eta_b = eta.reshape(-1).expand(b).contiguous()
-    from repro_torch.kernels import _build
-    lib = _build.library()
-    bm, bn = lib.awp_pgd_tile_m(), lib.awp_pgd_tile_n()
+    if variant is None:
+        variant = awp_pgd_tiles(b, m, k, _sms(w.device))[2]
+    elif variant not in range(len(AWP_PGD_TILES)):
+        raise ValueError(f"awp_pgd_step: no tile variant {variant}")
     z = torch.empty_like(w)
-    partials = torch.empty((b, -(-m // bm), -(-k // bn)),
+    partials = torch.empty(awp_pgd_grid(b, m, k, variant),
                            dtype=torch.float32, device=w.device)
+    vec = awp_pgd_vector_copies(k, w, theta, c, z)
     _launch("awp_pgd_step_batched" if batched else "awp_pgd_step",
             "awp_pgd_step_f32", w.data_ptr(),
             theta.data_ptr(), c.data_ptr(), eta_b.data_ptr(), z.data_ptr(),
-            partials.data_ptr(), b, m, k)
+            partials.data_ptr(), b, m, k, variant, int(vec))
     norm = torch.sqrt(partials.sum(dim=(-2, -1)))
     return z, (norm if batched else norm[0])
 
@@ -299,6 +343,8 @@ def decode_attn_paged(q, k_pool, v_pool, table, lengths, k_scale=None,
     return out
 
 
-__all__ = ["KERNELS", "LAUNCHES", "awp_pgd_step", "decode_attn",
+__all__ = ["AWP_PGD_TILES", "KERNELS", "LAUNCHES", "awp_pgd_grid",
+           "awp_pgd_step", "awp_pgd_tiles", "awp_pgd_vector_copies",
+           "decode_attn",
            "decode_attn_paged", "dequant_matmul", "kv_dequant", "quant_project", "reset_launches",
            "topk_row"]

@@ -78,6 +78,51 @@ def test_awp_pgd_step_batched_distinct_eta(cuda, m, k):
         torch.testing.assert_close(nrm[i], nrm_i, rtol=1e-5, atol=0)
 
 
+# every tile variant at ragged M, N and K (none a multiple of the tiles),
+# and a B = 3 stack with a different η per item
+@pytest.mark.parametrize("variant", range(len(ops.AWP_PGD_TILES)))
+@pytest.mark.parametrize("shape", [(200, 136), (64, 300), (130, 260),
+                                   (3, 96, 160)])
+def test_awp_pgd_step_tile_variants(cuda, variant, shape):
+    rng = np.random.default_rng(11)
+    k = shape[-1]
+    w, theta = _randn(rng, shape, cuda), _randn(rng, shape, cuda)
+    c = _randn(rng, shape[:-2] + (k, k), cuda) / np.sqrt(k)
+    eta = (torch.tensor([0.3, 0.5, 0.7], device=cuda) if len(shape) == 3
+           else torch.tensor(0.4, device=cuda))
+    key = "awp_pgd_step_batched" if len(shape) == 3 else "awp_pgd_step"
+    z, nrm = _launched(key, lambda: ops.awp_pgd_step(w, theta, c, eta,
+                                                     variant=variant))
+    z_ref, nrm_ref = ref.awp_pgd_step(w, theta, c, eta)
+    torch.testing.assert_close(z, z_ref, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(nrm, nrm_ref, rtol=1e-5, atol=0)
+
+
+# the scalar-copy instantiation: K % 4 != 0, and a contiguous stack slice
+# whose base lies 4 bytes past a 16-byte boundary
+@pytest.mark.parametrize("variant", range(len(ops.AWP_PGD_TILES)))
+@pytest.mark.parametrize("case", ["k_not_multiple_of_4", "misaligned_base"])
+def test_awp_pgd_step_scalar_copies(cuda, variant, case):
+    rng = np.random.default_rng(12)
+    b, m, k = (2, 70, 150) if case == "k_not_multiple_of_4" else (2, 96, 160)
+    off = 0 if case == "k_not_multiple_of_4" else 1
+    n = b * m * k
+    w = _randn(rng, (n + off,), cuda)[off:].view(b, m, k)
+    theta = _randn(rng, (n + off,), cuda)[off:].view(b, m, k)
+    c = (_randn(rng, (b * k * k + off,), cuda) / np.sqrt(k))[off:].view(
+        b, k, k)
+    assert not ops.awp_pgd_vector_copies(k, w, theta, c)
+    eta = torch.tensor([0.25, 0.6], device=cuda)
+    z, nrm = _launched("awp_pgd_step_batched", lambda: ops.awp_pgd_step(
+        w, theta, c, eta, variant=variant))
+    z_ref, nrm_ref = ref.awp_pgd_step(w, theta, c, eta)
+    torch.testing.assert_close(z, z_ref, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(nrm, nrm_ref, rtol=1e-5, atol=0)
+    z1, _ = _launched("awp_pgd_step", lambda: ops.awp_pgd_step(
+        w[1], theta[1], c[1], eta[1], variant=variant))
+    torch.testing.assert_close(z1, z_ref[1], rtol=1e-5, atol=1e-4)
+
+
 def test_prune_batched_compacted_on_the_card(cuda):
     """The compacting batched prune on the card (K1b and K2) against the
     same run through the plain versions: equal iteration counts (items that
