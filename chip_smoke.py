@@ -7,8 +7,9 @@ Builds the hand-written kernels K1–K6 (and K1b, K1 over a batch, and K6p,
 K6 through a block table) from
 ``src/repro_torch/kernels/csrc``, holds each against its plain PyTorch
 version at the shapes of the main paths (and a few edge cases), timing
-both, then drives the port at the full width of llama32-1b (16 layers,
-d_model 2048, d_ff 8192, padded vocab 129024, random weights from a seed):
+both (K1 and K4 at every tile variant, K4's GEMV at every split), then
+drives the port at the full width of llama32-1b (16 layers, d_model 2048,
+d_ff 8192, padded vocab 129024, random weights from a seed):
 
   1. calibrate (Zipf-Markov, 32 x 512 tokens) -> compress_model with the
      batched engine, the default (every attn.wo pruned to 50% by AWP,
@@ -40,8 +41,13 @@ d_model 2048, d_ff 8192, padded vocab 129024, random weights from a seed):
 Each path runs through the kernels, with every launch count set to 0 just
 before and read just after, and the script checks that every kernel of
 the path was launched, that no other was, and that the outputs are finite
-and well-formed. Every path also runs through the kernels' plain
-versions, held to the repo's parity bars (and paths 1, 3 and 4 timed).
+and well-formed. K4's census (``ops.K4_CENSUS``: launches by M, N, K and
+variant) of the static decode and the two engines is then checked (every
+variant within 1e-5 of its plain version) and timed shape by shape —
+kernel, plain version, and ``torch.mm`` on the weight dequantized
+beforehand — and each path's K4 device seconds printed. Every path also
+runs through the kernels' plain versions, held to the repo's parity bars
+(and paths 1, 3 and 4 timed).
 One more run of each engine through the kernels, in sync-debug mode and
 apart from the timed ones, must show the host waiting on the card exactly
 once a decode step, batched prefill, chunked prompt and preemption. This
@@ -56,7 +62,9 @@ started by the first) therefore runs with ``CUBLAS_WORKSPACE_CONFIG=:0:0``:
 with no workspace cuBLAS cannot split, so every product sums in K1's and
 K4's order. There K1's Z must equal its plain version bit for bit at its
 four shapes with every tile variant (K1b at its four shapes as the batched
-engine below), then paths 1, 3 and 4 run again, and the kernels' path must
+engine below), K4's tile its plain version's y at the four packed linears'
+(N, K), M 64, 512 and 4096, with every tile variant, then paths 1, 3 and 4
+run again, and the kernels' path must
 equal the plain one with the sequential driver — same iteration counts,
 same greedy tokens on the static path — and the same first token of every
 engine request (prefill is K4's tile path and K5, which is exact; K6 and K6p sum
@@ -110,8 +118,15 @@ PREFIX = dict(requests=8, prefix=256, max_tail=200, new=16)
 # what PyTorch's sync-debug mode warns at each wait of the host on the card
 # (its other warning, that the mode is a prototype, is not a wait)
 SYNC_WARNING = "called a synchronizing CUDA operation"
-# K4's rows: static decode, engine decode (8 slots), one prompt, 8 prompts
-K4_M = (4, 8, 512, 8 * 512)
+# K4's rows: static decode, engine decode (8 slots), one short prompt, one
+# prompt of 512, 8 prompts of 512; at the four packed linears' (N, K): wq;
+# wk and wv; wg and wu; wd (wo is pruned and stays dense)
+K4_M = (4, 8, 64, 512, 8 * 512)
+K4_NK = ((2048, 2048), (512, 2048), (8192, 2048), (2048, 8192))
+# K4's representative row in the JSON line: the static decode at wg, wu
+K4_ROW = (4, 8192, 2048)
+# the serving paths whose K4 launches the census counts
+K4_PATHS = ("static", "slot", "paged")
 # K6 at the engine's decode shape: 8 slots, 32 heads over 8 KV heads, D 64
 K6_LENGTHS = (0, 1, 255, 256, 1000, 1536, 2047, 2048)
 
@@ -281,6 +296,12 @@ def phase_build():
     for v, (bm, bn) in enumerate(ops.AWP_PGD_TILES):
         log(f"[build] awp_pgd.cu: variant {v} ({bm} x {bn} tile): "
             f"{lib.awp_pgd_smem_bytes(v)} B dynamic shared memory")
+    for v in ops.dequant_matmul_variants(ops.GEMV_MAX_M, 2048):
+        log(f"[build] dequant_matmul.cu: variant {v} "
+            f"({ops.dequant_matmul_variant_name(v)}): "
+            f"{lib.dequant_matmul_smem_bytes(v, ops.GEMV_MAX_M)} B dynamic "
+            f"shared memory" + (f" at M = {ops.GEMV_MAX_M}"
+                                if v >= len(ops.DEQUANT_TILES) else ""))
 
 
 def phase_kernels(torch, dev):
@@ -394,55 +415,189 @@ def phase_kernels(torch, dev):
                                          bound_by=by, library_ms=None,
                                          max_abs_err=0.0)
 
-    # -- K4: packed int4 matmul at every M the two paths give it: the
-    # static decode (M=4), the engine's decode with all slots busy (M=8,
-    # the top of the GEMV branch), a prefill or chunk of one 512-token
-    # prompt (M=512) and the engine's largest batched prefill (8 x 512) --
-    # tolerance: the dequantized weight is bit-equal, the f32 sum over K
-    # runs in another order
-    k4_err, k4_shapes = 0.0, []
-    group = 128
-    for n, k in ((2048, 2048), (512, 2048), (8192, 2048), (2048, 8192)):
-        packed = torch.randint(0, 256, (n, k // 2), generator=gen,
-                               device=dev, dtype=torch.uint8)
-        scale = torch.rand((n, k // group), generator=gen, device=dev) * 0.02
-        zero = torch.randint(0, 16, (n, k // group), generator=gen,
-                             device=dev).float()
-        wbytes = n * k / 2 + 8.0 * n * k / group
-        ws = [(packed.clone(), scale.clone(), zero.clone())
-              for _ in range(copies_for(wbytes))]
-        for m in K4_M:
-            x = randn(m, k)
-            y = ops.dequant_matmul(x, packed, scale, zero, group)
-            y_ref = ref.dequant_matmul(x, packed, scale, zero, group)
-            err = float((y - y_ref).abs().max())
-            ymax = float(y_ref.abs().max())
-            check(err <= 1e-5 * ymax, f"K4 M={m} (N={n}, K={k}): max|dy| "
-                                      f"{err:.3e} (|y| {ymax:.3e})")
-            k4_err = max(k4_err, err)
-            ms = time_ms(torch, lambda i: ops.dequant_matmul(
-                x, *ws[i % len(ws)], group), 20)
-            plain = time_ms(torch, lambda i: ref.dequant_matmul(
-                x, *ws[i % len(ws)], group), 20)
-            bnd, by = bound_ms(2.0 * m * n * k,
-                               wbytes + 4.0 * m * k + 4.0 * m * n)
-            log(f"[K4] dequant_matmul M={m} N={n} K={k}: max|dy| {err:.2e} "
-                f"(|y|max {ymax:.1f}), kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms, bound {bnd:.4f} ms ({by})")
-            k4_shapes.append(dict(shape=f"M={m},N={n},K={k}", ms=ms,
-                                  plain_ms=plain, bound_ms=bnd, bound_by=by,
-                                  max_abs_err=err))
-            if (m, n, k) == (4, 8192, 2048):
-                rows["dequant_matmul"] = dict(shape="M=4,N=8192,K=2048",
-                                              ms=ms, plain_ms=plain,
-                                              bound_ms=bnd, bound_by=by,
-                                              library_ms=None)
-    rows["dequant_matmul"]["max_abs_err"] = k4_err
-    rows["dequant_matmul"]["by_shape"] = k4_shapes
+    rows["dequant_matmul"] = check_k4(torch, dev, gen, randn)
     rows["kv_dequant"] = check_k5(torch, dev, gen)
     rows["decode_attn"] = check_k6(torch, dev, gen)
     rows["decode_attn_paged"] = check_k6p(torch, dev, gen)
     return rows
+
+
+def k4_weight(torch, dev, gen, n, k, group):
+    """Random packed int4 weight (N, K/2) with its (N, K/group) scale and
+    integer-valued zero, as the quantizer makes them."""
+    packed = torch.randint(0, 256, (n, k // 2), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    scale = torch.rand((n, k // group), generator=gen, device=dev) * 0.02
+    zero = torch.randint(0, 16, (n, k // group), generator=gen,
+                         device=dev).float()
+    return packed, scale, zero
+
+
+def k4_timers(torch, packed, scale, zero, group):
+    """Input copies for timing K4 at one (N, K): enough packed weights to
+    keep them out of the L2, and the dequantized f32 weight for the
+    library yardstick ``torch.mm(x, w.T)`` — the product the packed weight
+    replaces, which the port never calls."""
+    from repro_torch.kernels import ref
+    n, k = packed.shape[0], 2 * packed.shape[1]
+    wbytes = n * k / 2 + 8.0 * n * k / group
+    ws = [(packed.clone(), scale.clone(), zero.clone())
+          for _ in range(copies_for(wbytes))]
+    w32 = ref.dequant(ref.unpack_int4(packed), scale, zero, group)
+    w32s = [w32.clone() for _ in range(copies_for(4.0 * n * k))]
+    return ws, w32s, wbytes
+
+
+def k4_time(torch, x, ws, w32s, group, variant):
+    """(kernel, plain, torch.mm) ms of one K4 product at ``variant``."""
+    from repro_torch.kernels import ops, ref
+    reps = 20 if x.shape[0] <= 512 else 5
+    ms = time_ms(torch, lambda i: ops.dequant_matmul(
+        x, *ws[i % len(ws)], group, variant=variant), reps)
+    plain = time_ms(torch, lambda i: ref.dequant_matmul(
+        x, *ws[i % len(ws)], group), reps)
+    lib = time_ms(torch, lambda i: torch.mm(x, w32s[i % len(w32s)].T), reps)
+    return ms, plain, lib
+
+
+def check_k4(torch, dev, gen, randn):
+    """K4 at the four packed linears' (N, K) and every M of ``K4_M``, with
+    every variant the wrapper can run there (each tile forced through
+    ``variant=``, and the GEMV's splits at M <= 8), at groups 128 and 64:
+    within 1e-5 of max|y| of the plain version (the dequantized weight is
+    bit-equal; the f32 sum may run in another order than cuBLAS's), and two
+    launches on the same inputs give the same bits. At group 128 every
+    variant is timed; the one the wrapper picks is timed beside the plain
+    version and ``torch.mm`` on the weight dequantized beforehand."""
+    from repro_torch.kernels import ops, ref
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    err_all, by_shape, row = 0.0, [], None
+    for group in (128, 64):
+        for n, k in K4_NK:
+            packed, scale, zero = k4_weight(torch, dev, gen, n, k, group)
+            if group == 128:
+                ws, w32s, wbytes = k4_timers(torch, packed, scale, zero,
+                                             group)
+            for m in K4_M:
+                x = randn(m, k)
+                y_ref = ref.dequant_matmul(x, packed, scale, zero, group)
+                ymax = float(y_ref.abs().max())
+                vec = ops.dequant_matmul_vector_copies(k, n, group, x, packed)
+                chosen = ops.dequant_matmul_tiles(m, n, k, vec, sms)
+                err, times = 0.0, {}
+                for v in ops.dequant_matmul_variants(m, k, vec):
+                    name = ops.dequant_matmul_variant_name(v)
+                    y = ops.dequant_matmul(x, packed, scale, zero, group,
+                                           variant=v)
+                    again = ops.dequant_matmul(x, packed, scale, zero, group,
+                                               variant=v)
+                    e = float((y - y_ref).abs().max())
+                    check(e <= 1e-5 * ymax,
+                          f"K4 M={m} N={n} K={k} group={group} {name}: "
+                          f"max|dy| {e:.3e} (|y| {ymax:.3e})")
+                    check(torch.equal(y, again),
+                          f"K4 M={m} N={n} K={k} group={group} {name}: two "
+                          f"launches give different bits")
+                    err = max(err, e)
+                    if group == 128:
+                        times[name] = time_ms(torch, lambda i: (
+                            ops.dequant_matmul(x, *ws[i % len(ws)], group,
+                                               variant=v)), 5)
+                err_all = max(err_all, err)
+                if group != 128:
+                    continue
+                ms, plain, lib = k4_time(torch, x, ws, w32s, group, chosen)
+                flops = 2.0 * m * n * k
+                bnd, by = bound_ms(flops, wbytes + 4.0 * m * k + 4.0 * m * n)
+                name = ops.dequant_matmul_variant_name(chosen)
+                log(f"[K4] dequant_matmul M={m} N={n} K={k}: {name}, max|dy| "
+                    f"{err:.2e} (|y|max {ymax:.1f}), kernel {ms:.4f} ms "
+                    f"({flops / ms / 1e9:.2f} TFLOP/s, {bnd / ms:.0%} of the "
+                    f"bound), plain {plain:.4f} ms, torch.mm {lib:.4f} ms, "
+                    f"bound {bnd:.4f} ms ({by}); variants "
+                    + ", ".join(f"{v}: {t:.4f} ms" for v, t in times.items()))
+                entry = dict(shape=f"M={m},N={n},K={k}", variant=name, ms=ms,
+                             plain_ms=plain, bound_ms=bnd, bound_by=by,
+                             library_ms=lib, max_abs_err=err,
+                             variant_ms=times)
+                by_shape.append(entry)
+                if (m, n, k) == K4_ROW:
+                    row = dict(entry)
+            log(f"[K4] N={n} K={k} group={group}: every variant within 1e-5 "
+                f"of max|y| at M {list(K4_M)}, two launches the same bits")
+            if group == 128:
+                del ws, w32s
+    row["max_abs_err"] = err_all
+    row["by_shape"] = by_shape
+    return row
+
+
+def phase_k4_census(torch, dev, census):
+    """K4 at every (M, N, K) that the serving paths launched (``census``:
+    each path's ``ops.K4_CENSUS`` from its kernel run): every variant the
+    wrapper can run there within 1e-5 of max|y| of the plain version, and
+    the variant the path ran timed beside the plain version and
+    ``torch.mm`` on the weight dequantized beforehand; then each path's K4
+    device seconds (launches x time at each shape) and its launches by
+    branch and variant."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    keys = sorted({key for c in census.values() for key in c})
+    times = {}
+    for n, k in sorted({(n, k) for _, n, k, _ in keys}):
+        packed, scale, zero = k4_weight(torch, dev, gen, n, k, 128)
+        ms_here = sorted({key[0] for key in keys if key[1:3] == (n, k)})
+        for m in ms_here:
+            x = torch.randn((m, k), generator=gen, device=dev)
+            y_ref = ref.dequant_matmul(x, packed, scale, zero, 128)
+            ymax = float(y_ref.abs().max())
+            for v in ops.dequant_matmul_variants(m, k):
+                err = float((ops.dequant_matmul(x, packed, scale, zero, 128,
+                                                variant=v) - y_ref)
+                            .abs().max())
+                check(err <= 1e-5 * ymax,
+                      f"K4 census M={m} N={n} K={k} "
+                      f"{ops.dequant_matmul_variant_name(v)}: max|dy| "
+                      f"{err:.3e} (|y| {ymax:.3e})")
+        log(f"[K4 census] N={n} K={k}: every variant within 1e-5 of max|y| "
+            f"at M {ms_here}")
+        ws, w32s, _ = k4_timers(torch, packed, scale, zero, 128)
+        for key in [key for key in keys if key[1:3] == (n, k)]:
+            m, v = key[0], key[3]
+            x = torch.randn((m, k), generator=gen, device=dev)
+            times[key] = k4_time(torch, x, ws, w32s, 128, v)
+            ms, plain, lib = times[key]
+            log(f"[K4 census] M={m} N={n} K={k} "
+                f"{ops.dequant_matmul_variant_name(v)}: launches "
+                + ", ".join(f"{p} {c.get(key, 0)}" for p, c in census.items())
+                + f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.mm "
+                f"{lib:.4f} ms")
+        del ws, w32s
+    out = {}
+    for path, c in census.items():
+        secs = [sum(cnt * times[key][i] for key, cnt in c.items()) / 1e3
+                for i in range(3)]
+        by_variant = {}
+        for key, cnt in c.items():
+            name = ops.dequant_matmul_variant_name(key[3])
+            by_variant[name] = by_variant.get(name, 0) + cnt
+        gemv = sum(cnt for key, cnt in c.items()
+                   if key[3] >= len(ops.DEQUANT_TILES))
+        log(f"[K4 census] {path}: {sum(c.values())} launches at "
+            f"{len(c)} shapes (GEMV {gemv}, tile {sum(c.values()) - gemv}; "
+            f"{by_variant}); K4 device seconds {secs[0]:.4f} s, the plain "
+            f"version's {secs[1]:.4f} s, torch.mm's {secs[2]:.4f} s")
+        out[path] = dict(launches=sum(c.values()), shapes=len(c),
+                         gemv=gemv, tile=sum(c.values()) - gemv,
+                         by_variant=by_variant, device_s=secs[0],
+                         plain_s=secs[1], library_s=secs[2])
+    out["by_shape"] = [dict(shape=f"M={m},N={n},K={k}",
+                            variant=ops.dequant_matmul_variant_name(v),
+                            launches={p: c.get((m, n, k, v), 0)
+                                      for p, c in census.items()},
+                            ms=t[0], plain_ms=t[1], library_ms=t[2])
+                       for (m, n, k, v), t in sorted(times.items())]
+    return out
 
 
 def check_k1b(torch, randn):
@@ -792,13 +947,14 @@ def engine_path(engine: str) -> tuple:
 def both_paths(torch, dev, data, tag, engine):
     """The main path through the kernels (launch counts set to 0 just
     before and read just after), then through the plain versions. Returns
-    the kernels' counts and both runs' outputs."""
+    the kernels' counts, both runs' outputs and K4's census."""
     from repro_torch import kernels
     from repro_torch.kernels import ops
 
     ops.reset_launches()
     out_k = run_path(torch, dev, data, f"{tag}kernels", engine)
     launches = dict(ops.LAUNCHES)
+    census = dict(ops.K4_CENSUS)
     log(f"[{tag}kernels] launches on the main path: {launches}")
     check_path(launches, engine_path(engine),
                f"the compress and decode path ({engine})")
@@ -812,7 +968,7 @@ def both_paths(torch, dev, data, tag, engine):
         out_p = run_path(torch, dev, data, f"{tag}plain", engine)
     log(f"[{tag}plain] launches: {dict(ops.LAUNCHES)}")
     check(not any(ops.LAUNCHES.values()), "the plain run launched a kernel")
-    return launches, out_k, out_p
+    return launches, out_k, out_p, census
 
 
 def hold_reports(torch, rep_a, rep_b, tag, n_layers, iters_equal,
@@ -1000,10 +1156,11 @@ def phase_main_path(torch, dev, cfg, data):
     their times; then the reference driver on the kernels, held to the
     batched engine's compression, and the host's waits in one batched
     compression. Returns the counts, the kernels' packed params (the
-    engine's) and the numbers."""
+    engine's), K4's census and the numbers."""
     from repro_torch.kernels import ops
     model, _, _, prompts = data
-    launches, out_k, out_p = both_paths(torch, dev, data, "", "batched")
+    launches, out_k, out_p, census = both_paths(torch, dev, data, "",
+                                                "batched")
     summary = compare(torch, dev, cfg, model, prompts, out_k, out_p, "",
                       mode="bars")
     t_plain = out_p[4]
@@ -1015,6 +1172,10 @@ def phase_main_path(torch, dev, cfg, data):
     seq_launches = dict(ops.LAUNCHES)
     check_path(seq_launches, ("awp_pgd_step", "topk_row", "quant_project"),
                "the sequential compression")
+    # compression runs no packed linear (check_path above): every K4
+    # launch of the main path is the static decode's
+    check(launches["dequant_matmul"] == sum(census.values()),
+          "K4's census does not match its launches on the main path")
     engines = hold_reports(torch, out_k[0], rep_s, "engines mixed",
                            7 * cfg.num_layers, iters_equal=True)
     log(f"[engines mixed] compression on the kernels: batched "
@@ -1022,7 +1183,7 @@ def phase_main_path(torch, dev, cfg, data):
         f"{t_plain:.2f}s; launches batched {launches}, sequential "
         f"{seq_launches}")
     per_block, _ = count_waits(torch, data, policy_for("mixed"), "mixed ")
-    return launches, out_k[1], dict(
+    return launches, out_k[1], census, dict(
         batched_s=out_k[4], sequential_s=t_seq, batched_plain_s=t_plain,
         kernels_vs_plain=summary, engines=engines, waits_per_block=per_block)
 
@@ -1134,10 +1295,11 @@ def run_engine(torch, model, packed, reqs, label, watch_waits=False,
                ecfg=None):
     """One engine run over ``reqs`` (warm-up first, uncounted) with
     ``ecfg`` (the slot phase's ``ENGINE`` by default): launch counts set
-    to 0 just before the run and read just after, ``check_invariants``
-    after every step, and the time of every step. ``watch_waits`` also
-    counts the host's waits on the card and fails unless there is exactly
-    one a decode step, batched prefill, chunked prompt and preemption."""
+    to 0 just before the run and read just after (and K4's census),
+    ``check_invariants`` after every step, and the time of every step.
+    ``watch_waits`` also counts the host's waits on the card and fails
+    unless there is exactly one a decode step, batched prefill, chunked
+    prompt and preemption."""
     from repro_torch.kernels import ops
     from repro_torch.serving import Engine, EngineConfig, cache_is_finite
     engine = Engine(model, packed, EngineConfig(**(ecfg or ENGINE)))
@@ -1164,6 +1326,7 @@ def run_engine(torch, model, packed, reqs, label, watch_waits=False,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    census = dict(ops.K4_CENSUS)
     if watch_waits:
         # one wait each: a decode step's (S, 2) read, a prefill's first
         # tokens, a chunked prompt's last token, a spill's one transfer
@@ -1216,7 +1379,9 @@ def run_engine(torch, model, packed, reqs, label, watch_waits=False,
     log(f"[{label}] launches: {launches}")
     del engine
     torch.cuda.empty_cache()
-    return launches, {r.rid: r.tokens for r in results}, stats
+    check(sum(census.values()) == launches["dequant_matmul"],
+          f"{label}: K4's census does not match its launches")
+    return launches, {r.rid: r.tokens for r in results}, stats, census
 
 
 def phase_engine(torch, cfg, model, packed, tag, exact_first):
@@ -1231,18 +1396,18 @@ def phase_engine(torch, cfg, model, packed, tag, exact_first):
         f"{plens[-1]} tokens ({sum(p > ENGINE['prompt_buckets'][-1] for p in plens)}"
         f" beyond the largest bucket), {sum(r.max_new_tokens for r in reqs)}"
         f" new tokens; {ENGINE}")
-    launches, tok_k, st_k = run_engine(torch, model, packed, reqs,
-                                       f"{tag}engine kernels")
+    launches, tok_k, st_k, census = run_engine(torch, model, packed, reqs,
+                                               f"{tag}engine kernels")
     check_path(launches, ENGINE_PATH, "the engine path")
     # the same run again, untimed by the numbers above, with every wait of
     # the host on the card counted (sync-debug mode)
-    _, tok_w, st_w = run_engine(torch, model, packed, reqs,
-                                f"{tag}engine kernels, waits counted",
-                                watch_waits=True)
+    _, tok_w, st_w, _ = run_engine(torch, model, packed, reqs,
+                                   f"{tag}engine kernels, waits counted",
+                                   watch_waits=True)
     check(tok_w == tok_k, "the engine's tokens differ between two runs")
     with kernels.use_impl("reference"):
-        plain_launches, tok_p, st_p = run_engine(torch, model, packed, reqs,
-                                                 f"{tag}engine plain")
+        plain_launches, tok_p, st_p, _ = run_engine(
+            torch, model, packed, reqs, f"{tag}engine plain")
     check(not any(plain_launches.values()),
           "the plain engine run launched a kernel")
     same = [rid for rid in tok_k if tok_k[rid] == tok_p[rid]]
@@ -1259,7 +1424,7 @@ def phase_engine(torch, cfg, model, packed, tag, exact_first):
     return launches, tok_k, dict(kernels=st_k, waits_counted=st_w,
                                  plain=st_p, identical=len(same),
                                  requests=len(tok_k), parts=parts,
-                                 first_equal=first_equal)
+                                 first_equal=first_equal), census
 
 
 def check_spill_restore(torch, model, packed, reqs):
@@ -1325,20 +1490,20 @@ def phase_paged_engine(torch, cfg, model, packed, tag, exact_first,
     log(f"[{tag}paged] {len(reqs)} requests ({PREFIX['requests']} behind a "
         f"{PREFIX['prefix']}-token shared prefix), "
         f"{sum(r.max_new_tokens for r in reqs)} new tokens; {PAGED_ENGINE}")
-    launches, tok_k, st_k = run_engine(torch, model, packed, reqs,
-                                       f"{tag}paged kernels",
-                                       ecfg=PAGED_ENGINE)
+    launches, tok_k, st_k, census = run_engine(torch, model, packed, reqs,
+                                               f"{tag}paged kernels",
+                                               ecfg=PAGED_ENGINE)
     check_path(launches, PAGED_PATH, "the paged engine path")
     per_step = model.cfg.num_layers * st_k["decode_steps"]
     check(launches["decode_attn_paged"] == per_step,
           f"K6p launched {launches['decode_attn_paged']} times, expected "
           f"{per_step} (one a layer a decode step)")
-    _, tok_w, st_w = run_engine(torch, model, packed, reqs,
-                                f"{tag}paged kernels, waits counted",
-                                watch_waits=True, ecfg=PAGED_ENGINE)
+    _, tok_w, st_w, _ = run_engine(torch, model, packed, reqs,
+                                   f"{tag}paged kernels, waits counted",
+                                   watch_waits=True, ecfg=PAGED_ENGINE)
     check(tok_w == tok_k, "the paged engine's tokens differ between runs")
     with kernels.use_impl("reference"):
-        plain_launches, tok_p, st_p = run_engine(
+        plain_launches, tok_p, st_p, _ = run_engine(
             torch, model, packed, reqs, f"{tag}paged plain",
             ecfg=PAGED_ENGINE)
     check(not any(plain_launches.values()),
@@ -1380,7 +1545,7 @@ def phase_paged_engine(torch, cfg, model, packed, tag, exact_first,
     return launches, dict(kernels=st_k, waits_counted=st_w, plain=st_p,
                           identical=len(same), requests=len(tok_k),
                           parts=parts, first_equal=first_equal,
-                          vs_slot=vs_slot, spill_restore=spill)
+                          vs_slot=vs_slot, spill_restore=spill), census
 
 
 def phase_parity():
@@ -1441,6 +1606,40 @@ def parity_kernels(torch, dev):
         if first is None else
         f"first differing shape {first} (shape, differing entries, "
         f"entries); held to 1e-5 of max|Z| instead"))
+    parity_k4(torch, dev, gen, randn)
+
+
+def parity_k4(torch, dev, gen, randn):
+    """Under unsplit cuBLAS, K4's tile at the four packed linears' (N, K),
+    M in {64, 512, 4096}, every tile variant, bit-equal to the plain
+    version (dequantize, then cuBLAS; the earlier 64 x 64 tile was too).
+    Whether the GEMV (M = 4, 8, every split) gives the plain version's bits
+    is printed: a record, not a gate (it sums in another order)."""
+    from repro_torch.kernels import ops, ref
+    checked, gemv = 0, {}
+    for n, k in K4_NK:
+        packed, scale, zero = k4_weight(torch, dev, gen, n, k, 128)
+        for m in (4, 8, 64, 512, 4096):
+            x = randn(m, k)
+            y_ref = ref.dequant_matmul(x, packed, scale, zero, 128)
+            for v in ops.dequant_matmul_variants(m, k):
+                y = ops.dequant_matmul(x, packed, scale, zero, 128, variant=v)
+                n_diff = int((y != y_ref).sum())
+                if m <= ops.GEMV_MAX_M:
+                    if v >= len(ops.DEQUANT_TILES):
+                        name = ops.dequant_matmul_variant_name(v)
+                        gemv[(m, n, k, name)] = n_diff
+                    continue
+                checked += 1
+                check(n_diff == 0, f"K4 M={m} N={n} K={k} "
+                                   f"{ops.dequant_matmul_variant_name(v)}: "
+                                   f"{n_diff} entries of y differ from the "
+                                   f"plain version under unsplit cuBLAS")
+    log(f"[parity K4] tile bit-equal to the plain version at all {checked} "
+        f"(shape, variant) pairs")
+    log("[parity K4] GEMV entries differing from the plain version (a "
+        "record): " + ", ".join(f"M={m} N={n} K={k} {name}: {d}"
+                                for (m, n, k, name), d in gemv.items()))
 
 
 def parity_main(torch, dev, cfg):
@@ -1457,7 +1656,7 @@ def parity_main(torch, dev, cfg):
     model, _, _, prompts = data
     for engine, mode in (("sequential", "bits"), ("batched", "bits_if_same")):
         tag = f"parity {engine} "
-        _, out_k, out_p = both_paths(torch, dev, data, tag, engine)
+        _, out_k, out_p, _ = both_paths(torch, dev, data, tag, engine)
         compare(torch, dev, cfg, model, prompts, out_k, out_p, tag, mode)
         packed = out_k[1]
         del out_k, out_p
@@ -1493,18 +1692,21 @@ def main() -> None:
     phase_build()
     rows = phase_kernels(torch, dev)
     data = setup(torch, dev, cfg)
-    launches, packed, comp = phase_main_path(torch, dev, cfg, data)
+    launches, packed, census, comp = phase_main_path(torch, dev, cfg, data)
     prune_launches, prune = phase_prune_path(torch, cfg, data)
     model = data[0]
     del data
     torch.cuda.empty_cache()
-    eng_launches, slot_tokens, eng = phase_engine(torch, cfg, model, packed,
-                                                  "", exact_first=False)
-    paged_launches, paged = phase_paged_engine(
+    eng_launches, slot_tokens, eng, slot_census = phase_engine(
+        torch, cfg, model, packed, "", exact_first=False)
+    paged_launches, paged, paged_census = phase_paged_engine(
         torch, cfg, model, packed, "", exact_first=False,
         slot_tokens=slot_tokens)
     del model, packed
     torch.cuda.empty_cache()
+    k4_census = phase_k4_census(torch, dev, dict(zip(
+        K4_PATHS, (census, slot_census, paged_census))))
+    rows["dequant_matmul"]["census"] = k4_census
     phase_parity()
 
     out = []
@@ -1521,7 +1723,7 @@ def main() -> None:
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"], "shape": row["shape"]}
-        for extra in ("dense", "by_shape"):
+        for extra in ("dense", "by_shape", "census"):
             if extra in row:
                 entry[extra] = row[extra]
         out.append(entry)

@@ -1,37 +1,431 @@
 // K4: fused int4 dequant-matmul  y (M, N) = x (M, K) · dequant(W)ᵀ  with W
 // nibble-packed (N, K/2) uint8 (low nibble = even k) and per-(row, group)
-// f32 scale and zero (N, K/group); f32 accumulation.
+// f32 scale and zero (N, K/group); f32 accumulation. The weight never exists
+// as floats in device memory: each code becomes ((float)code − zero) · scale
+// (a rounded difference, then a rounded product) on its way into registers
+// or shared memory, the value the plain version dequantizes.
 //
 // Replaces: src/repro/kernels/dequant_matmul.py, dequant_matmul
 // (pallas_call at :78).
 //
-// Bound on an H100: at decode (M ≤ 8) memory — the packed weight and its
-// scales, N·K/2 + 8·N·K/group bytes at 3.35 TB/s; at prefill (M = 512)
-// the 2·M·N·K f32 operations at 67 TFLOP/s outside the tensor cores.
+// Bound on an H100 (67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s):
+// - the GEMV (M <= 8, the decode steps) reads N·K/2 bytes of codes and
+//   8·N·K/group of scales and zeros against 2·M·N·K operations: at N = 8192,
+//   K = 2048 the bytes take 2.8 µs and the operations 0.5 µs a row, so it is
+//   bound by bytes at M <= 5 and by operations above;
+// - the tile (M > 8, prefill and chunks) is bound by its 2·M·N·K operations
+//   from M of a few dozen up. TF32 (or 3xTF32) would change the bits the
+//   engines' first tokens rest on, and f32 has no wgmma, so it is a SIMT
+//   SGEMM.
 //
-// Design: two kernels behind one entry point, both dequantizing in
-// registers or shared memory so the weight never exists as floats in
-// device memory.
-//  * M ≤ 8 (decode): a GEMV. One warp per output column n streams that
-//    weight row as 32-bit words (8 codes each, 128 contiguous bytes per
-//    warp step), dequantizes each code as (code − zero)·scale with its
-//    group's parameters, and FMAs it against the M activation rows (small
-//    enough to stay in L1/L2). A shuffle reduction finishes each dot.
-//  * otherwise (prefill): a tiled SIMT GEMM. A 256-thread block owns a
-//    64×64 output tile and walks K in steps of 32: the x tile is copied to
-//    shared memory, the weight tile is unpacked and dequantized on its way
-//    into shared memory, and each thread accumulates a 4×4 register block.
-// The dequantized value is computed exactly as the reference computes it
-// ((code − zero)·scale in f32), so only the summation order differs.
+// The math of the tile, which every tile variant keeps: each output is one
+// fmaf chain in k order from k = 0, starting at +0 (no split-K, no second
+// accumulator), the order of an unsplit cuBLAS SGEMM, so under unsplit
+// cuBLAS y is bit-equal to the plain version (dequantize, then x·Wᵀ).
+// Zero-filled operands past the M, N and K edges add +0·0 terms. The GEMV
+// sums in another order (below), deterministically: the same inputs give
+// the same bits from launch to launch.
+//
+// Design of the tile (kernels/ops.py, dequant_matmul_tiles, picks the
+// variant by shape; variants 0..3: 128 × 128, 64 × 128 and 64 × 64 outputs
+// a block of 256 threads, 32 × 32 a block of 64 threads for grids too small
+// to fill the card), after K1 (awp_pgd.cu) with the dequantize in place of
+// W − Θ:
+// - Both operands are k-contiguous, so both go through a per-thread
+//   transform pass into k-major (BK, rows + 4) buffers: x copied and
+//   transposed, the packed weight unpacked, dequantized and transposed.
+//   BK = 32, so one 16-byte copy is 32 codes of one weight row, and each
+//   (row, group) scale and zero is copied once a k-tile (a k-tile never
+//   straddles a group, whose size is a multiple of 32).
+// - Both raw operands stream into a 2-slot cp.async.cg ring (16 bytes a
+//   copy) in dynamic shared memory. Each thread transforms only the chunks
+//   it copied itself, so a slot is private to its copiers: the copies for
+//   tile t + 2 go out at the first k step of tile t, into the slot tile t
+//   came in by, and tile t + 1 is transformed at the middle k step of
+//   tile t, into the other half of the double-buffered k-major buffers.
+// - Register double-buffered fragments and one __syncthreads a tile, before
+//   the last k step's FMAs; serpentine FMAs; a thread owns 4·MSUB × 4·NSUB
+//   outputs as sub-tiles of 4 × 4 (WM × WN warps of 4 × 8 lanes). Each
+//   thread copies x for one row, so its passes differ by constant offsets.
+// - Grouped raster: row tiles fastest inside groups of 16, so blocks that
+//   run together share panels of x and W in the L2.
+// - Scalar-copy instantiation (VEC = false) for operands that are not
+//   16-byte aligned, K % 32 ≠ 0, a group that is not a multiple of 32 or
+//   N % 4 ≠ 0 (no float4 stores):
+//   4-byte copies of x, the codes, scales and zeros read by the transform
+//   pass, the same tiles and sum order.
+//
+// Design of the GEMV (M <= 8; variants 4..7 split K over 1, 2, 4 or 8
+// blocks of a thread-block cluster):
+// - A block owns 64 output columns and its cluster rank's share of K, in
+//   k-tiles of 256 codes. Each k-tile of the 64 weight rows (128 bytes a
+//   row), of x (M × 256 floats) and of the rows' scales and zeros streams
+//   into a 4-slot cp.async ring, coalesced (a warp copies four whole
+//   128-byte row segments); one __syncthreads a tile.
+// - Lane l computes columns l and l + 32 over the 32 codes of its warp's
+//   slice of each k-tile: it reads its two 16-byte code words from shared
+//   memory (rows padded to 144 bytes: conflict-free), unpacks them with
+//   byte permutes (2^23 + code as float bits, minus 2^23: exact, with no
+//   integer-to-float conversion), dequantizes, and reads x as shared-memory
+//   broadcasts (every lane of a warp reads the same float4), so one x value
+//   feeds both columns and one code feeds every row of x.
+// - Each lane's k-ordered partial sums are added across the 8 warps in
+//   warp order, then across the cluster's blocks in rank order through
+//   distributed shared memory: a fixed order, no atomics.
+// - The split is the least that gives every SM a block (N = 8192: 2; N =
+//   2048 and 512: 8, the largest portable cluster, 64 blocks at N = 512).
+//   Its floor is latency, not bytes: at N = 8192 it moves 0.6–0.7 TB/s.
+// Resources (ptxas of CUDA 12.8 for sm_90a; chip_smoke.py prints them at
+// every build): tiles 128, 128, 96 and 96 registers (128, 99, 79, 79 in
+// the scalar-copy instantiations), 106,496, 73,728, 54,272 and 28,160 B of
+// dynamic shared memory; the GEMV 48–80 registers and 89,088 B at M = 8.
+// No spills but 12 B in the 128 × 128 scalar-copy instantiation.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int THREADS = 256;
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte copy, zero-filled when !pred (src then unread)
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ((float)code − zero) · scale for the code in byte i of e (each byte of e
+// a nibble): __byte_perm builds the float bits of 2^23 + code, and
+// subtracting 2^23 gives (float)code exactly
+__device__ __forceinline__ float deq(unsigned e, int i, float z, float s) {
+  const float code =
+      __fsub_rn(__uint_as_float(__byte_perm(e, 0x4B000000u, 0x7540 | i)),
+                8388608.0f);
+  return __fmul_rn(__fsub_rn(code, z), s);
+}
+
+__device__ __forceinline__ unsigned word_of(const uint4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// ---------------------------------------------------------------- tile
+constexpr int BK = 32;
+constexpr int GROUP_M = 16;   // row tiles per raster group
+
+// WM × WN warps, each 4 × 8 lanes of 4·MSUB × 4·NSUB outputs
+template <int WM, int WN, int MSUB, int NSUB, bool VEC_>
+struct Tile {
+  static constexpr int NT = 32 * WM * WN;        // threads a block
+  static constexpr int BM = 16 * WM * MSUB;
+  static constexpr int BN = 32 * WN * NSUB;
+  static constexpr bool VEC = VEC_;
+  static constexpr int TM = 4 * MSUB;            // rows a thread owns
+  static constexpr int TN = 4 * NSUB;            // columns a thread owns
+  static constexpr int LDA = BM + 4;             // k-major x row
+  static constexpr int LDB = BN + 4;             // k-major W row
+  static constexpr int XCH = BM * BK / (4 * NT);        // x chunks a thread
+  static constexpr int RAW_X = BM * BK * 4;      // bytes: [BK/8][BM][8] f32
+  static constexpr int RAW_W = BN * 16;          // bytes: a 16-byte chunk a row
+  static constexpr int RAW_SZ = BN * 8;          // bytes: (scale, zero) a row
+  static constexpr int SLOT = RAW_X + RAW_W + RAW_SZ;
+  static constexpr int AS = BK * LDA;            // floats
+  static constexpr int BS = BK * LDB;            // floats
+  static constexpr size_t SMEM = (size_t)2 * SLOT + (size_t)2 * (AS + BS) * 4;
+  static constexpr int TRANSFORM_AT = BK / 2 - 1;
+  static_assert(XCH * 4 * NT == BM * BK, "whole x chunks a thread");
+  static_assert(BN <= NT, "a weight row a thread");
+};
+
+template <class C>
+__global__ void __launch_bounds__(C::NT, 2)
+dequant_gemm_kernel(const float* __restrict__ x,
+                    const uint8_t* __restrict__ packed,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ zero, float* __restrict__ y,
+                    int M, int N, int K, int group) {
+  constexpr int BM = C::BM, BN = C::BN, TM = C::TM, TN = C::TN,
+                LDA = C::LDA, LDB = C::LDB;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* slots = smem;                               // 2 raw slots
+  float* as = reinterpret_cast<float*>(smem + 2 * C::SLOT);  // 2 × (BK, LDA)
+  float* bs = as + 2 * C::AS;                                // 2 × (BK, LDB)
+
+  // grouped raster: row tiles fastest inside groups of GROUP_M row tiles
+  const int tiles_m = (M + BM - 1) / BM;
+  const int tiles_n = (N + BN - 1) / BN;
+  const int lin = blockIdx.x;
+  const int grp = lin / (GROUP_M * tiles_n);
+  const int first = grp * GROUP_M;
+  const int gsize = min(tiles_m - first, GROUP_M);
+  const int in_group = lin - grp * GROUP_M * tiles_n;
+  const int m0 = (first + in_group % gsize) * BM;
+  const int n0 = (in_group / gsize) * BN;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int G = K / group;
+  const size_t half_k = (size_t)(K / 2);
+
+  // The x chunks this thread copies and transposes: row ar of the tile,
+  // k 4·aq..+3 with aq = aq0 + 2·PSTEP·l in pass l. A warp covers 16 rows
+  // × 2 chunks (conflict-free transposed stores: the row stride LDA is 4
+  // banks mod 32); the block's warps cover the row blocks of 16, then the
+  // 4 chunk pairs of a row, which its passes walk.
+  constexpr int RB = BM / 16;                   // row blocks of 16
+  constexpr int PSTEP = C::NT / 32 / RB;        // chunk pairs a pass moves on
+  static_assert(C::NT / 32 % RB == 0 && PSTEP * C::XCH == BK / 8,
+                "passes cover a row's chunk pairs");
+  const int ar = 16 * (warp % RB) + (lane >> 1);
+  const int aq0 = (lane & 1) + 2 * (warp / RB);
+  const bool x_ok = m0 + ar < M;
+  const int x_slot0 = (aq0 >> 1) * BM * 8 + ar * 8 + (aq0 & 1) * 4;
+  const int x_t0 = 4 * aq0 * LDA + ar;
+  const float* gx = x + (size_t)(x_ok ? m0 + ar : 0) * K + 4 * aq0;
+  // the weight row this thread copies, dequantizes and transposes (threads
+  // tid < BN): its codes, scales and zeros
+  const bool w_role = tid < BN;
+  const bool w_ok = w_role && n0 + tid < N;
+  const size_t w_row = (size_t)(w_ok ? n0 + tid : 0);
+  const uint8_t* gw = packed + w_row * half_k;
+  const float* gs = scale + w_row * G;
+  const float* gz = zero + w_row * G;
+  const int num_tiles = (K + BK - 1) / BK;
+  int k_issue = 0;
+
+  // the copies of the next k-tile into `slot`
+  auto issue = [&](unsigned char* slot) {
+    float* rx = reinterpret_cast<float*>(slot);
+#pragma unroll
+    for (int l = 0; l < C::XCH; ++l) {
+      float* dst = rx + x_slot0 + l * PSTEP * BM * 8;
+      const float* src = gx + 8 * PSTEP * l;
+      if constexpr (C::VEC) {
+        cp16(dst, x_ok ? src : x, x_ok);
+      } else {
+        const int valid = x_ok ? K - k_issue - 4 * aq0 - 8 * PSTEP * l : 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          cp4(dst + j, j < valid ? src + j : x, j < valid);
+      }
+    }
+    gx += BK;
+    if constexpr (C::VEC) {
+      if (w_role) {
+        const int gi = k_issue / group;
+        cp16(slot + C::RAW_X + 16 * tid, w_ok ? gw : packed, w_ok);
+        float* sz = reinterpret_cast<float*>(slot + C::RAW_X + C::RAW_W);
+        cp4(sz + 2 * tid, w_ok ? gs + gi : scale, w_ok);
+        cp4(sz + 2 * tid + 1, w_ok ? gz + gi : zero, w_ok);
+        gw += BK / 2;
+      }
+    }
+    k_issue += BK;
+  };
+
+  // this thread's own chunks of a landed slot into k-major buffers: x
+  // transposed, the weight row unpacked, dequantized, transposed; k0 is
+  // the tile's first k (the scalar-copy instantiation reads the codes,
+  // scales and zeros from device memory here)
+  auto transform = [&](const unsigned char* slot, float* a_dst, float* b_dst,
+                       int k0) {
+    const float* rx = reinterpret_cast<const float*>(slot);
+#pragma unroll
+    for (int l = 0; l < C::XCH; ++l) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          rx + x_slot0 + l * PSTEP * BM * 8);
+      float* dst = a_dst + x_t0 + 8 * PSTEP * l * LDA;
+      dst[0] = v.x;
+      dst[LDA] = v.y;
+      dst[2 * LDA] = v.z;
+      dst[3 * LDA] = v.w;
+    }
+    if (!w_role) return;
+    float* dst = b_dst + tid;
+    if constexpr (C::VEC) {
+      const uint4 wv = *reinterpret_cast<const uint4*>(slot + C::RAW_X +
+                                                        16 * tid);
+      const float* sz =
+          reinterpret_cast<const float*>(slot + C::RAW_X + C::RAW_W);
+      const float s = sz[2 * tid], z = sz[2 * tid + 1];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const unsigned w = word_of(wv, q);
+        const unsigned e0 = w & 0x0F0F0F0Fu;         // codes k, k+2, k+4, k+6
+        const unsigned e1 = (w >> 4) & 0x0F0F0F0Fu;  // k+1, k+3, k+5, k+7
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          dst[(8 * q + 2 * j) * LDB] = deq(e0, j, z, s);
+          dst[(8 * q + 2 * j + 1) * LDB] = deq(e1, j, z, s);
+        }
+      }
+    } else {
+      const uint8_t* row = packed + w_row * half_k;
+      for (int kk = 0; kk < BK; ++kk) {
+        const int k = k0 + kk;
+        float v = 0.0f;
+        if (w_ok && k < K) {
+          const unsigned byte = row[k / 2];
+          const unsigned code = (k & 1) ? byte >> 4 : byte & 0xFu;
+          const int gi = k / group;
+          v = __fmul_rn(__fsub_rn((float)code, gz[gi]), gs[gi]);
+        }
+        dst[kk * LDB] = v;
+      }
+    }
+  };
+
+  // this thread's outputs: rows row0 + 16·s + i, columns col0 + 32·s + j
+  constexpr int WN = BN / (8 * TN);              // warps along N
+  const int row0 = (warp / WN) * (16 * (TM / 4)) + (lane / 8) * 4;
+  const int col0 = (warp % WN) * (32 * (TN / 4)) + (lane % 8) * 4;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+  float fa[2][TM], fb[2][TN];
+  auto load_frag = [&](int buf, const float* a_buf, const float* b_buf,
+                       int kk) {
+    const float* at = a_buf + kk * LDA + row0;
+    const float* bt = b_buf + kk * LDB + col0;
+#pragma unroll
+    for (int s = 0; s < TM / 4; ++s) {
+      const float4 v = *reinterpret_cast<const float4*>(at + 16 * s);
+      fa[buf][4 * s] = v.x; fa[buf][4 * s + 1] = v.y;
+      fa[buf][4 * s + 2] = v.z; fa[buf][4 * s + 3] = v.w;
+    }
+#pragma unroll
+    for (int s = 0; s < TN / 4; ++s) {
+      const float4 v = *reinterpret_cast<const float4*>(bt + 32 * s);
+      fb[buf][4 * s] = v.x; fb[buf][4 * s + 1] = v.y;
+      fb[buf][4 * s + 2] = v.z; fb[buf][4 * s + 3] = v.w;
+    }
+  };
+
+  unsigned char* slot0 = slots;
+  unsigned char* slot1 = slots + C::SLOT;
+  float* a_cur = as;
+  float* a_next = as + C::AS;
+  float* b_cur = bs;
+  float* b_next = bs + C::BS;
+
+  issue(slot0);                      // tile 0
+  cp_commit();
+  if (num_tiles > 1) issue(slot1);   // tile 1
+  cp_commit();
+  cp_wait<1>();                      // tile 0 landed (own copies)
+  transform(slot0, a_cur, b_cur, 0);
+  __syncthreads();
+  load_frag(0, a_cur, b_cur, 0);
+
+#pragma unroll 1
+  for (int t = 0; t < num_tiles; ++t) {
+    // tile t came in by slot t % 2, tile t + 1 by the other
+    unsigned char* slot_t = (t & 1) ? slot1 : slot0;
+    unsigned char* slot_n = (t & 1) ? slot0 : slot1;
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      if (kk == 0) {
+        // tile t's raw chunks were transformed (by their copiers) before
+        if (t + 2 < num_tiles) issue(slot_t);
+        cp_commit();
+      }
+      if (kk == C::TRANSFORM_AT) {
+        cp_wait<1>();                // own copies of tile t + 1 landed
+        if (t + 1 < num_tiles)
+          transform(slot_n, a_next, b_next, (t + 1) * BK);
+      }
+      if (kk < BK - 1) {
+        load_frag((kk + 1) & 1, a_cur, b_cur, kk + 1);
+      } else {
+        // tile t + 1 is in the k-major buffers (each thread wrote its own
+        // part), and every read of tile t's buffers is in registers
+        __syncthreads();
+        float* done = a_cur;
+        a_cur = a_next;
+        a_next = done;
+        done = b_cur;
+        b_cur = b_next;
+        b_next = done;
+        if (t + 1 < num_tiles) load_frag(0, a_cur, b_cur, 0);
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int jj = 0; jj < TN; ++jj) {
+          const int j = i % 2 ? TN - 1 - jj : jj;
+          acc[i][j] = fmaf(fa[kk & 1][i], fb[kk & 1][j], acc[i][j]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + row0 + 16 * (i / 4) + i % 4;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int s = 0; s < TN / 4; ++s) {
+      const int gn = n0 + col0 + 32 * s;
+      const size_t o = (size_t)gm * N + gn;
+      const float* r = acc[i] + 4 * s;
+      if constexpr (C::VEC) {
+        if (gn < N)
+          *reinterpret_cast<float4*>(y + o) = make_float4(r[0], r[1], r[2],
+                                                          r[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (gn + j < N) y[o + j] = r[j];
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- GEMV
-constexpr int GEMV_COLS = THREADS / 32;   // output columns per block
+constexpr int GV_KT = 256;      // codes a k-tile: 8 warps × 32
+constexpr int GV_COLS = 64;     // output columns a block: 32 lanes × 2
+constexpr int GV_WROW = 144;    // bytes a weight row takes in a slot
+constexpr int GV_STAGES = 4;
+// groups a k-tile can touch (a group is 32 codes or more), and the floats
+// a row's scales then zeros take in a slot: an odd stride, so the lanes'
+// reads of 32 rows are conflict-free
+constexpr int GV_GPT = GV_KT / 32 + 1;
+constexpr int GV_SZROW = 2 * GV_GPT + 1;
+
+template <int MT>
+struct Gemv {
+  static constexpr int W_BYTES = GV_COLS * GV_WROW;
+  static constexpr int X_BYTES = MT * GV_KT * 4;
+  static constexpr int SZ_BYTES = GV_COLS * GV_SZROW * 4;
+  static constexpr int SLOT = W_BYTES + X_BYTES + SZ_BYTES;
+  static constexpr size_t SMEM = (size_t)GV_STAGES * SLOT;
+  static constexpr int XCH = (MT * GV_KT / 4 + THREADS - 1) / THREADS;
+  static_assert(8 * MT * GV_COLS * 4 <= (int)SMEM, "reduction buffer fits");
+};
 
 template <int MT>
 __global__ void __launch_bounds__(THREADS)
@@ -39,174 +433,320 @@ dequant_gemv_kernel(const float* __restrict__ x,
                     const uint8_t* __restrict__ packed,
                     const float* __restrict__ scale,
                     const float* __restrict__ zero, float* __restrict__ y,
-                    int N, int K, int group) {
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * GEMV_COLS + (threadIdx.x >> 5);
-  if (n >= N) return;
+                    int N, int K, int group, int split) {
+  using C = Gemv<MT>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int n0 = blockIdx.x * GV_COLS;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = split > 1 ? (int)cluster.block_rank() : 0;
+  const int kspan = K / split;
+  const int kb = rank * kspan;
+  const int ke = kb + kspan;
+  const int num_tiles = (kspan + GV_KT - 1) / GV_KT;
   const int G = K / group;
-  const unsigned* wrow =
-      reinterpret_cast<const unsigned*>(packed + (size_t)n * (K / 2));
-  const float* srow = scale + (size_t)n * G;
-  const float* zrow = zero + (size_t)n * G;
-  float acc[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m] = 0.0f;
+  const size_t half_k = (size_t)(K / 2);
 
-  const int words = K / 8;
-  for (int wi = lane; wi < words; wi += 32) {
-    const unsigned word = wrow[wi];
-    const int k = wi * 8;
-    const int gi = k / group;
-    const float s = srow[gi];
-    const float zp = zrow[gi];
+  // the groups the k-tile at k0 touches: g0 .. g0 + gpt − 1
+  auto groups = [&](int k0, int& g0) {
+    g0 = k0 / group;
+    return (min(k0 + GV_KT, ke) - 1) / group - g0 + 1;
+  };
+
+  // the copies of the k-tile starting at k0 into `slot`: 64 weight rows ×
+  // 8 chunks (a warp: 4 rows × 128 contiguous bytes), MT rows of x × 64
+  // chunks (a warp: 512 contiguous bytes), and each row's scales then
+  // zeros of the tile's groups
+  auto issue = [&](unsigned char* slot, int k0) {
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const float code = (float)((word >> (4 * t)) & 0xFu);
-      const float wv = (code - zp) * s;
+    for (int l = 0; l < GV_COLS * 8 / THREADS; ++l) {
+      const int q = tid + l * THREADS;
+      const int r = q >> 3, c = q & 7;
+      const bool ok = n0 + r < N && k0 + 32 * c < ke;
+      cp16(slot + r * GV_WROW + 16 * c,
+           ok ? packed + (size_t)(n0 + r) * half_k + k0 / 2 + 16 * c : packed,
+           ok);
+    }
+    float* xs = reinterpret_cast<float*>(slot + C::W_BYTES);
 #pragma unroll
-      for (int m = 0; m < MT; ++m)
-        acc[m] = fmaf(x[(size_t)m * K + k + t], wv, acc[m]);
+    for (int l = 0; l < C::XCH; ++l) {
+      const int q = tid + l * THREADS;
+      if (q < MT * GV_KT / 4) {
+        const int m = q >> 6, c = q & 63;
+        const bool ok = k0 + 4 * c < ke;
+        cp16(xs + m * GV_KT + 4 * c, ok ? x + (size_t)m * K + k0 + 4 * c : x,
+             ok);
+      }
+    }
+    int g0;
+    const int gpt = groups(k0, g0);
+    float* sz = reinterpret_cast<float*>(slot + C::W_BYTES + C::X_BYTES);
+    for (int q = tid; q < GV_COLS * 2 * gpt; q += THREADS) {
+      const int r = q / (2 * gpt), rem = q % (2 * gpt);
+      const int arr = rem / gpt, gl = rem % gpt;
+      const bool ok = n0 + r < N;
+      const float* src = (arr ? zero : scale) + (size_t)(n0 + r) * G + g0 + gl;
+      cp4(sz + r * GV_SZROW + arr * GV_GPT + gl, ok ? src : scale, ok);
+    }
+  };
+
+  float acc[2][MT];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int m = 0; m < MT; ++m) acc[r][m] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < GV_STAGES - 1; ++s) {
+    if (s < num_tiles) issue(smem + s * C::SLOT, kb + s * GV_KT);
+    cp_commit();
+  }
+
+#pragma unroll 1
+  for (int t = 0; t < num_tiles; ++t) {
+    cp_wait<GV_STAGES - 2>();          // own copies of tile t landed
+    __syncthreads();                   // everyone's; tile t − 1 read
+    if (t + GV_STAGES - 1 < num_tiles)
+      issue(smem + ((t + GV_STAGES - 1) % GV_STAGES) * C::SLOT,
+            kb + (t + GV_STAGES - 1) * GV_KT);
+    cp_commit();
+    const int k0 = kb + t * GV_KT;
+    if (k0 + 32 * warp >= ke) continue;   // past the block's share of K
+
+    const unsigned char* slot = smem + (t % GV_STAGES) * C::SLOT;
+    int g0;
+    groups(k0, g0);
+    const int gl = (k0 + 32 * warp) / group - g0;
+    const float* sz =
+        reinterpret_cast<const float*>(slot + C::W_BYTES + C::X_BYTES);
+    uint4 wv[2];
+    float s[2], z[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = lane + 32 * r;
+      wv[r] = *reinterpret_cast<const uint4*>(slot + row * GV_WROW +
+                                              16 * warp);
+      s[r] = sz[row * GV_SZROW + gl];
+      z[r] = sz[row * GV_SZROW + GV_GPT + gl];
+    }
+    const float* xs =
+        reinterpret_cast<const float*>(slot + C::W_BYTES) + 32 * warp;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      unsigned e0[2], e1[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const unsigned w = word_of(wv[r], q);
+        e0[r] = w & 0x0F0F0F0Fu;
+        e1[r] = (w >> 4) & 0x0F0F0F0Fu;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // codes k = 8q + 4h .. + 3 of the chunk
+        float wf[2][4];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          wf[r][0] = deq(e0[r], 2 * h, z[r], s[r]);
+          wf[r][1] = deq(e1[r], 2 * h, z[r], s[r]);
+          wf[r][2] = deq(e0[r], 2 * h + 1, z[r], s[r]);
+          wf[r][3] = deq(e1[r], 2 * h + 1, z[r], s[r]);
+        }
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float4 xv =
+              *reinterpret_cast<const float4*>(xs + m * GV_KT + 8 * q + 4 * h);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            acc[r][m] = fmaf(xv.x, wf[r][0], acc[r][m]);
+            acc[r][m] = fmaf(xv.y, wf[r][1], acc[r][m]);
+            acc[r][m] = fmaf(xv.z, wf[r][2], acc[r][m]);
+            acc[r][m] = fmaf(xv.w, wf[r][3], acc[r][m]);
+          }
+        }
+      }
     }
   }
+
+  // the 8 warps' partial sums in warp order, then the cluster's blocks'
+  // in rank order
+  cp_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);   // [8][MT][GV_COLS]
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    float v = acc[m];
+  for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (lane == 0) y[(size_t)m * N + n] = v;
+    for (int m = 0; m < MT; ++m)
+      red[(warp * MT + m) * GV_COLS + lane + 32 * r] = acc[r][m];
+  __syncthreads();
+  constexpr int OUTS = MT * GV_COLS;
+  for (int o = tid; o < OUTS; o += THREADS) {
+    float v = red[o];
+#pragma unroll
+    for (int w = 1; w < 8; ++w) v = __fadd_rn(v, red[w * OUTS + o]);
+    red[o] = v;
   }
+  if (split == 1) {
+    for (int o = tid; o < OUTS; o += THREADS) {
+      const int n = n0 + o % GV_COLS;
+      if (n < N) y[(size_t)(o / GV_COLS) * N + n] = red[o];
+    }
+    return;
+  }
+  cluster.sync();                      // every block's sums in place
+  const int per = OUTS / split;
+  for (int o = rank * per + tid; o < (rank + 1) * per; o += THREADS) {
+    float v = *cluster.map_shared_rank(red + o, 0);
+    for (int q = 1; q < split; ++q)
+      v = __fadd_rn(v, *cluster.map_shared_rank(red + o, q));
+    const int n = n0 + o % GV_COLS;
+    if (n < N) y[(size_t)(o / GV_COLS) * N + n] = v;
+  }
+  cluster.sync();                      // no block leaves while read
 }
 
-// ---------------------------------------------------------------- GEMM
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 32;
-constexpr int TM = 4;
-constexpr int TN = 4;
+// Dynamic shared memory attributes, set once per kernel and device
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, unsigned long long& ready) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && (ready >> dev & 1ull)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && dev < 64) ready |= 1ull << dev;
+  return err;
+}
 
-__global__ void __launch_bounds__(THREADS)
-dequant_gemm_kernel(const float* __restrict__ x,
-                    const uint8_t* __restrict__ packed,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ zero, float* __restrict__ y,
-                    int M, int N, int K, int group) {
-  __shared__ float Xs[BK][BM];
-  __shared__ float Ws[BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int G = K / group;
-  const int half_k = K / 2;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int l = 0; l < (BM * BK) / THREADS; ++l) {
-      const int idx = tid + l * THREADS;
-      const int kk = idx % BK;
-      const int r = idx / BK;
-      const int gm = m0 + r;
-      const int gk = k0 + kk;
-      Xs[kk][r] = (gm < M && gk < K) ? x[(size_t)gm * K + gk] : 0.0f;
-    }
-    // weight tile: 64 rows × 16 bytes (32 codes), one byte a thread-step
-#pragma unroll
-    for (int l = 0; l < (BN * BK / 2) / THREADS; ++l) {
-      const int idx = tid + l * THREADS;
-      const int bi = idx % (BK / 2);
-      const int r = idx / (BK / 2);
-      const int gn = n0 + r;
-      const int gk = k0 + 2 * bi;
-      float lo = 0.0f, hi = 0.0f;
-      if (gn < N && gk < K) {
-        const unsigned byte = packed[(size_t)gn * half_k + gk / 2];
-        const int gi = gk / group;
-        const float s = scale[(size_t)gn * G + gi];
-        const float zp = zero[(size_t)gn * G + gi];
-        lo = ((float)(byte & 0xFu) - zp) * s;
-        // k and k + 1 can straddle a group edge only for odd group sizes
-        const int gi1 = (gk + 1) / group;
-        const float s1 = scale[(size_t)gn * G + gi1];
-        const float zp1 = zero[(size_t)gn * G + gi1];
-        hi = ((float)(byte >> 4) - zp1) * s1;
-      }
-      Ws[2 * bi][r] = lo;
-      Ws[2 * bi + 1][r] = hi;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = Xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gm < M && gn < N) y[(size_t)gm * N + gn] = acc[i][j];
-    }
-  }
+template <class C>
+int launch_tile(const float* x, const uint8_t* packed, const float* scale,
+                const float* zero, float* y, int M, int N, int K, int group,
+                cudaStream_t stream) {
+  static unsigned long long ready = 0;
+  cudaError_t err = allow_smem(dequant_gemm_kernel<C>, C::SMEM, ready);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = ((M + C::BM - 1) / C::BM) * ((N + C::BN - 1) / C::BN);
+  dequant_gemm_kernel<C><<<tiles, C::NT, C::SMEM, stream>>>(
+      x, packed, scale, zero, y, M, N, K, group);
+  return (int)cudaGetLastError();
 }
 
 template <int MT>
-void launch_gemv(const float* x, const uint8_t* packed, const float* scale,
-                 const float* zero, float* y, int N, int K, int group,
-                 cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((N + GEMV_COLS - 1) / GEMV_COLS);
-  dequant_gemv_kernel<MT><<<blocks, THREADS, 0, stream>>>(
-      x, packed, scale, zero, y, N, K, group);
+int launch_gemv(const float* x, const uint8_t* packed, const float* scale,
+                const float* zero, float* y, int N, int K, int group,
+                int split, cudaStream_t stream) {
+  static unsigned long long ready = 0;
+  cudaError_t err = allow_smem(dequant_gemv_kernel<MT>, Gemv<MT>::SMEM, ready);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((N + GV_COLS - 1) / GV_COLS),
+                     (unsigned)split, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = Gemv<MT>::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = (unsigned)split;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, dequant_gemv_kernel<MT>, x, packed, scale,
+                           zero, y, N, K, group, split);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
-// The GEMV reads the packed row as 32-bit words of 8 codes that must not
-// straddle a group: M ≤ 8, K and group multiples of 8, 4-byte alignment.
-bool uses_gemv(int M, int K, int group, const void* packed) {
-  return M >= 1 && M <= 8 && K % 8 == 0 && group % 8 == 0 &&
-         ((uintptr_t)packed % 4) == 0;
+// tile variant index (kernels/ops.py, DEQUANT_TILES): 128 × 128, 64 × 128,
+// 64 × 64 (256 threads), 32 × 32 (64 threads)
+template <bool VEC> using V0 = Tile<4, 2, 2, 2, VEC>;
+template <bool VEC> using V1 = Tile<4, 2, 1, 2, VEC>;
+template <bool VEC> using V2 = Tile<4, 2, 1, 1, VEC>;
+template <bool VEC> using V3 = Tile<2, 1, 1, 1, VEC>;
+
+template <bool VEC>
+int launch_tile_variant(int variant, const float* x, const uint8_t* packed,
+                        const float* scale, const float* zero, float* y,
+                        int M, int N, int K, int group, cudaStream_t s) {
+  switch (variant) {
+    case 0: return launch_tile<V0<VEC>>(x, packed, scale, zero, y, M, N, K,
+                                        group, s);
+    case 1: return launch_tile<V1<VEC>>(x, packed, scale, zero, y, M, N, K,
+                                        group, s);
+    case 2: return launch_tile<V2<VEC>>(x, packed, scale, zero, y, M, N, K,
+                                        group, s);
+    case 3: return launch_tile<V3<VEC>>(x, packed, scale, zero, y, M, N, K,
+                                        group, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
+
+constexpr int TILE_VARIANTS = 4;
+constexpr int SPLITS[] = {1, 2, 4, 8};
+constexpr int NUM_SPLITS = 4;
 
 }  // namespace
 
+// Dynamic shared memory in bytes of a variant's kernel at M rows (the
+// GEMV's depends on M), -1 if unknown.
+extern "C" int dequant_matmul_smem_bytes(int variant, int M) {
+  switch (variant) {
+    case 0: return (int)V0<true>::SMEM;
+    case 1: return (int)V1<true>::SMEM;
+    case 2: return (int)V2<true>::SMEM;
+    case 3: return (int)V3<true>::SMEM;
+    default: break;
+  }
+  if (variant >= TILE_VARIANTS + NUM_SPLITS || M < 1 || M > 8) return -1;
+  switch (M) {
+    case 1: return (int)Gemv<1>::SMEM;
+    case 2: return (int)Gemv<2>::SMEM;
+    case 3: return (int)Gemv<3>::SMEM;
+    case 4: return (int)Gemv<4>::SMEM;
+    case 5: return (int)Gemv<5>::SMEM;
+    case 6: return (int)Gemv<6>::SMEM;
+    case 7: return (int)Gemv<7>::SMEM;
+    default: return (int)Gemv<8>::SMEM;
+  }
+}
+
 // x: (M, K) f32; packed: (N, K/2) uint8; scale, zero: (N, K/group) f32;
 // y: (M, N) f32. Contiguous, on the device; K even, K % group == 0.
-// Returns cudaGetLastError().
+// variant: 0..2 a tile (kernels/ops.py, DEQUANT_TILES), 3.. the GEMV with
+// K split over a cluster of DEQUANT_SPLITS[variant − 3] blocks (M <= 8,
+// vec, K % (32 · split) == 0). vec: K % 32 == 0, group % 32 == 0, N % 4 ==
+// 0 and x and packed 16-byte aligned (else the tile's scalar-copy
+// instantiation). Returns cudaGetLastError(), or the error of a refused
+// attribute or launch.
 extern "C" int dequant_matmul_f32(const float* x, const uint8_t* packed,
                                   const float* scale, const float* zero,
                                   float* y, int M, int N, int K, int group,
-                                  void* stream) {
+                                  int variant, int vec, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (uses_gemv(M, K, group, packed)) {
-    switch (M) {
-      case 1: launch_gemv<1>(x, packed, scale, zero, y, N, K, group, s); break;
-      case 2: launch_gemv<2>(x, packed, scale, zero, y, N, K, group, s); break;
-      case 3: launch_gemv<3>(x, packed, scale, zero, y, N, K, group, s); break;
-      case 4: launch_gemv<4>(x, packed, scale, zero, y, N, K, group, s); break;
-      case 5: launch_gemv<5>(x, packed, scale, zero, y, N, K, group, s); break;
-      case 6: launch_gemv<6>(x, packed, scale, zero, y, N, K, group, s); break;
-      case 7: launch_gemv<7>(x, packed, scale, zero, y, N, K, group, s); break;
-      default: launch_gemv<8>(x, packed, scale, zero, y, N, K, group, s); break;
-    }
-  } else {
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    dequant_gemm_kernel<<<grid, THREADS, 0, s>>>(x, packed, scale, zero, y, M,
-                                                N, K, group);
+  if (variant < TILE_VARIANTS)
+    return vec ? launch_tile_variant<true>(variant, x, packed, scale, zero, y,
+                                           M, N, K, group, s)
+               : launch_tile_variant<false>(variant, x, packed, scale, zero,
+                                            y, M, N, K, group, s);
+  const int vi = variant - TILE_VARIANTS;
+  if (vi >= NUM_SPLITS || !vec || M < 1 || M > 8 ||
+      K % (32 * SPLITS[vi]) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int sp = SPLITS[vi];
+  switch (M) {
+    case 1: return launch_gemv<1>(x, packed, scale, zero, y, N, K, group, sp, s);
+    case 2: return launch_gemv<2>(x, packed, scale, zero, y, N, K, group, sp, s);
+    case 3: return launch_gemv<3>(x, packed, scale, zero, y, N, K, group, sp, s);
+    case 4: return launch_gemv<4>(x, packed, scale, zero, y, N, K, group, sp, s);
+    case 5: return launch_gemv<5>(x, packed, scale, zero, y, N, K, group, sp, s);
+    case 6: return launch_gemv<6>(x, packed, scale, zero, y, N, K, group, sp, s);
+    case 7: return launch_gemv<7>(x, packed, scale, zero, y, N, K, group, sp, s);
+    default: return launch_gemv<8>(x, packed, scale, zero, y, N, K, group, sp, s);
   }
-  return (int)cudaGetLastError();
 }

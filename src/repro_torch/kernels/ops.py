@@ -8,6 +8,7 @@ the plain version runs); a CUDA tensor launches the kernel or raises.
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that its
 main path went through the kernels; a batched (3-D) call of
 :func:`awp_pgd_step` is K1b and counts under ``awp_pgd_step_batched``.
+``K4_CENSUS`` counts K4's launches by (M, N, K, variant).
 
 TF32 is switched off for the whole port at import: the PGD stop rule sits
 at tol 1e-4 on ‖∇f‖/‖W‖ (``repro/core/awp.py:46``) and TF32's 10-bit
@@ -28,11 +29,14 @@ KERNELS = ("awp_pgd_step", "topk_row", "quant_project", "dequant_matmul",
 # launches per kernel: K1b (a 3-D awp_pgd_step) has its own count
 LAUNCHES = dict.fromkeys(("awp_pgd_step", "awp_pgd_step_batched")
                          + KERNELS[1:], 0)
+# K4's card launches by (M, N, K, variant)
+K4_CENSUS: dict = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    K4_CENSUS.clear()
 
 
 def _on_card(name: str, *tensors: torch.Tensor) -> bool:
@@ -190,9 +194,92 @@ def quant_project(z, bits: int, group_size: int = 128):
     return out
 
 
-def dequant_matmul(x, packed, scale, zero, group_size: int = 128):
+# K4 variants, by the index the C entry point takes: first the tile's
+# (rows, columns) of a block's output tile, then the GEMV (M <= GEMV_MAX_M)
+# with K split over a thread-block cluster of that many blocks
+# (csrc/dequant_matmul.cu)
+DEQUANT_TILES = ((128, 128), (64, 128), (64, 64), (32, 32))
+DEQUANT_SPLITS = (1, 2, 4, 8)
+GEMV_MAX_M = 8
+GEMV_COLS = 64          # output columns of a GEMV block
+# a tile variant's time on the busiest SM: TILE_COST (one block alone on
+# an SM, relative to variant 0's) × (1 + TILE_SHARE × (blocks there − 1)),
+# fitted to every variant's time at the serving paths' shapes on an H100
+# (a 32 × 32 block has 2 warps, so a few share an SM almost for free)
+TILE_COST = (1.0, 0.58, 0.40, 0.27)
+TILE_SHARE = (0.85, 0.85, 0.85, 0.3)
+
+
+def dequant_matmul_variant_name(variant: int) -> str:
+    if variant < len(DEQUANT_TILES):
+        return "tile %dx%d" % DEQUANT_TILES[variant]
+    return "gemv split %d" % DEQUANT_SPLITS[variant - len(DEQUANT_TILES)]
+
+
+def dequant_matmul_variants(m: int, k: int, vec: bool = True):
+    """The variants K4 can run for M rows and K: every tile, and at M <=
+    GEMV_MAX_M with vector copies the GEMV at every split that divides K
+    into whole 32-code chunks."""
+    tiles = tuple(range(len(DEQUANT_TILES)))
+    if not (1 <= m <= GEMV_MAX_M and vec):
+        return tiles
+    return tiles + tuple(len(DEQUANT_TILES) + i
+                         for i, s in enumerate(DEQUANT_SPLITS)
+                         if k % (32 * s) == 0)
+
+
+def dequant_matmul_tiles(m: int, n: int, k: int, vec: bool = True,
+                         sms: int = H100_SMS) -> int:
+    """The variant K4 runs for an (M, N, K) product on a card with ``sms``
+    SMs. M <= GEMV_MAX_M with vector copies: the GEMV, at the least split
+    that gives a block to every SM, within what K allows (whole 32-code
+    chunks, 256 codes a block or more). Otherwise the tile variant with the
+    least time on the busiest SM, which holds b = ⌈blocks / sms⌉ blocks:
+    ``TILE_COST`` × (1 + ``TILE_SHARE`` × (b − 1)); a tie keeps the larger
+    tile."""
+    if 1 <= m <= GEMV_MAX_M and vec:
+        cols = -(-n // GEMV_COLS)
+        best = 0
+        for i, s in enumerate(DEQUANT_SPLITS):
+            if k % (32 * s) or k // s < 256:
+                break
+            best = i
+            if cols * s >= sms:
+                break
+        return len(DEQUANT_TILES) + best
+
+    def busiest(v):
+        bm, bn = DEQUANT_TILES[v]
+        b = -(-(-(-m // bm) * -(-n // bn)) // sms)
+        return TILE_COST[v] * (1 + TILE_SHARE[v] * (b - 1))
+    return min(range(len(DEQUANT_TILES)), key=busiest)
+
+
+def dequant_matmul_grid(m: int, n: int, variant: int):
+    """(tiles_m, tiles_n) of a tile variant's grid, or (column blocks,
+    split) of a GEMV variant's."""
+    if variant < len(DEQUANT_TILES):
+        bm, bn = DEQUANT_TILES[variant]
+        return -(-m // bm), -(-n // bn)
+    return -(-n // GEMV_COLS), DEQUANT_SPLITS[variant - len(DEQUANT_TILES)]
+
+
+def dequant_matmul_vector_copies(k: int, n: int, group: int,
+                                 *tensors: torch.Tensor) -> bool:
+    """True when K4 can copy 16 bytes at a time: K and the group multiples
+    of 32 (a 16-byte copy is 32 codes of one group), N % 4 == 0 (float4
+    stores) and every operand 16-byte aligned; else the tile's scalar-copy
+    instantiation runs (same tiles and sum order; no GEMV)."""
+    return (k % 32 == 0 and group % 32 == 0 and n % 4 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def dequant_matmul(x, packed, scale, zero, group_size: int = 128,
+                   variant=None):
     """K4: y (M, N) = x (M, K) · dequant(W)ᵀ for nibble-packed W (N, K/2)
-    uint8 (low nibble = even k) with scale, zero (N, K/group) f32."""
+    uint8 (low nibble = even k) with scale, zero (N, K/group) f32. The
+    variant is :func:`dequant_matmul_tiles`'s unless ``variant`` names one
+    of :func:`dequant_matmul_variants`; a launch counts in ``K4_CENSUS``."""
     if not _on_card("dequant_matmul", x, packed, scale, zero):
         return ref.dequant_matmul(x, packed, scale, zero, group_size)
     if x.dim() != 2 or packed.dim() != 2:
@@ -206,10 +293,18 @@ def dequant_matmul(x, packed, scale, zero, group_size: int = 128):
     _check("dequant_matmul.packed", packed, torch.uint8, (n, k // 2))
     _check("dequant_matmul.scale", scale, torch.float32, (n, k // group_size))
     _check("dequant_matmul.zero", zero, torch.float32, (n, k // group_size))
+    vec = dequant_matmul_vector_copies(k, n, group_size, x, packed)
+    if variant is None:
+        variant = dequant_matmul_tiles(m, n, k, vec, _sms(x.device))
+    elif variant not in dequant_matmul_variants(m, k, vec):
+        raise ValueError(f"dequant_matmul: no variant {variant} at M={m}, "
+                         f"K={k}{'' if vec else ' with scalar copies'}")
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     _launch("dequant_matmul", "dequant_matmul_f32", x.data_ptr(),
             packed.data_ptr(), scale.data_ptr(), zero.data_ptr(),
-            y.data_ptr(), m, n, k, group_size)
+            y.data_ptr(), m, n, k, group_size, variant, int(vec))
+    key = (m, n, k, variant)
+    K4_CENSUS[key] = K4_CENSUS.get(key, 0) + 1
     return y
 
 
@@ -343,8 +438,11 @@ def decode_attn_paged(q, k_pool, v_pool, table, lengths, k_scale=None,
     return out
 
 
-__all__ = ["AWP_PGD_TILES", "KERNELS", "LAUNCHES", "awp_pgd_grid",
-           "awp_pgd_step", "awp_pgd_tiles", "awp_pgd_vector_copies",
-           "decode_attn",
-           "decode_attn_paged", "dequant_matmul", "kv_dequant", "quant_project", "reset_launches",
-           "topk_row"]
+__all__ = ["AWP_PGD_TILES", "DEQUANT_SPLITS", "DEQUANT_TILES", "GEMV_COLS",
+           "GEMV_MAX_M", "K4_CENSUS", "KERNELS", "LAUNCHES", "TILE_COST",
+           "TILE_SHARE", "awp_pgd_grid", "awp_pgd_step", "awp_pgd_tiles",
+           "awp_pgd_vector_copies", "decode_attn", "decode_attn_paged",
+           "dequant_matmul", "dequant_matmul_grid", "dequant_matmul_tiles",
+           "dequant_matmul_variant_name", "dequant_matmul_variants",
+           "dequant_matmul_vector_copies", "kv_dequant", "quant_project",
+           "reset_launches", "topk_row"]

@@ -212,6 +212,93 @@ def test_dequant_matmul_matches_plain(cuda, m):
     torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-4)
 
 
+def _k4_operands(rng, m, n, k, group, dev):
+    x = _randn(rng, (m, k), dev)
+    packed = torch.from_numpy(rng.integers(0, 256, (n, k // 2), np.uint8)
+                              ).to(dev)
+    scale = torch.from_numpy(rng.uniform(0.01, 0.1, (n, k // group))
+                             .astype(np.float32)).to(dev)
+    zero = torch.from_numpy(rng.integers(0, 16, (n, k // group))
+                            .astype(np.float32)).to(dev)
+    return x, packed, scale, zero
+
+
+def _k4_close(y, y_ref):
+    """K4's bar: within 1e-5 of max|y| (the dequantized weight is
+    bit-equal; the f32 sum may run in another order than cuBLAS's)."""
+    err = float((y - y_ref).abs().max())
+    assert err <= 1e-5 * float(y_ref.abs().max()), err
+
+
+# every variant the wrapper can run at ragged M, N and K, groups 64 and
+# 128, and K = 8192 (wd's K), each against the plain version
+@pytest.mark.parametrize("m,n,k,group", [(1, 68, 256, 64), (5, 200, 512, 128),
+                                         (8, 132, 8192, 128),
+                                         (9, 132, 320, 64),
+                                         (70, 200, 384, 128),
+                                         (130, 68, 8192, 128),
+                                         (257, 516, 256, 64)])
+def test_dequant_matmul_every_variant(cuda, m, n, k, group):
+    rng = np.random.default_rng(40)
+    x, packed, scale, zero = _k4_operands(rng, m, n, k, group, cuda)
+    y_ref = ref.dequant_matmul(x, packed, scale, zero, group)
+    assert ops.dequant_matmul_vector_copies(k, n, group, x, packed)
+    variants = ops.dequant_matmul_variants(m, k)
+    assert len(variants) > len(ops.DEQUANT_TILES) or m > ops.GEMV_MAX_M
+    for v in variants:
+        y = _launched("dequant_matmul", lambda: ops.dequant_matmul(
+            x, packed, scale, zero, group, variant=v))
+        _k4_close(y, y_ref)
+
+
+# the GEMV at every M it takes, with the wrapper's pick
+@pytest.mark.parametrize("m", range(1, ops.GEMV_MAX_M + 1))
+def test_dequant_matmul_gemv_rows(cuda, m):
+    rng = np.random.default_rng(41)
+    x, packed, scale, zero = _k4_operands(rng, m, 512, 2048, 128, cuda)
+    ops.reset_launches()
+    y = _launched("dequant_matmul", lambda: ops.dequant_matmul(
+        x, packed, scale, zero, 128))
+    ((key, count),) = ops.K4_CENSUS.items()
+    assert key[:3] == (m, 512, 2048) and count == 1
+    assert key[3] >= len(ops.DEQUANT_TILES)               # the GEMV ran
+    _k4_close(y, ref.dequant_matmul(x, packed, scale, zero, 128))
+
+
+# a stored operand 4 bytes past a 16-byte boundary takes the tile's
+# scalar-copy instantiation at every tile variant, also at M <= 8
+@pytest.mark.parametrize("variant", range(len(ops.DEQUANT_TILES)))
+@pytest.mark.parametrize("m", [4, 70])
+def test_dequant_matmul_scalar_copies(cuda, variant, m):
+    rng = np.random.default_rng(42)
+    n, k, group = 132, 512, 128
+    x, packed, scale, zero = _k4_operands(rng, m, n, k, group, cuda)
+    shifted = torch.empty(m * k + 1, device=cuda)[1:].view(m, k)
+    shifted.copy_(x)
+    assert not ops.dequant_matmul_vector_copies(k, n, group, shifted, packed)
+    assert ops.dequant_matmul_variants(m, k, vec=False) == tuple(
+        range(len(ops.DEQUANT_TILES)))
+    y = _launched("dequant_matmul", lambda: ops.dequant_matmul(
+        shifted, packed, scale, zero, group, variant=variant))
+    y_ref = ref.dequant_matmul(x, packed, scale, zero, group)
+    _k4_close(y, y_ref)
+    if m > ops.GEMV_MAX_M:
+        # the tile sums in the vector instantiation's order
+        assert torch.equal(y, ops.dequant_matmul(x, packed, scale, zero,
+                                                 group, variant=variant))
+
+
+# the same inputs give the same bits from launch to launch, every variant
+def test_dequant_matmul_same_bits(cuda):
+    rng = np.random.default_rng(43)
+    for m in (4, 8, 64):
+        x, packed, scale, zero = _k4_operands(rng, m, 2048, 2048, 128, cuda)
+        for v in ops.dequant_matmul_variants(m, 2048):
+            a = ops.dequant_matmul(x, packed, scale, zero, 128, variant=v)
+            b = ops.dequant_matmul(x, packed, scale, zero, 128, variant=v)
+            assert torch.equal(a, b), (m, v)
+
+
 # K5 is exact: the same two roundings (subtract, multiply) per element.
 @pytest.mark.parametrize("r,k,group", [(2048, 512, 64), (37, 64, 16),
                                        (5, 96, 32)])

@@ -65,3 +65,115 @@ def test_awp_pgd_vector_copies():
     shifted = buf[1: 1 + 96 * 160].view(96, 160)
     assert shifted.is_contiguous()
     assert not ops.awp_pgd_vector_copies(160, aligned, shifted)
+
+
+# K4 (``kernels.ops.dequant_matmul_tiles``): the variant at the serving
+# paths' (M, N, K) on a 132-SM H100 — the GEMV's split at M <= 8, the tile
+# above — at the four packed linears' (N, K): wq; wk, wv; wg, wu; wd. Each
+# is the variant a chip run timed fastest there
+K4_PICKS = {
+    (4, 2048, 2048): "gemv split 8",
+    (8, 2048, 2048): "gemv split 8",
+    (64, 2048, 2048): "tile 32x32",
+    (128, 2048, 2048): "tile 32x32",
+    (256, 2048, 2048): "tile 64x64",
+    (512, 2048, 2048): "tile 64x128",
+    (4096, 2048, 2048): "tile 128x128",
+    (4, 512, 2048): "gemv split 8",
+    (8, 512, 2048): "gemv split 8",
+    (64, 512, 2048): "tile 32x32",
+    (128, 512, 2048): "tile 32x32",
+    (256, 512, 2048): "tile 32x32",
+    (512, 512, 2048): "tile 32x32",
+    (4096, 512, 2048): "tile 128x128",
+    (4, 8192, 2048): "gemv split 2",
+    (8, 8192, 2048): "gemv split 2",
+    (64, 8192, 2048): "tile 64x64",
+    (128, 8192, 2048): "tile 64x128",
+    (256, 8192, 2048): "tile 128x128",
+    (512, 8192, 2048): "tile 128x128",
+    (4096, 8192, 2048): "tile 128x128",
+    (4, 2048, 8192): "gemv split 8",
+    (8, 2048, 8192): "gemv split 8",
+    (64, 2048, 8192): "tile 32x32",
+    (128, 2048, 8192): "tile 32x32",
+    (256, 2048, 8192): "tile 64x64",
+    (512, 2048, 8192): "tile 64x128",
+    (4096, 2048, 8192): "tile 128x128",
+}
+
+
+@pytest.mark.parametrize("shape", sorted(K4_PICKS))
+def test_dequant_matmul_tiles_pick(shape):
+    m, n, k = shape
+    assert ops.dequant_matmul_variant_name(
+        ops.dequant_matmul_tiles(m, n, k)) == K4_PICKS[shape]
+
+
+@pytest.mark.parametrize("n", [512, 2048, 8192])
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_dequant_matmul_gemv_fills_the_card(m, n):
+    """The GEMV's split gives every one of 132 SMs a block where K allows
+    it (K = 2048: 256 codes a block at split 8), else the largest split."""
+    v = ops.dequant_matmul_tiles(m, n, 2048)
+    assert v >= len(ops.DEQUANT_TILES)
+    cols, split = ops.dequant_matmul_grid(m, n, v)
+    assert cols * split >= 132 or split == ops.DEQUANT_SPLITS[-1]
+    smaller = [s for s in ops.DEQUANT_SPLITS if s < split]
+    assert all(cols * s < 132 for s in smaller)
+
+
+def test_dequant_matmul_tiles_by_busiest_sm():
+    """Above GEMV_MAX_M the tile with the least time on the busiest SM
+    (``TILE_COST``, ``TILE_SHARE``); fewer SMs move the pick to the largest
+    tile."""
+    for m, n in [(9, 512), (64, 2048), (512, 8192), (4096, 8192),
+                 (1024, 512), (96, 2048)]:
+        cost = [c * (1 + f * (-(-(-(-m // bm) * -(-n // bn)) // 132) - 1))
+                for (bm, bn), c, f in zip(ops.DEQUANT_TILES, ops.TILE_COST,
+                                          ops.TILE_SHARE)]
+        assert ops.dequant_matmul_tiles(m, n, 2048) == cost.index(min(cost))
+    assert ops.dequant_matmul_tiles(1024, 1024, 2048, sms=1) == 0
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 1, 32), (8, 65, 2048), (9, 63, 2048),
+                                   (127, 129, 256), (128, 128, 8192),
+                                   (4096, 8192, 2048), (4097, 513, 64)])
+def test_dequant_matmul_grid_covers_m_and_n(m, n, k):
+    for v in ops.dequant_matmul_variants(m, k):
+        a, b = ops.dequant_matmul_grid(m, n, v)
+        if v < len(ops.DEQUANT_TILES):
+            bm, bn = ops.DEQUANT_TILES[v]
+            assert (a - 1) * bm < m <= a * bm
+            assert (b - 1) * bn < n <= b * bn
+        else:
+            assert (a - 1) * ops.GEMV_COLS < n <= a * ops.GEMV_COLS
+            assert b in ops.DEQUANT_SPLITS and k % (32 * b) == 0
+
+
+def test_dequant_matmul_variants():
+    tiles = tuple(range(len(ops.DEQUANT_TILES)))
+    gemv = tuple(len(tiles) + i for i in range(len(ops.DEQUANT_SPLITS)))
+    assert ops.dequant_matmul_variants(8, 2048) == tiles + gemv
+    assert ops.dequant_matmul_variants(9, 2048) == tiles
+    assert ops.dequant_matmul_variants(4, 2048, vec=False) == tiles
+    # splits leave whole 32-code chunks a block
+    assert ops.dequant_matmul_variants(1, 64) == tiles + gemv[:2]
+    assert [ops.dequant_matmul_variant_name(v) for v in (0, 4, 7)] == [
+        "tile 128x128", "gemv split 1", "gemv split 8"]
+
+
+def test_dequant_matmul_vector_copies():
+    buf = torch.zeros(4 * 8 * 2048 + 4)
+    x = buf[: 8 * 2048].view(8, 2048)
+    packed = torch.zeros((512, 1024), dtype=torch.uint8)
+    assert x.data_ptr() % 16 == 0 and packed.data_ptr() % 16 == 0
+    assert ops.dequant_matmul_vector_copies(2048, 512, 128, x, packed)
+    assert not ops.dequant_matmul_vector_copies(2048, 512, 16, x, packed)
+    assert not ops.dequant_matmul_vector_copies(2064, 512, 16, x, packed)
+    assert not ops.dequant_matmul_vector_copies(2048, 514, 128, x, packed)
+    # a contiguous slice 4 bytes past a 16-byte boundary
+    shifted = buf[1: 1 + 8 * 2048].view(8, 2048)
+    assert shifted.is_contiguous()
+    assert not ops.dequant_matmul_vector_copies(2048, 512, 128, shifted,
+                                                packed)
