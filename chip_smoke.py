@@ -7,7 +7,9 @@ Builds the hand-written kernels K1–K6 (and K1b, K1 over a batch, and K6p,
 K6 through a block table) from
 ``src/repro_torch/kernels/csrc``, holds each against its plain PyTorch
 version at the shapes of the main paths (and a few edge cases), timing
-both (K1 and K4 at every tile variant, K4's GEMV at every split), then
+both (K1 and K4 at every tile variant, K4's GEMV at every split, K2 at
+every form, with a NaN/±inf matrix, ties, a 73728-wide row and a
+misaligned view), then
 drives the port at the full width of llama32-1b (16 layers, d_model 2048,
 d_ff 8192, padded vocab 129024, random weights from a seed):
 
@@ -45,7 +47,11 @@ and well-formed. K4's census (``ops.K4_CENSUS``: launches by M, N, K and
 variant) of the static decode and the two engines is then checked (every
 variant within 1e-5 of its plain version) and timed shape by shape —
 kernel, plain version, and ``torch.mm`` on the weight dequantized
-beforehand — and each path's K4 device seconds printed. Every path also
+beforehand — and each path's K4 device seconds printed. K2's census
+(``ops.K2_CENSUS``: launches by rows, d, k and variant) of both engines on
+paths 1 and 2 is held the same way: every form equal to the plain version
+(``torch.equal``) at every key, timed beside the plain version and
+``torch.topk``, and each path's K2 device seconds printed. Every path also
 runs through the kernels' plain versions, held to the repo's parity bars
 (and paths 1, 3 and 4 timed).
 One more run of each engine through the kernels, in sync-debug mode and
@@ -367,31 +373,7 @@ def phase_kernels(torch, dev):
     rows["awp_pgd_step"]["by_shape"] = k1_shapes
     rows["awp_pgd_step_batched"] = check_k1b(torch, randn)
 
-    # -- K2: exact top-k per row: the wo shape, ties, the Table-1 prune's
-    # wd rows (d_in 8192) and a bucket's (B, M, d) stack as the batched
-    # engine hands it over, one 73728-wide row --
-    for name, z, k in (
-            ("wo (2048, 2048)", randn(2048, 2048), 1024),
-            ("wd (2048, 8192)", randn(2048, 8192), 4096),
-            ("stack (2, 2048, 2048)", randn(2, 2048, 2048), 1024),
-            ("ties (2048, 2048)", torch.randint(-8, 9, (2048, 2048),
-                                                generator=gen, device=dev
-                                                ).float(), 1024),
-            ("row (1, 73728)", randn(1, 73728), 36864)):
-        out = ops.topk_row(z, k)
-        exact = torch.equal(out, ref.topk_row(z, k))
-        check(exact and int((out != 0).sum(-1).max()) <= k,
-              f"K2 {name} k={k}: kernel differs from the plain version")
-        zs = [z.clone() for _ in range(copies_for(8 * z.numel()))]
-        ms = time_ms(torch, lambda i: ops.topk_row(zs[i % len(zs)], k), 20)
-        plain = time_ms(torch, lambda i: ref.topk_row(zs[i % len(zs)], k), 20)
-        bnd, by = bound_ms(0.0, 8.0 * z.numel())
-        log(f"[K2] topk_row {name} k={k}: exact, kernel {ms:.3f} ms, "
-            f"plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})")
-        if name.startswith("wo"):
-            rows["topk_row"] = dict(shape="rows=2048,d=2048,k=1024", ms=ms,
-                                    plain_ms=plain, bound_ms=bnd, bound_by=by,
-                                    library_ms=None, max_abs_err=0.0)
+    rows["topk_row"] = check_k2(torch, dev, gen, randn)
 
     # -- K3: exact quantize-dequantize at the four shapes, bits 4 and 8 --
     for r, d, bits in ((8192, 2048, 4), (8192, 2048, 8), (2048, 8192, 4),
@@ -420,6 +402,100 @@ def phase_kernels(torch, dev):
     rows["decode_attn"] = check_k6(torch, dev, gen)
     rows["decode_attn_paged"] = check_k6p(torch, dev, gen)
     return rows
+
+
+def k2_nan_matrix(torch, dev, gen, rows, d):
+    """Normal rows where row r holds r % 12 NaNs (either sign, several
+    payloads), every third row also +inf and -inf, every fifth a run of
+    -0.0; K2 must keep none of the NaNs."""
+    z = torch.randn((rows, d), generator=gen, device=dev)
+    bits = torch.tensor([0x7FC00000, -0x00400000, 0x7F800001, 0x7FFFFFFF,
+                         -0x007FFEDD, 0x7FC01234], dtype=torch.int32)
+    payloads = bits.view(torch.float32).to(dev)
+    for r in range(rows):
+        n = r % 12
+        cols = torch.randperm(d, generator=gen, device=dev)[:n + 2]
+        z[r, cols[:n]] = payloads[torch.arange(n, device=dev) % 6]
+        if r % 3 == 0:
+            z[r, cols[n:]] = torch.tensor([math.inf, -math.inf], device=dev)
+        if r % 5 == 0:
+            z[r, : d // 8] = -0.0
+    return z
+
+
+def check_k2(torch, dev, gen, randn):
+    """K2, exact: at the wo shape, ties, the Table-1 prune's wd rows, a
+    bucket's (B, M, d) stack as the batched engine hands it over, one
+    73728-wide row (nemotron-4-340b's d_ff, the streaming form), a NaN/±inf
+    matrix and a view 4 bytes past a 16-byte boundary (the scalar-copy
+    instantiation): every variant of ``ops.topk_row_variants`` equal to the
+    plain version (``torch.equal``, at most k kept a row) and timed; the
+    NaN matrix also at k at, below and above its rows' NaN counts. Returns
+    the wo shape's row for the JSON line, with every case in ``by_shape``."""
+    from repro_torch.kernels import ops, ref
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ties = torch.randint(-8, 9, (2048, 2048), generator=gen,
+                         device=dev).float()
+    nan = k2_nan_matrix(torch, dev, gen, 2048, 2048)
+    shifted = torch.empty(2048 * 2048 + 1, device=dev)[1:].view(2048, 2048)
+    shifted.copy_(randn(2048, 2048))
+    check(not ops.topk_row_vector_copies(2048, shifted),
+          "K2: the shifted view would take 16-byte copies")
+    for k in (1, 2, 3, 5, 8, 11, 12, 1024, 2047):
+        want = ref.topk_row(nan, k)
+        check(not bool(torch.isnan(want).any()), "K2: the plain version "
+                                                 "kept a NaN")
+        for v in ops.topk_row_variants(2048):
+            check(torch.equal(ops.topk_row(nan, k, variant=v), want),
+                  f"K2 NaN matrix k={k} {ops.topk_row_variant_name(v)}: "
+                  f"differs from the plain version")
+    log("[K2] NaN/±inf matrix (2048, 2048), k in 1, 2, 3, 5, 8, 11, 12, "
+        "1024, 2047: every variant equal to the plain version")
+    row, by_shape = None, []
+    for name, z, k in (
+            ("wo (2048, 2048)", randn(2048, 2048), 1024),
+            ("wd (2048, 8192)", randn(2048, 8192), 4096),
+            ("stack (2, 2048, 2048)", randn(2, 2048, 2048), 1024),
+            ("ties (2048, 2048)", ties, 1024),
+            ("NaN/±inf (2048, 2048)", nan, 1024),
+            ("shifted view (2048, 2048)", shifted, 1024),
+            ("row (1, 73728)", randn(1, 73728), 36864)):
+        d = z.shape[-1]
+        pick = ops.topk_row_variant(z.numel() // d, d, sms)
+        want = ref.topk_row(z, k)
+        zs = [z] + [z.clone() for _ in range(copies_for(8 * z.numel()) - 1)]
+        if name.startswith("shifted"):   # keep every copy off the boundary
+            zs = [z] + [torch.empty(z.numel() + 1, device=dev)[1:].view(
+                z.shape).copy_(z) for _ in zs[1:]]
+        times = {}
+        for v in ops.topk_row_variants(d):
+            out = ops.topk_row(z, k, variant=v)
+            check(torch.equal(out, want)
+                  and int((out != 0).sum(-1).max()) <= k,
+                  f"K2 {name} k={k} {ops.topk_row_variant_name(v)}: "
+                  f"differs from the plain version")
+            times[ops.topk_row_variant_name(v)] = time_ms(
+                torch, lambda i: ops.topk_row(zs[i % len(zs)], k, variant=v),
+                20)
+        ms = times[ops.topk_row_variant_name(pick)]
+        plain = time_ms(torch, lambda i: ref.topk_row(zs[i % len(zs)], k), 20)
+        bnd, by = bound_ms(0.0, 8.0 * z.numel())
+        log(f"[K2] topk_row {name} k={k}: every variant exact; the pick "
+            f"{ops.topk_row_variant_name(pick)} {ms:.4f} ms "
+            f"({bnd / ms:.0%} of the bound), plain {plain:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}); variants "
+            + ", ".join(f"{n} {t:.4f} ms" for n, t in times.items()))
+        entry = dict(shape=f"{name},k={k}",
+                     variant=ops.topk_row_variant_name(pick), ms=ms,
+                     plain_ms=plain, bound_ms=bnd, bound_by=by,
+                     variant_ms=times)
+        by_shape.append(entry)
+        if row is None:
+            row = dict(entry, shape="rows=2048,d=2048,k=1024",
+                       library_ms=None, max_abs_err=0.0)
+        del zs, want
+    row["by_shape"] = by_shape
+    return row
 
 
 def k4_weight(torch, dev, gen, n, k, group):
@@ -597,6 +673,66 @@ def phase_k4_census(torch, dev, census):
                                       for p, c in census.items()},
                             ms=t[0], plain_ms=t[1], library_ms=t[2])
                        for (m, n, k, v), t in sorted(times.items())]
+    return out
+
+
+def phase_k2_census(torch, dev, census):
+    """K2 at every (rows, d, k) that the compression paths launched
+    (``census``: each path's ``ops.K2_CENSUS`` from its kernel run), on
+    random rows: every variant the wrapper can run there equal to the plain
+    version (``torch.equal``) and timed, beside the plain version, the
+    bytes bound and, as a yardstick, ``torch.topk(|z|, k, sorted=False)``
+    — the selection alone: it writes no masked row and breaks ties its own
+    way, so it is not the same function and stands in no ``library_ms``.
+    Then each path's K2 device seconds (launches x time at each key)."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    keys = sorted({key for c in census.values() for key in c})
+    times, by_shape = {}, []
+    for rows, d, k in sorted({key[:3] for key in keys}):
+        z = torch.randn((rows, d), generator=gen, device=dev)
+        want = ref.topk_row(z, k)
+        zs = [z] + [z.clone() for _ in range(copies_for(8 * z.numel()) - 1)]
+        variant_ms = {}
+        for v in ops.topk_row_variants(d):
+            name = ops.topk_row_variant_name(v)
+            check(torch.equal(ops.topk_row(z, k, variant=v), want),
+                  f"K2 census rows={rows} d={d} k={k} {name}: differs from "
+                  f"the plain version")
+            variant_ms[name] = time_ms(torch, lambda i: ops.topk_row(
+                zs[i % len(zs)], k, variant=v), 20)
+        plain = time_ms(torch, lambda i: ref.topk_row(zs[i % len(zs)], k), 20)
+        lib = time_ms(torch, lambda i: torch.topk(
+            zs[i % len(zs)].abs(), k, dim=-1, sorted=False), 20)
+        bnd, by = bound_ms(0.0, 8.0 * z.numel())
+        log(f"[K2 census] rows={rows} d={d} k={k}: every variant equal to "
+            f"the plain version; variants " + ", ".join(
+                f"{n} {t:.4f} ms" for n, t in variant_ms.items()))
+        for key in [key for key in keys if key[:3] == (rows, d, k)]:
+            name = ops.topk_row_variant_name(key[3])
+            ms = variant_ms[name]
+            times[key] = (ms, plain, lib)
+            launches = {p: c.get(key, 0) for p, c in census.items()}
+            log(f"[K2 census] rows={rows} d={d} k={k} {name}: launches "
+                + ", ".join(f"{p} {n}" for p, n in launches.items())
+                + f"; kernel {ms:.4f} ms ({bnd / ms:.0%} of the bound), "
+                f"plain {plain:.4f} ms, torch.topk {lib:.4f} ms, bound "
+                f"{bnd:.4f} ms ({by})")
+            by_shape.append(dict(shape=f"rows={rows},d={d},k={k}",
+                                 variant=name, launches=launches, ms=ms,
+                                 plain_ms=plain, topk_ms=lib, bound_ms=bnd,
+                                 bound_by=by, variant_ms=variant_ms))
+        del z, zs, want
+    out = {}
+    for path, c in census.items():
+        secs = [sum(cnt * times[key][i] for key, cnt in c.items()) / 1e3
+                for i in range(3)]
+        log(f"[K2 census] {path}: {sum(c.values())} launches at {len(c)} "
+            f"keys; K2 device seconds {secs[0]:.4f} s, the plain version's "
+            f"{secs[1]:.4f} s, torch.topk's {secs[2]:.4f} s")
+        out[path] = dict(launches=sum(c.values()), keys=len(c),
+                         device_s=secs[0], plain_s=secs[1], topk_s=secs[2])
+    out["by_shape"] = by_shape
     return out
 
 
@@ -947,14 +1083,14 @@ def engine_path(engine: str) -> tuple:
 def both_paths(torch, dev, data, tag, engine):
     """The main path through the kernels (launch counts set to 0 just
     before and read just after), then through the plain versions. Returns
-    the kernels' counts, both runs' outputs and K4's census."""
+    the kernels' counts, both runs' outputs and K4's and K2's census."""
     from repro_torch import kernels
     from repro_torch.kernels import ops
 
     ops.reset_launches()
     out_k = run_path(torch, dev, data, f"{tag}kernels", engine)
     launches = dict(ops.LAUNCHES)
-    census = dict(ops.K4_CENSUS)
+    census = dict(ops.K4_CENSUS), dict(ops.K2_CENSUS)
     log(f"[{tag}kernels] launches on the main path: {launches}")
     check_path(launches, engine_path(engine),
                f"the compress and decode path ({engine})")
@@ -1156,11 +1292,11 @@ def phase_main_path(torch, dev, cfg, data):
     their times; then the reference driver on the kernels, held to the
     batched engine's compression, and the host's waits in one batched
     compression. Returns the counts, the kernels' packed params (the
-    engine's), K4's census and the numbers."""
+    engine's), K4's census, K2's census of both engines and the numbers."""
     from repro_torch.kernels import ops
     model, _, _, prompts = data
-    launches, out_k, out_p, census = both_paths(torch, dev, data, "",
-                                                "batched")
+    launches, out_k, out_p, (census, k2_batched) = both_paths(
+        torch, dev, data, "", "batched")
     summary = compare(torch, dev, cfg, model, prompts, out_k, out_p, "",
                       mode="bars")
     t_plain = out_p[4]
@@ -1170,6 +1306,7 @@ def phase_main_path(torch, dev, cfg, data):
                                 "sequential")
     del cp
     seq_launches = dict(ops.LAUNCHES)
+    k2_seq = dict(ops.K2_CENSUS)
     check_path(seq_launches, ("awp_pgd_step", "topk_row", "quant_project"),
                "the sequential compression")
     # compression runs no packed linear (check_path above): every K4
@@ -1183,7 +1320,8 @@ def phase_main_path(torch, dev, cfg, data):
         f"{t_plain:.2f}s; launches batched {launches}, sequential "
         f"{seq_launches}")
     per_block, _ = count_waits(torch, data, policy_for("mixed"), "mixed ")
-    return launches, out_k[1], census, dict(
+    k2 = {"compress batched": k2_batched, "compress sequential": k2_seq}
+    return launches, out_k[1], census, k2, dict(
         batched_s=out_k[4], sequential_s=t_seq, batched_plain_s=t_plain,
         kernels_vs_plain=summary, engines=engines, waits_per_block=per_block)
 
@@ -1193,7 +1331,9 @@ def phase_prune_path(torch, cfg, data):
     reaches ``prune_batched_compacted`` with buckets {wq, wo}, {wk, wv},
     {wg, wu} at B = 2 (wd alone): the batched engine on the kernels
     (counted), the same through the plain versions, held to it, then the
-    sequential driver on the kernels (counted), held to the batched one."""
+    sequential driver on the kernels (counted), held to the batched one.
+    Returns the batched run's counts, K2's census of both engines and the
+    numbers."""
     from repro_torch import kernels
     from repro_torch.kernels import ops
     pol = policy_for("table1")
@@ -1201,6 +1341,7 @@ def phase_prune_path(torch, cfg, data):
     cp, rep_b, t_b = compress(torch, data, pol, "batched")
     del cp
     launches = dict(ops.LAUNCHES)
+    k2 = {"prune batched": dict(ops.K2_CENSUS)}
     log(f"[prune] launches on the prune path: {launches}")
     check_path(launches, PRUNE_PATH, "the prune path")
     ops.reset_launches()
@@ -1215,6 +1356,7 @@ def phase_prune_path(torch, cfg, data):
     cp, rep_s, t_s = compress(torch, data, pol, "sequential")
     del cp
     seq_launches = dict(ops.LAUNCHES)
+    k2["prune sequential"] = dict(ops.K2_CENSUS)
     check_path(seq_launches, ("awp_pgd_step", "topk_row"),
                "the sequential prune")
     held = hold_reports(torch, rep_b, rep_s, "engines table1", 14,
@@ -1224,7 +1366,7 @@ def phase_prune_path(torch, cfg, data):
     log(f"[prune] Table-1 policy, blocks 0-1: batched {t_b:.2f}s, "
         f"sequential {t_s:.2f}s on the kernels, batched plain {t_p:.2f}s; "
         f"iterations {iters}; sequential launches {seq_launches}")
-    return launches, dict(batched_s=t_b, sequential_s=t_s,
+    return launches, k2, dict(batched_s=t_b, sequential_s=t_s,
                           batched_plain_s=t_p, kernels_vs_plain=plain,
                           engines=held, iters=iters)
 
@@ -1692,8 +1834,9 @@ def main() -> None:
     phase_build()
     rows = phase_kernels(torch, dev)
     data = setup(torch, dev, cfg)
-    launches, packed, census, comp = phase_main_path(torch, dev, cfg, data)
-    prune_launches, prune = phase_prune_path(torch, cfg, data)
+    launches, packed, census, k2_main, comp = phase_main_path(
+        torch, dev, cfg, data)
+    prune_launches, k2_prune, prune = phase_prune_path(torch, cfg, data)
     model = data[0]
     del data
     torch.cuda.empty_cache()
@@ -1707,6 +1850,8 @@ def main() -> None:
     k4_census = phase_k4_census(torch, dev, dict(zip(
         K4_PATHS, (census, slot_census, paged_census))))
     rows["dequant_matmul"]["census"] = k4_census
+    rows["topk_row"]["census"] = phase_k2_census(torch, dev,
+                                                 {**k2_main, **k2_prune})
     phase_parity()
 
     out = []

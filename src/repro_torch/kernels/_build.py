@@ -30,7 +30,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "awp_pgd_step_f32": ([_P] * 6 + [_I] * 5 + [_P], _I),
     "awp_pgd_smem_bytes": ([_I], _I),
-    "topk_row_f32": ([_P, _P, _I, _I, _I, _P], _I),
+    "topk_row_f32": ([_P, _P] + [_I] * 5 + [_P], _I),
     "quant_project_f32": ([_P, _P, _I, _I, _I, _I, _P], _I),
     "dequant_matmul_f32": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "dequant_matmul_smem_bytes": ([_I, _I], _I),

@@ -8,7 +8,8 @@ the plain version runs); a CUDA tensor launches the kernel or raises.
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that its
 main path went through the kernels; a batched (3-D) call of
 :func:`awp_pgd_step` is K1b and counts under ``awp_pgd_step_batched``.
-``K4_CENSUS`` counts K4's launches by (M, N, K, variant).
+``K4_CENSUS`` counts K4's launches by (M, N, K, variant), ``K2_CENSUS``
+K2's by (rows, d, k, variant).
 
 TF32 is switched off for the whole port at import: the PGD stop rule sits
 at tol 1e-4 on ‖∇f‖/‖W‖ (``repro/core/awp.py:46``) and TF32's 10-bit
@@ -31,12 +32,15 @@ LAUNCHES = dict.fromkeys(("awp_pgd_step", "awp_pgd_step_batched")
                          + KERNELS[1:], 0)
 # K4's card launches by (M, N, K, variant)
 K4_CENSUS: dict = {}
+# K2's card launches by (rows, d, k, variant)
+K2_CENSUS: dict = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     K4_CENSUS.clear()
+    K2_CENSUS.clear()
 
 
 def _on_card(name: str, *tensors: torch.Tensor) -> bool:
@@ -161,10 +165,58 @@ def _rows(name: str, z):
     return z.numel() // z.shape[-1], z.shape[-1]
 
 
-def topk_row(z, k: int):
+# K2 forms, by the index the C entry point takes: (threads a row, 16-byte
+# slots a thread, held). A held form keeps the row in registers for every
+# pass and takes rows of up to 4 · slots · threads floats; the streaming
+# form reads the row from L2 chunk by chunk at each pass and takes any d
+# (csrc/topk_mask.cu)
+TOPK_FORMS = ((64, 8, True), (256, 8, True), (512, 4, False))
+
+
+def topk_row_capacity(variant: int):
+    """The longest row a K2 form holds, or None (streaming: any d)."""
+    threads, slots, held = TOPK_FORMS[variant]
+    return 4 * slots * threads if held else None
+
+
+def topk_row_variant_name(variant: int) -> str:
+    threads, slots, held = TOPK_FORMS[variant]
+    return f"{'held' if held else 'streaming'} {threads}x{slots}"
+
+
+def topk_row_variants(d: int):
+    """The K2 forms that can run rows of d: every held form that holds d,
+    and the streaming form."""
+    return tuple(v for v in range(len(TOPK_FORMS))
+                 if topk_row_capacity(v) is None or topk_row_capacity(v) >= d)
+
+
+def topk_row_variant(rows: int, d: int, sms: int = H100_SMS) -> int:
+    """The K2 form for ``rows`` rows of d on a card with ``sms`` SMs: the
+    held form with the least capacity that holds d, else the streaming
+    form. Neither the row count nor the SM count moves the pick on an
+    H100: the 64-thread form beat the 256-thread one at d = 2048 at every
+    census row count (``chip_smoke.py``'s ``[K2 census]`` lines); a row
+    longer than 8192 fits no held form."""
+    held = [v for v in topk_row_variants(d) if TOPK_FORMS[v][2]]
+    if not held:
+        return len(TOPK_FORMS) - 1
+    return min(held, key=topk_row_capacity)
+
+
+def topk_row_vector_copies(d: int, *tensors: torch.Tensor) -> bool:
+    """True when K2 can copy 16 bytes at a time: d % 4 == 0 and every
+    operand 16-byte aligned; else it runs its scalar-copy instantiation."""
+    return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def topk_row(z, k: int, variant=None):
     """K2: keep the k largest |z| of each row (exactly k, lower index wins
-    ties), zero the rest. z: (…, d) f32, contiguous; leading dims are rows
-    (a (B, M, d) stack runs as B·M rows in one launch)."""
+    ties; NaN ranks above inf and is never kept), zero the rest. z: (…, d)
+    f32, contiguous; leading dims are rows (a (B, M, d) stack runs as B·M
+    rows in one launch). The form is :func:`topk_row_variant`'s unless
+    ``variant`` names one of :func:`topk_row_variants`; a launch counts in
+    ``K2_CENSUS``."""
     if not _on_card("topk_row", z):
         return ref.topk_row(z, k)
     rows, d = _rows("topk_row", z)
@@ -172,9 +224,16 @@ def topk_row(z, k: int):
         return z
     if k <= 0:
         return torch.zeros_like(z)
+    if variant is None:
+        variant = topk_row_variant(rows, d, _sms(z.device))
+    elif variant not in topk_row_variants(d):
+        raise ValueError(f"topk_row: no variant {variant} for rows of {d}")
     out = torch.empty_like(z)
+    vec = topk_row_vector_copies(d, z, out)
     _launch("topk_row", "topk_row_f32", z.data_ptr(), out.data_ptr(), rows,
-            d, k)
+            d, k, variant, int(vec))
+    key = (rows, d, k, variant)
+    K2_CENSUS[key] = K2_CENSUS.get(key, 0) + 1
     return out
 
 
@@ -439,10 +498,13 @@ def decode_attn_paged(q, k_pool, v_pool, table, lengths, k_scale=None,
 
 
 __all__ = ["AWP_PGD_TILES", "DEQUANT_SPLITS", "DEQUANT_TILES", "GEMV_COLS",
-           "GEMV_MAX_M", "K4_CENSUS", "KERNELS", "LAUNCHES", "TILE_COST",
-           "TILE_SHARE", "awp_pgd_grid", "awp_pgd_step", "awp_pgd_tiles",
-           "awp_pgd_vector_copies", "decode_attn", "decode_attn_paged",
-           "dequant_matmul", "dequant_matmul_grid", "dequant_matmul_tiles",
+           "GEMV_MAX_M", "K2_CENSUS", "K4_CENSUS", "KERNELS", "LAUNCHES",
+           "TILE_COST", "TILE_SHARE", "TOPK_FORMS", "awp_pgd_grid",
+           "awp_pgd_step", "awp_pgd_tiles", "awp_pgd_vector_copies",
+           "decode_attn", "decode_attn_paged", "dequant_matmul",
+           "dequant_matmul_grid", "dequant_matmul_tiles",
            "dequant_matmul_variant_name", "dequant_matmul_variants",
            "dequant_matmul_vector_copies", "kv_dequant", "quant_project",
-           "reset_launches", "topk_row"]
+           "reset_launches", "topk_row", "topk_row_capacity",
+           "topk_row_variant", "topk_row_variant_name", "topk_row_variants",
+           "topk_row_vector_copies"]

@@ -181,6 +181,157 @@ def test_topk_row_ties_and_edges(cuda):
     assert ops.LAUNCHES["topk_row"] == before        # no launch for k ∉ (0, d)
 
 
+def _k2_variants(z, k, want):
+    """Every variant K2 can run on ``z`` gives the plain version's output."""
+    d = z.shape[-1]
+    variants = ops.topk_row_variants(d)
+    assert variants
+    for v in variants:
+        out = _launched("topk_row", lambda: ops.topk_row(z, k, variant=v))
+        assert torch.equal(out, want), (ops.topk_row_variant_name(v), k)
+        key = (z.numel() // d, d, k, v)
+        assert ops.K2_CENSUS[key] >= 1
+
+
+K2_RAGGED = [(d, k) for d in (1, 3, 31, 33, 1000, 2047, 2048, 2049, 8192,
+                              8193, 73728)
+             for k in sorted({1, d // 2, d - 1}) if 0 < k < d]
+
+
+@pytest.mark.parametrize("d,k", K2_RAGGED)
+def test_topk_row_every_variant_ragged(cuda, d, k):
+    rng = np.random.default_rng(d + k)
+    z = _randn(rng, (3 if d > 10000 else 9, d), cuda)
+    _k2_variants(z, k, ref.topk_row(z, k))
+
+
+def test_topk_row_every_variant_ties_and_equal_rows(cuda):
+    """Few distinct magnitudes, all-equal rows and rows of ±equal values:
+    the leftmost ties are kept, at every variant."""
+    rng = np.random.default_rng(3)
+    for d in (100, 2048, 8192):
+        z = torch.from_numpy(rng.integers(-8, 9, (12, d)).astype(np.float32)
+                             ).to(cuda)
+        z[1] = 3.0                                  # all equal
+        z[2] = torch.where(torch.arange(d, device=cuda) % 3 == 0, -2.5, 2.5)
+        z[3, : d // 2] = 7.0                        # two plateaus
+        z[3, d // 2:] = -1.0
+        for k in (1, d // 4, d // 2, d - 1):
+            _k2_variants(z, k, ref.topk_row(z, k))
+
+
+def test_topk_row_every_variant_negative_zero(cuda):
+    """Rows of -0.0 and of mixed ±0.0 tie with one another (|−0| = |+0|):
+    the leftmost k are kept with their signs."""
+    d = 2048
+    z = torch.zeros(4, d, device=cuda)
+    z[0] = -0.0
+    z[1, ::2] = -0.0
+    z[2, : d // 2] = 1.5
+    z[2, d // 2:: 2] = -0.0
+    z[3, 7] = -0.0
+    for k in (1, 3, d // 2, d // 2 + 5, d - 1):
+        want = ref.topk_row(z, k)
+        _k2_variants(z, k, want)
+        out = ops.topk_row(z, k)
+        assert torch.equal(torch.signbit(out), torch.signbit(want))
+
+
+def _nan_rows(d, cuda):
+    """Row r (r < 12) holds min(r, d / 2) NaNs of either sign and several
+    payloads at scattered columns; rows 1, 4 and 7 also hold ±inf; row 12
+    is the reference's example [1, NaN, -2, 0.5, inf, -inf, 3, -0.0]
+    repeated."""
+    rng = np.random.default_rng(11)
+    z = rng.standard_normal((13, d)).astype(np.float32)
+    payloads = np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0x7FFFFFFF,
+                         0xFF800123, 0x7FC01234], dtype=np.uint32).view(
+                             np.float32)
+    for r in range(12):
+        n = min(r, d // 2)
+        cols = rng.choice(d, size=n, replace=False)
+        z[r, cols] = payloads[np.arange(n) % len(payloads)]
+        if r in (1, 4, 7):
+            free = np.setdiff1d(np.arange(d), cols)[:2]
+            z[r, free] = [np.inf, -np.inf]
+    ex = np.array([1, np.nan, -2, 0.5, np.inf, -np.inf, 3, -0.0], np.float32)
+    z[12] = np.resize(ex, d)
+    return torch.from_numpy(z).to(cuda)
+
+
+@pytest.mark.parametrize("d", [8, 40, 2048, 8192])
+def test_topk_row_every_variant_nan_rows(cuda, d):
+    """The reference's keep-set on rows that hold NaN: NaN ranks above
+    +inf and counts toward k but is never kept, so k at or below a row's
+    NaN count (a NaN threshold) keeps nothing; ±inf tie with each other."""
+    z = _nan_rows(d, cuda)
+    for k in sorted({1, 2, 3, 4, 5, 6, 7, 8, 9, 11, 12, d // 2, d - 1}):
+        if 0 < k < d:
+            want = ref.topk_row(z, k)
+            assert not bool(torch.isnan(want).any())
+            _k2_variants(z, k, want)
+
+
+def test_topk_row_nan_example_row(cuda):
+    """[1, NaN, -2, 0.5, inf, -inf, 3, -0.0]: k = 1 keeps nothing, k = 2
+    keeps inf and -inf (the reference's jnp path, checked on the CPU by
+    tests/test_torch_projections.py)."""
+    z = torch.tensor([[1, float("nan"), -2, 0.5, float("inf"),
+                       -float("inf"), 3, -0.0]], device=cuda)
+    assert torch.equal(ops.topk_row(z, 1), torch.zeros_like(z))
+    inf = float("inf")
+    assert torch.equal(ops.topk_row(z, 2),
+                       torch.tensor([[0, 0, 0, 0, inf, -inf, 0, 0.0]],
+                                    device=cuda))
+
+
+@pytest.mark.parametrize("d", [2048, 8192, 1000])
+def test_topk_row_misaligned_view(cuda, d):
+    """A contiguous view 4 bytes past a 16-byte boundary takes the
+    scalar-copy instantiation, with the same output."""
+    rng = np.random.default_rng(d)
+    buf = torch.empty(6 * d + 1, device=cuda)
+    z = buf[1:].view(6, d)
+    z.copy_(_randn(rng, (6, d), cuda))
+    assert z.is_contiguous() and z.data_ptr() % 16 == 4
+    assert not ops.topk_row_vector_copies(d, z)
+    _k2_variants(z, d // 2, ref.topk_row(z, d // 2))
+
+
+def test_topk_row_stack(cuda):
+    """A (B, M, d) stack runs as B·M rows in one launch, each row its own."""
+    rng = np.random.default_rng(5)
+    z = _randn(rng, (3, 40, 2048), cuda)
+    z[1, 3, :5] = float("nan")
+    for k in (1, 1024):
+        want = ref.topk_row(z, k)
+        _k2_variants(z, k, want)
+        for b in range(3):
+            assert torch.equal(want[b], ref.topk_row(z[b], k))
+
+
+def test_prune_with_nan_in_c_matches_plain(cuda):
+    """``awp.prune`` with a NaN in C: η and Z are NaN, the gradient norm is
+    NaN and the loop stops after one step; the kernel path's θ equals the
+    plain path's (zeros: a NaN threshold keeps nothing), not NaN."""
+    from repro_torch import kernels
+    from repro_torch.core import awp
+    rng = np.random.default_rng(12)
+    w = _randn(rng, (64, 256), cuda)
+    x = rng.standard_normal((512, 256)).astype(np.float32)
+    c = torch.from_numpy(x.T @ x / 512).to(cuda)
+    c[3, 7] = float("nan")
+    ops.reset_launches()
+    got = awp.prune(w, c, 128)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["topk_row"] > 0
+    with kernels.use_impl("reference"):
+        want = awp.prune(w, c, 128)
+    assert int(got.iters) == int(want.iters) == 1
+    assert not bool(torch.isnan(want.theta).any())
+    assert torch.equal(got.theta, want.theta)
+
+
 @pytest.mark.parametrize("bits,group", [(2, 128), (3, 128), (4, 128),
                                         (8, 128), (4, 64)])
 def test_quant_project_exact(cuda, bits, group):

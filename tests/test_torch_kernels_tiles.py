@@ -177,3 +177,63 @@ def test_dequant_matmul_vector_copies():
     assert shifted.is_contiguous()
     assert not ops.dequant_matmul_vector_copies(2048, 512, 128, shifted,
                                                 packed)
+
+
+# K2 (``kernels.ops.topk_row_variant``): one block a row; a held form keeps
+# the row in registers and holds 4 · slots · threads floats, the streaming
+# form any d. The census (rows, d) of the compression paths: {wk, wv},
+# wk/wv, {wq, wo}, wq/wo, wg/wu, {wg, wu} at d_in 2048, and wd at 8192
+K2_CENSUS_SHAPES = [(512, 2048), (1024, 2048), (2048, 2048), (4096, 2048),
+                    (8192, 2048), (16384, 2048), (2048, 8192)]
+
+
+@pytest.mark.parametrize("rows,d", K2_CENSUS_SHAPES
+                         + [(r, d) for d in (1, 3, 33, 2047, 2048, 8192,
+                                             73728) for r in (1, 2048)])
+def test_topk_row_variant_holds_the_row(rows, d):
+    v = ops.topk_row_variant(rows, d)
+    assert v in ops.topk_row_variants(d)
+    cap = ops.topk_row_capacity(v)
+    held = ops.TOPK_FORMS[v][2]
+    assert held == (cap is not None)
+    # a held form whenever one holds the row; streaming only beyond them
+    assert held == (d <= max(c for c in map(ops.topk_row_capacity,
+                                            range(len(ops.TOPK_FORMS)))
+                             if c is not None))
+    assert cap is None or cap >= d
+
+
+@pytest.mark.parametrize("d", [1, 3, 33, 2047, 2048, 8192])
+def test_topk_row_fills_the_card_at_2048_rows(d):
+    """At 2048 rows, one block a row, the picked form gives every one of
+    the H100's SMs at least one warp for each of its four schedulers."""
+    threads = ops.TOPK_FORMS[ops.topk_row_variant(2048, d)][0]
+    assert 2048 * threads // 32 >= 4 * ops.H100_SMS
+
+
+def test_topk_row_variants():
+    every = tuple(range(len(ops.TOPK_FORMS)))
+    stream = every[-1]
+    assert ops.TOPK_FORMS[stream][2] is False
+    assert ops.topk_row_variants(1) == every
+    assert ops.topk_row_variants(2048) == every
+    assert ops.topk_row_variants(2049) == tuple(
+        v for v in every if ops.topk_row_capacity(v) is None
+        or ops.topk_row_capacity(v) >= 2049)
+    assert ops.topk_row_variants(73728) == (stream,)
+    assert [ops.topk_row_capacity(v) for v in every] == [2048, 8192, None]
+    assert ops.topk_row_variant_name(0) == "held 64x8"
+    assert ops.topk_row_variant_name(stream) == "streaming 512x4"
+
+
+def test_topk_row_vector_copies():
+    buf = torch.zeros(4 * 2048 + 4)
+    aligned = buf[: 4 * 2048].view(4, 2048)
+    assert aligned.data_ptr() % 16 == 0
+    assert ops.topk_row_vector_copies(2048, aligned, aligned)
+    odd = buf[: 4 * 2047].view(4, 2047)
+    assert not ops.topk_row_vector_copies(2047, odd, odd)
+    # a contiguous view 4 bytes past a 16-byte boundary
+    shifted = buf[1: 1 + 4 * 2048].view(4, 2048)
+    assert shifted.is_contiguous()
+    assert not ops.topk_row_vector_copies(2048, aligned, shifted)

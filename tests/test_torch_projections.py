@@ -87,3 +87,46 @@ def test_inv_qmax_is_f32_reciprocal():
     for bits in (2, 3, 4, 8):
         assert proj.inv_qmax(bits) == float(np.float32(1) /
                                              np.float32(2 ** bits - 1))
+
+
+def _nan_rows(d, seed=4):
+    """Rows that hold NaN (either sign, several payloads), ±inf and ±0.0.
+    At d = 8 the reference's example row [1, NaN, -2, 0.5, inf, -inf, 3,
+    -0.0] and five more; at other d, normal rows with those values strewn
+    in."""
+    nan_bits = np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0x7FFFFFFF,
+                         0xFF800123], dtype=np.uint32).view(np.float32)
+    n, inf = nan_bits[0], np.inf
+    if d == 8:
+        return np.array([
+            [1, n, -2, 0.5, inf, -inf, 3, -0.0],
+            nan_bits[[0, 1, 2, 3, 4, 0, 1, 2]],
+            [nan_bits[1], nan_bits[3], inf, -inf, 1, -0.0, 0.0, 2],
+            [-0.0] * 8,
+            [0.0, -0.0, 0.0, -0.0, 1, -1, nan_bits[4], 0.0],
+            [inf, -inf, inf, nan_bits[2], -n, 5, -5, 0.0]], np.float32)
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((12, d)).astype(np.float32)
+    for r in range(12):
+        cols = rng.choice(d, size=r + 4, replace=False)
+        z[r, cols[:r]] = nan_bits[np.arange(r) % len(nan_bits)]
+        z[r, cols[r:]] = [inf, -inf, 0.0, -0.0]
+    return z
+
+
+@pytest.mark.parametrize("d", [8, 64])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, -1])
+def test_topk_row_nan_inf_zero_rows_match_jax(d, k):
+    """The keep-set on rows that hold NaN, ±inf and ±0.0, against the JAX
+    package's jnp path: NaN ranks above +inf and counts toward k but is
+    never kept, a NaN k-th value keeps nothing, -0.0 ties with +0.0; the
+    port's projection and the plain K2 give the same bits."""
+    k = d - 1 if k < 0 else k
+    z = _nan_rows(d)
+    want = np.asarray(jops.topk_row(jnp.asarray(z), k, use_pallas=False))
+    assert not np.isnan(want).any()
+    t = torch.from_numpy(z)
+    for got in (proj.topk_row(t, k), ops.topk_row(t, k)):
+        assert_array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+    assert_array_equal(proj.topk_row_mask(t, k).numpy(),
+                       np.asarray(jproj.topk_row_mask(jnp.asarray(z), k)))
