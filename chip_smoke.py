@@ -56,8 +56,11 @@ runs through the kernels' plain versions, held to the repo's parity bars
 (and paths 1, 3 and 4 timed).
 One more run of each engine through the kernels, in sync-debug mode and
 apart from the timed ones, must show the host waiting on the card exactly
-once a decode step, batched prefill, chunked prompt and preemption. This
-first process, with every time in its JSON line, runs cuBLAS in its
+once a decode step, batched prefill, chunked prompt and preemption. A third
+kernel run of each engine, timed by nothing, records K6's and K6p's census
+(``ops.K6_CENSUS``: each launch's shapes and device clones of its lengths
+and table); every decode step's lengths are then replayed on the kernel,
+and each path's K6/K6p device seconds printed. This first process, with every time in its JSON line, runs cuBLAS in its
 default configuration, as the port's CLIs do.
 
 cuBLAS splits K for short products (measured on the H100: 256-, 512- and
@@ -135,6 +138,14 @@ K4_ROW = (4, 8192, 2048)
 K4_PATHS = ("static", "slot", "paged")
 # K6 at the engine's decode shape: 8 slots, 32 heads over 8 KV heads, D 64
 K6_LENGTHS = (0, 1, 255, 256, 1000, 1536, 2047, 2048)
+# the length sets K6 and K6p are timed at: the census above; rows like the
+# engines' traffic (prompts of 1-281 tokens plus their new tokens, so every
+# split past the first two is empty); rows of a few tokens, where the fixed
+# cost of the split and the merge weighs most; one row of 2048 tokens alone
+K6_SETS = {"census": K6_LENGTHS,
+           "short rows": (0, 1, 17, 64, 130, 200, 281, 300),
+           "few-token rows": (1, 2, 3, 4, 5, 6, 7, 8),
+           "one long row": (2048,)}
 
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit): f32 outside the
 # tensor cores and HBM3 bandwidth — the bounds every kernel is held to.
@@ -736,6 +747,75 @@ def phase_k2_census(torch, dev, census):
     return out
 
 
+def phase_k6_census(torch, dev, census, n_layers):
+    """K6 and K6p at every decode step the engines ran (``census``: each
+    path's ``ops.K6_CENSUS`` records from its kernel run, ``n_layers``
+    launches a step with the same lengths): each step's recorded lengths
+    (and block table) replayed once on a fresh random INT8 cache of the
+    recorded shape, the kernel timed there (the first and the longest step
+    also held to the plain version within 1e-5); then each path's
+    launches, kernel ms a step and K6/K6p device seconds (launches × the
+    step's time). The records are read on the host only here, after the
+    runs."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    out = {}
+    for path, recs in census.items():
+        check(len(recs) % n_layers == 0,
+              f"K6 census {path}: {len(recs)} launches, not whole steps")
+        steps = [recs[i:i + n_layers] for i in range(0, len(recs), n_layers)]
+        for step in steps:
+            check(all(torch.equal(r["lengths"], step[0]["lengths"])
+                      for r in step),
+                  f"K6 census {path}: the lengths differ inside a step")
+        r0 = steps[0][0]
+        paged = r0["kernel"] == "decode_attn_paged"
+        b, h, hk, d, group = r0["b"], r0["h"], r0["hk"], r0["d"], r0["group"]
+        rows = r0["pool"] * r0["page"] if paged else b * r0["t"]
+        shape = ((r0["pool"], r0["page"]) if paged else (b, r0["t"])) + (hk,
+                                                                          d)
+        q = torch.randn((b, h, d), generator=gen, device=dev)
+        kk, vv = (torch.randn(shape, generator=gen, device=dev)
+                  for _ in range(2))
+        (kk, vv), kw = k6_kinds(kk, vv, group)["int8"]
+        ins = k6_copies(kk, vv, kw, rows * 2 * hk * (d + 4.0 * d / group))
+        fn = getattr(ops, r0["kernel"])
+        plain_fn = getattr(ref, r0["kernel"])
+
+        def call(f, i, step):
+            lengths, table = step[0]["lengths"], step[0]["table"]
+            args = (q, ins[i % len(ins)][0], ins[i % len(ins)][1])
+            args += (table, lengths) if paged else (lengths,)
+            return f(*args, block_t=r0["block_t"], **ins[i % len(ins)][2])
+
+        maxlen = [int(st[0]["lengths"].max()) for st in steps]
+        for st in {0, maxlen.index(max(maxlen))}:
+            err = float((call(fn, 0, steps[st])
+                         - call(plain_fn, 0, steps[st])).abs().max())
+            check(err <= 1e-5, f"K6 census {path} step {st}: max|d| "
+                               f"{err:.3e} against the plain version")
+        ms = [time_ms(torch, lambda i: call(fn, i, st), 20) for st in steps]
+        launches = sum(len(st) for st in steps)
+        secs = sum(len(st) * t for st, t in zip(steps, ms)) / 1e3
+        live = [int(st[0]["lengths"].clamp(min=0).sum()) for st in steps]
+        log(f"[K6 census] {path}: {r0['kernel']} {launches} launches over "
+            f"{len(steps)} decode steps ({n_layers} a step), B={b} H={h} "
+            f"Hk={hk} D={d} " + (f"page={r0['page']} pool={r0['pool']} "
+                                 f"n_pages={r0['t'] // r0['page']}"
+                                 if paged else f"T={r0['t']}")
+            + f", INT8 group {group}; rows up to {max(maxlen)} tokens, "
+            f"{min(live)}..{max(live)} live tokens a step; kernel ms a step "
+            f"{sum(ms) / len(ms):.4f} mean, {min(ms):.4f} min, "
+            f"{max(ms):.4f} max; {r0['kernel']} device seconds "
+            f"{secs:.4f} s")
+        out[path] = dict(kernel=r0["kernel"], launches=launches,
+                         steps=len(steps), device_s=secs,
+                         ms_mean=sum(ms) / len(ms), ms_min=min(ms),
+                         ms_max=max(ms), max_len=max(maxlen))
+        del ins
+    return out
+
+
 def check_k1b(torch, randn):
     """K1b, the batched step, at the batched engine's buckets (B = 2) and
     at B = 3, with a different η per item (the second item's C is scaled,
@@ -814,195 +894,244 @@ def check_k5(torch, dev, gen):
                 bound_ms=bnd, bound_by=by, library_ms=None, max_abs_err=0.0)
 
 
+def k6_kinds(k, v, group):
+    """K6's two kinds on the engine's path: dense f32 and INT8 codes with
+    their planes (group ``group``) — (name, (k, v), keyword arguments)."""
+    from repro_torch.serving.kv_cache import kv_quantize
+    qk, qv = kv_quantize(k, group), kv_quantize(v, group)
+    return {"dense": ((k, v), {}),
+            "int8": ((qk.codes, qv.codes),
+                     dict(k_scale=qk.scale, k_zero=qk.zero, v_scale=qv.scale,
+                          v_zero=qv.zero, group_size=group))}
+
+
+def k6_copies(kk, vv, kw, nbytes):
+    """Copies of a K6 operand set, enough to keep the L2 cold."""
+    return [tuple(x.clone() for x in (kk, vv)) + (
+            {n: x.clone() if hasattr(x, "clone") else x
+             for n, x in kw.items()},) for _ in range(copies_for(nbytes))]
+
+
 def check_k6(torch, dev, gen):
-    """K6 at the engine's decode shape, dense f32 and INT8 (group 64), with
-    ragged lengths, a length-0 row and a NaN-poisoned row. Within 1e-5 of
-    the plain version (one softmax over the row against the kernel's
-    online softmax over 256-token tiles). The dense variant is also timed
-    against ``scaled_dot_product_attention`` (K/V repeated to every query
-    head, a boolean length mask) as a yardstick the port never calls."""
+    """K6 at the engine's decode shape, dense f32 and INT8 (group 64), at
+    each length set of ``K6_SETS``: within 1e-5 of the plain version (one
+    softmax over the row against the kernel's splits, each an online
+    softmax, merged in split order), two launches the same bits, a
+    length-0 row exactly zero, and (census) a NaN-poisoned row alone. The
+    dense variant is also timed against ``scaled_dot_product_attention``
+    (K/V repeated to every query head, a boolean length mask) as a
+    yardstick the port never calls. The census row is the JSON line's."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    from repro_torch.serving.kv_cache import kv_quantize
-    b, h, hk, d, t, group = len(K6_LENGTHS), 32, 8, 64, 2048, 64
-    q = torch.randn((b, h, d), generator=gen, device=dev)
-    k = torch.randn((b, t, hk, d), generator=gen, device=dev)
-    v = torch.randn((b, t, hk, d), generator=gen, device=dev)
-    lengths = torch.tensor(K6_LENGTHS, dtype=torch.int32, device=dev)
-    qk, qv = kv_quantize(k, group), kv_quantize(v, group)
-    variants = {
-        "dense": ((k, v), {}),
-        "int8": ((qk.codes, qv.codes),
-                 dict(k_scale=qk.scale, k_zero=qk.zero, v_scale=qv.scale,
-                      v_zero=qv.zero, group_size=group))}
-    live = sum(K6_LENGTHS)
-    io = 4.0 * 2 * b * h * d + 4 * b
+    h, hk, d, t, group = 32, 8, 64, 2048, 64
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     tok_bytes = {"dense": 2 * hk * d * 4.0,
                  "int8": 2 * hk * (d + 4.0 * d / group)}
-    res = {}
-    for name, ((kk, vv), kw) in variants.items():
-        out = ops.decode_attn(q, kk, vv, lengths, **kw)
-        want = ref.decode_attn(q, kk, vv, lengths, **kw)
-        err = float((out - want).abs().max())
-        rel = float(((out - want).abs() / (want.abs() + 1.0)).max())
-        check(err <= 1e-5 or rel <= 1e-5,
-              f"K6 {name}: max|d| {err:.3e} against the plain version")
-        check(torch.equal(out[0], torch.zeros_like(out[0])),
-              f"K6 {name}: the length-0 row is not exactly zero")
-        # one poisoned token in row 4 (length 1000): only that row is NaN
-        if name == "dense":
-            bad_k = kk.clone()
-            bad_k[4, 10, 3] = float("nan")
-            bad = ops.decode_attn(q, bad_k, vv, lengths)
-        else:
-            bad_kw = dict(kw, k_scale=kw["k_scale"].clone())
-            bad_kw["k_scale"][4, 10, 3] = float("nan")
-            bad = ops.decode_attn(q, kk, vv, lengths, **bad_kw)
-        others = [i for i in range(b) if i != 4]
-        check(bool(torch.isnan(bad[4, 3 * 4:3 * 4 + 4]).all())
-              and bool(torch.isfinite(bad[others]).all())
-              and torch.equal(bad[others], out[others]),
-              f"K6 {name}: the NaN row does not propagate alone")
-        nbytes = live * tok_bytes[name] + io
-        ins = [tuple(x.clone() for x in (kk, vv)) + (
-               {n: x.clone() if hasattr(x, "clone") else x
-                for n, x in kw.items()},)
-               for _ in range(copies_for(b * t * tok_bytes[name]))]
-        ms = time_ms(torch, lambda i: ops.decode_attn(
-            q, ins[i % len(ins)][0], ins[i % len(ins)][1], lengths,
-            **ins[i % len(ins)][2]), 50)
-        plain = time_ms(torch, lambda i: ref.decode_attn(
-            q, ins[i % len(ins)][0], ins[i % len(ins)][1], lengths,
-            **ins[i % len(ins)][2]), 20)
-        bnd, by = bound_ms(4.0 * h * d * live, nbytes)
-        lib = None
-        if name == "dense":
-            qs = q[:, :, None, :]                         # (B, H, 1, D)
-            reps = [tuple(x.permute(0, 2, 1, 3).repeat_interleave(h // hk, 1)
-                          for x in pair[:2]) for pair in ins]
-            mask = (torch.arange(t, device=dev)[None, :]
-                    < lengths[:, None].long())[:, None, None, :]
-            lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-                qs, reps[i % len(reps)][0], reps[i % len(reps)][1],
-                attn_mask=mask), 50)
-            del reps
-        lib_txt = "n/a" if lib is None else f"{lib:.4f} ms"
-        log(f"[K6] decode_attn {name} B={b} H={h} Hk={hk} D={d} T={t} "
-            f"lengths {list(K6_LENGTHS)}: max|d| {err:.2e}, zero row exact, "
-            f"NaN row alone, kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"sdpa {lib_txt}, bound {bnd:.4f} ms ({by}), "
-            f"{nbytes / ms / 1e9:.2f} TB/s of live bytes")
-        res[name] = dict(shape=f"B={b},H={h},Hk={hk},D={d},T={t},{name}",
-                         ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                         library_ms=lib, max_abs_err=err)
+    res, by_lengths = {}, []
+    for set_name, lens in K6_SETS.items():
+        b = len(lens)
+        q = torch.randn((b, h, d), generator=gen, device=dev)
+        k = torch.randn((b, t, hk, d), generator=gen, device=dev)
+        v = torch.randn((b, t, hk, d), generator=gen, device=dev)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        live = sum(lens)
+        io = 4.0 * 2 * b * h * d + 4 * b
+        chunk, splits = ops.decode_attn_splits(b, hk, t, sms=sms)
+        for name, ((kk, vv), kw) in k6_kinds(k, v, group).items():
+            out = ops.decode_attn(q, kk, vv, lengths, **kw)
+            want = ref.decode_attn(q, kk, vv, lengths, **kw)
+            err = float((out - want).abs().max())
+            rel = float(((out - want).abs() / (want.abs() + 1.0)).max())
+            check(err <= 1e-5 or rel <= 1e-5,
+                  f"K6 {name} {set_name}: max|d| {err:.3e} against the "
+                  f"plain version")
+            check(torch.equal(out.view(torch.int32), ops.decode_attn(
+                q, kk, vv, lengths, **kw).view(torch.int32)),
+                  f"K6 {name} {set_name}: two launches differ")
+            for i in (i for i, n in enumerate(lens) if n == 0):
+                check(torch.equal(out[i], torch.zeros_like(out[i])),
+                      f"K6 {name} {set_name}: a length-0 row is not "
+                      f"exactly zero")
+            if set_name == "census":
+                # one poisoned token in row 4 (length 1000), KV head 3:
+                # only that row's query heads 12..15 become NaN
+                if name == "dense":
+                    bad_k = kk.clone()
+                    bad_k[4, 10, 3] = float("nan")
+                    bad = ops.decode_attn(q, bad_k, vv, lengths)
+                else:
+                    bad_kw = dict(kw, k_scale=kw["k_scale"].clone())
+                    bad_kw["k_scale"][4, 10, 3] = float("nan")
+                    bad = ops.decode_attn(q, kk, vv, lengths, **bad_kw)
+                keep = torch.ones((b, h), dtype=torch.bool, device=dev)
+                keep[4, 12:16] = False
+                check(bool(torch.isnan(bad[4, 12:16]).all())
+                      and torch.equal(bad[keep], out[keep]),
+                      f"K6 {name}: the NaN row does not propagate alone")
+            nbytes = live * tok_bytes[name] + io
+            ins = k6_copies(kk, vv, kw, b * t * tok_bytes[name])
+            ms = time_ms(torch, lambda i: ops.decode_attn(
+                q, ins[i % len(ins)][0], ins[i % len(ins)][1], lengths,
+                **ins[i % len(ins)][2]), 50)
+            plain = time_ms(torch, lambda i: ref.decode_attn(
+                q, ins[i % len(ins)][0], ins[i % len(ins)][1], lengths,
+                **ins[i % len(ins)][2]), 20)
+            bnd, by = bound_ms(4.0 * h * d * live, nbytes)
+            lib = None
+            if name == "dense":
+                qs = q[:, :, None, :]                         # (B, H, 1, D)
+                reps = [tuple(x.permute(0, 2, 1, 3).repeat_interleave(
+                    h // hk, 1) for x in pair[:2]) for pair in ins]
+                mask = (torch.arange(t, device=dev)[None, :]
+                        < lengths[:, None].long())[:, None, None, :]
+                lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                    qs, reps[i % len(reps)][0], reps[i % len(reps)][1],
+                    attn_mask=mask), 50)
+                del reps
+            del ins
+            lib_txt = "n/a" if lib is None else f"{lib:.4f} ms"
+            log(f"[K6] decode_attn {name} {set_name} B={b} H={h} Hk={hk} "
+                f"D={d} T={t} lengths {list(lens)}: {splits} splits of "
+                f"{chunk}, max|d| {err:.2e}, two launches the same bits, "
+                + ("zero row exact, NaN row alone, "
+                   if set_name == "census" else "")
+                + f"kernel {ms:.4f} ms ({bnd / ms:.1%} of the bound), plain "
+                f"{plain:.4f} ms, sdpa {lib_txt}, bound {bnd:.4f} ms ({by}), "
+                f"{nbytes / ms / 1e9:.2f} TB/s of live bytes")
+            entry = dict(shape=f"B={b},H={h},Hk={hk},D={d},T={t},{name}",
+                         lengths=set_name, ms=ms, plain_ms=plain,
+                         bound_ms=bnd, bound_by=by, library_ms=lib,
+                         max_abs_err=err, splits=splits, chunk=chunk)
+            by_lengths.append(entry)
+            if set_name == "census":
+                res[name] = entry
     row = dict(res["int8"])              # the engine path's variant
     row["dense"] = res["dense"]
+    row["by_lengths"] = by_lengths
     return row
 
 
-def k6p_tables(torch, dev, gen):
-    """Block tables for K6_LENGTHS over a pool of K6P_POOL pages: each row's
-    live pages drawn from a shuffle of the pool, rows 2 and 3 sharing their
-    first 4 pages (a shared prefix), every entry past a row's live pages
-    the sentinel K6P_POOL. Row 4 (the NaN check's) shares nothing."""
+def k6p_tables(torch, dev, gen, lens):
+    """Block tables for rows of ``lens`` tokens over a pool of K6P_POOL
+    pages: each row's live pages drawn from a shuffle of the pool, rows 2
+    and 3 sharing their first pages (a shared prefix, up to 4), every entry
+    past a row's live pages the sentinel K6P_POOL. Row 4 (the NaN check's)
+    shares nothing."""
     perm = torch.randperm(K6P_POOL, generator=gen, device=dev).to(torch.int32)
-    table = torch.full((len(K6_LENGTHS), K6P_PAGES), K6P_POOL,
+    table = torch.full((len(lens), K6P_PAGES), K6P_POOL,
                        dtype=torch.int32, device=dev)
-    used = 0
-    for i, n in enumerate(K6_LENGTHS):
-        live = -(-n // K6P_PAGE)
-        table[i, :live] = perm[used:used + live]
-        used += live
-    table[3, :4] = table[2, :4]
+    used, live = 0, []
+    for i, n in enumerate(lens):
+        live.append(-(-n // K6P_PAGE))
+        table[i, :live[i]] = perm[used:used + live[i]]
+        used += live[i]
+    if len(lens) > 3:
+        shared = min(4, live[2], live[3])
+        table[3, :shared] = table[2, :shared]
     return table
 
 
 def check_k6p(torch, dev, gen):
     """K6p at the paged engine's decode shape, dense f32 and INT8 (group
-    64): shuffled pool pages, pages shared between rows, sentinel tails,
-    a pool larger than the tables use. Within 1e-5 of the plain version
-    (one softmax over the gathered row), equal to the slot kernel K6 on
-    the same tokens laid out contiguously (the same tiles in the same
-    order: the same bits), a length-0 row exactly zero and a NaN token
-    poisoning only its row's heads of that KV head. No single PyTorch call
-    reads through a block table, so there is no library time."""
+    64), at each length set of ``K6_SETS``: shuffled pool pages, pages
+    shared between rows, sentinel tails, a pool larger than the tables
+    use. Within 1e-5 of the plain version (one softmax over the gathered
+    row), equal to the slot kernel K6 on the same tokens laid out
+    contiguously (the same splits and pieces in the same order: the same
+    bits), two launches the same bits, a length-0 row exactly zero and
+    (census) a NaN token poisoning only its row's heads of that KV head.
+    No single PyTorch call reads through a block table, so there is no
+    library time."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.serving.kv_cache import kv_quantize
-    b, h, hk, d, group = len(K6_LENGTHS), 32, 8, 64, 64
-    q = torch.randn((b, h, d), generator=gen, device=dev)
+    h, hk, d, group = 32, 8, 64, 64
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     k = torch.randn((K6P_POOL, K6P_PAGE, hk, d), generator=gen, device=dev)
     v = torch.randn((K6P_POOL, K6P_PAGE, hk, d), generator=gen, device=dev)
-    table = k6p_tables(torch, dev, gen)
-    lengths = torch.tensor(K6_LENGTHS, dtype=torch.int32, device=dev)
-    qk, qv = kv_quantize(k, group), kv_quantize(v, group)
-    variants = {
-        "dense": ((k, v), {}),
-        "int8": ((qk.codes, qv.codes),
-                 dict(k_scale=qk.scale, k_zero=qk.zero, v_scale=qv.scale,
-                      v_zero=qv.zero, group_size=group))}
-    live = sum(K6_LENGTHS)
-    io = 4.0 * 2 * b * h * d + 4 * b + 4.0 * table.numel()
     tok_bytes = {"dense": 2 * hk * d * 4.0,
                  "int8": 2 * hk * (d + 4.0 * d / group)}
-    res = {}
-    for name, ((kk, vv), kw) in variants.items():
-        out = ops.decode_attn_paged(q, kk, vv, table, lengths, **kw)
-        want = ref.decode_attn_paged(q, kk, vv, table, lengths, **kw)
-        err = float((out - want).abs().max())
-        rel = float(((out - want).abs() / (want.abs() + 1.0)).max())
-        check(err <= 1e-5 or rel <= 1e-5,
-              f"K6p {name}: max|d| {err:.3e} against the plain version")
-        slot_kw = {n: (ref.gather_pages(x, table) if torch.is_tensor(x)
-                       else x) for n, x in kw.items()}
-        slot = ops.decode_attn(q, ref.gather_pages(kk, table),
-                               ref.gather_pages(vv, table), lengths,
-                               **slot_kw)
-        check(torch.equal(out, slot), f"K6p {name}: differs from K6 on the "
-              f"same tokens laid out in slot rows (max|d| "
-              f"{float((out - slot).abs().max()):.3e})")
-        check(torch.equal(out[0], torch.zeros_like(out[0])),
-              f"K6p {name}: the length-0 row is not exactly zero")
-        # one poisoned token of row 4 (length 1000), KV head 3: only that
-        # row's heads 12..15 become NaN
-        page = int(table[4, 10 // K6P_PAGE])
-        if name == "dense":
-            bad_k = kk.clone()
-            bad_k[page, 10 % K6P_PAGE, 3] = float("nan")
-            bad = ops.decode_attn_paged(q, bad_k, vv, table, lengths)
-        else:
-            bad_kw = dict(kw, k_scale=kw["k_scale"].clone())
-            bad_kw["k_scale"][page, 10 % K6P_PAGE, 3] = float("nan")
-            bad = ops.decode_attn_paged(q, kk, vv, table, lengths, **bad_kw)
-        keep = torch.ones((b, h), dtype=torch.bool, device=dev)
-        keep[4, 12:16] = False
-        check(bool(torch.isnan(bad[4, 12:16]).all())
-              and torch.equal(bad[keep], out[keep]),
-              f"K6p {name}: the NaN token does not propagate alone")
-        nbytes = live * tok_bytes[name] + io
-        pool_bytes = K6P_POOL * K6P_PAGE * tok_bytes[name]
-        ins = [tuple(x.clone() for x in (kk, vv)) + (
-               {n: x.clone() if hasattr(x, "clone") else x
-                for n, x in kw.items()},)
-               for _ in range(copies_for(pool_bytes))]
-        ms = time_ms(torch, lambda i: ops.decode_attn_paged(
-            q, ins[i % len(ins)][0], ins[i % len(ins)][1], table, lengths,
-            **ins[i % len(ins)][2]), 50)
-        plain = time_ms(torch, lambda i: ref.decode_attn_paged(
-            q, ins[i % len(ins)][0], ins[i % len(ins)][1], table, lengths,
-            **ins[i % len(ins)][2]), 20)
-        bnd, by = bound_ms(4.0 * h * d * live, nbytes)
-        log(f"[K6p] decode_attn_paged {name} B={b} H={h} Hk={hk} D={d} "
-            f"page={K6P_PAGE} n_pages={K6P_PAGES} pool={K6P_POOL} lengths "
-            f"{list(K6_LENGTHS)}: max|d| {err:.2e}, equal to K6 on slot rows, "
-            f"zero row exact, NaN head group alone, kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}), "
-            f"{nbytes / ms / 1e9:.2f} TB/s of live bytes")
-        res[name] = dict(shape=f"B={b},H={h},Hk={hk},D={d},page={K6P_PAGE},"
+    kinds = k6_kinds(k, v, group)
+    res, by_lengths = {}, []
+    for set_name, lens in K6_SETS.items():
+        b = len(lens)
+        q = torch.randn((b, h, d), generator=gen, device=dev)
+        table = k6p_tables(torch, dev, gen, lens)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        live = sum(lens)
+        io = 4.0 * 2 * b * h * d + 4 * b + 4.0 * table.numel()
+        chunk, splits = ops.decode_attn_splits(b, hk, K6P_PAGES * K6P_PAGE,
+                                               sms=sms)
+        for name, ((kk, vv), kw) in kinds.items():
+            out = ops.decode_attn_paged(q, kk, vv, table, lengths, **kw)
+            want = ref.decode_attn_paged(q, kk, vv, table, lengths, **kw)
+            err = float((out - want).abs().max())
+            rel = float(((out - want).abs() / (want.abs() + 1.0)).max())
+            check(err <= 1e-5 or rel <= 1e-5,
+                  f"K6p {name} {set_name}: max|d| {err:.3e} against the "
+                  f"plain version")
+            slot_kw = {n: (ref.gather_pages(x, table) if torch.is_tensor(x)
+                           else x) for n, x in kw.items()}
+            slot = ops.decode_attn(q, ref.gather_pages(kk, table),
+                                   ref.gather_pages(vv, table), lengths,
+                                   **slot_kw)
+            check(torch.equal(out, slot), f"K6p {name} {set_name}: differs "
+                  f"from K6 on the same tokens laid out in slot rows (max|d| "
+                  f"{float((out - slot).abs().max()):.3e})")
+            check(torch.equal(out.view(torch.int32), ops.decode_attn_paged(
+                q, kk, vv, table, lengths, **kw).view(torch.int32)),
+                  f"K6p {name} {set_name}: two launches differ")
+            for i in (i for i, n in enumerate(lens) if n == 0):
+                check(torch.equal(out[i], torch.zeros_like(out[i])),
+                      f"K6p {name} {set_name}: a length-0 row is not "
+                      f"exactly zero")
+            if set_name == "census":
+                # one poisoned token of row 4 (length 1000), KV head 3:
+                # only that row's heads 12..15 become NaN
+                page = int(table[4, 10 // K6P_PAGE])
+                if name == "dense":
+                    bad_k = kk.clone()
+                    bad_k[page, 10 % K6P_PAGE, 3] = float("nan")
+                    bad = ops.decode_attn_paged(q, bad_k, vv, table, lengths)
+                else:
+                    bad_kw = dict(kw, k_scale=kw["k_scale"].clone())
+                    bad_kw["k_scale"][page, 10 % K6P_PAGE, 3] = float("nan")
+                    bad = ops.decode_attn_paged(q, kk, vv, table, lengths,
+                                                **bad_kw)
+                keep = torch.ones((b, h), dtype=torch.bool, device=dev)
+                keep[4, 12:16] = False
+                check(bool(torch.isnan(bad[4, 12:16]).all())
+                      and torch.equal(bad[keep], out[keep]),
+                      f"K6p {name}: the NaN token does not propagate alone")
+            nbytes = live * tok_bytes[name] + io
+            ins = k6_copies(kk, vv, kw, K6P_POOL * K6P_PAGE * tok_bytes[name])
+            ms = time_ms(torch, lambda i: ops.decode_attn_paged(
+                q, ins[i % len(ins)][0], ins[i % len(ins)][1], table,
+                lengths, **ins[i % len(ins)][2]), 50)
+            plain = time_ms(torch, lambda i: ref.decode_attn_paged(
+                q, ins[i % len(ins)][0], ins[i % len(ins)][1], table,
+                lengths, **ins[i % len(ins)][2]), 20)
+            del ins
+            bnd, by = bound_ms(4.0 * h * d * live, nbytes)
+            log(f"[K6p] decode_attn_paged {name} {set_name} B={b} H={h} "
+                f"Hk={hk} D={d} page={K6P_PAGE} n_pages={K6P_PAGES} "
+                f"pool={K6P_POOL} lengths {list(lens)}: {splits} splits of "
+                f"{chunk}, max|d| {err:.2e}, equal to K6 on slot rows, two "
+                f"launches the same bits, "
+                + ("zero row exact, NaN head group alone, "
+                   if set_name == "census" else "")
+                + f"kernel {ms:.4f} ms ({bnd / ms:.1%} of the bound), plain "
+                f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}), "
+                f"{nbytes / ms / 1e9:.2f} TB/s of live bytes")
+            entry = dict(shape=f"B={b},H={h},Hk={hk},D={d},page={K6P_PAGE},"
                                f"n_pages={K6P_PAGES},{name}",
-                         ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                         library_ms=None, max_abs_err=err)
+                         lengths=set_name, ms=ms, plain_ms=plain,
+                         bound_ms=bnd, bound_by=by, library_ms=None,
+                         max_abs_err=err, splits=splits, chunk=chunk)
+            by_lengths.append(entry)
+            if set_name == "census":
+                res[name] = entry
     row = dict(res["int8"])              # the engine path's variant
     row["dense"] = res["dense"]
+    row["by_lengths"] = by_lengths
     return row
 
 
@@ -1434,14 +1563,16 @@ def host_waits(torch, on: bool):
 
 
 def run_engine(torch, model, packed, reqs, label, watch_waits=False,
-               ecfg=None):
+               ecfg=None, k6_census=False):
     """One engine run over ``reqs`` (warm-up first, uncounted) with
     ``ecfg`` (the slot phase's ``ENGINE`` by default): launch counts set
     to 0 just before the run and read just after (and K4's census),
     ``check_invariants`` after every step, and the time of every step.
     ``watch_waits`` also counts the host's waits on the card and fails
     unless there is exactly one a decode step, batched prefill, chunked
-    prompt and preemption."""
+    prompt and preemption. ``k6_census`` arms ``ops.K6_CENSUS`` for the
+    run (device clones of each K6/K6p launch's lengths and table, read
+    after it); its records are the last value returned."""
     from repro_torch.kernels import ops
     from repro_torch.serving import Engine, EngineConfig, cache_is_finite
     engine = Engine(model, packed, EngineConfig(**(ecfg or ENGINE)))
@@ -1460,15 +1591,20 @@ def run_engine(torch, model, packed, reqs, label, watch_waits=False,
         last[0], last[1] = now, admits
 
     ops.reset_launches()
-    with host_waits(torch, watch_waits) as waits:
-        t0 = last[0] = time.perf_counter()
-        for r in reqs:
-            engine.submit(r)
-        results = engine.run(step_hook=hook)
-    torch.cuda.synchronize()
+    armed = ops.arm_k6_census(k6_census)
+    try:
+        with host_waits(torch, watch_waits) as waits:
+            t0 = last[0] = time.perf_counter()
+            for r in reqs:
+                engine.submit(r)
+            results = engine.run(step_hook=hook)
+        torch.cuda.synchronize()
+    finally:
+        ops.arm_k6_census(armed)
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     census = dict(ops.K4_CENSUS)
+    k6 = list(ops.K6_CENSUS)
     if watch_waits:
         # one wait each: a decode step's (S, 2) read, a prefill's first
         # tokens, a chunked prompt's last token, a spill's one transfer
@@ -1523,13 +1659,35 @@ def run_engine(torch, model, packed, reqs, label, watch_waits=False,
     torch.cuda.empty_cache()
     check(sum(census.values()) == launches["dequant_matmul"],
           f"{label}: K4's census does not match its launches")
-    return launches, {r.rid: r.tokens for r in results}, stats, census
+    check(not k6_census or len(k6) == launches["decode_attn"]
+          + launches["decode_attn_paged"],
+          f"{label}: K6's census does not match its launches")
+    return launches, {r.rid: r.tokens for r in results}, stats, census, k6
 
 
-def phase_engine(torch, cfg, model, packed, tag, exact_first):
+def k6_census_run(torch, model, packed, reqs, label, tokens, launches,
+                  ecfg=None):
+    """A third kernel run of an engine, timed by nothing, with
+    ``ops.K6_CENSUS`` armed: its K6/K6p records (the timed run and the
+    sync-debug run carry no census). It must give the timed run's tokens
+    and K6/K6p launches."""
+    got, tok_c, _, _, k6 = run_engine(torch, model, packed, reqs,
+                                      f"{label} kernels, K6 census",
+                                      ecfg=ecfg, k6_census=True)
+    check(tok_c == tokens, f"{label}: the census run's tokens differ")
+    for name in ("decode_attn", "decode_attn_paged"):
+        check(got[name] == launches[name],
+              f"{label}: the census run launched {name} {got[name]} times, "
+              f"the timed run {launches[name]}")
+    return k6
+
+
+def phase_engine(torch, cfg, model, packed, tag, exact_first,
+                 k6_census=False):
     """The engine through the kernels (K4, K5 and K6 must launch), then
     through the plain versions (nothing may launch), on the same packed
-    model and trace. Greedy tokens are compared; with ``exact_first`` the
+    model and trace; with ``k6_census`` a third kernel run records K6's
+    census (:func:`k6_census_run`). Greedy tokens are compared; with ``exact_first`` the
     first token of every request must be equal on both paths."""
     from repro_torch import kernels
     reqs = engine_trace(cfg)
@@ -1538,17 +1696,19 @@ def phase_engine(torch, cfg, model, packed, tag, exact_first):
         f"{plens[-1]} tokens ({sum(p > ENGINE['prompt_buckets'][-1] for p in plens)}"
         f" beyond the largest bucket), {sum(r.max_new_tokens for r in reqs)}"
         f" new tokens; {ENGINE}")
-    launches, tok_k, st_k, census = run_engine(torch, model, packed, reqs,
-                                               f"{tag}engine kernels")
+    launches, tok_k, st_k, census, _ = run_engine(
+        torch, model, packed, reqs, f"{tag}engine kernels")
     check_path(launches, ENGINE_PATH, "the engine path")
     # the same run again, untimed by the numbers above, with every wait of
     # the host on the card counted (sync-debug mode)
-    _, tok_w, st_w, _ = run_engine(torch, model, packed, reqs,
-                                   f"{tag}engine kernels, waits counted",
-                                   watch_waits=True)
+    _, tok_w, st_w, _, _ = run_engine(torch, model, packed, reqs,
+                                      f"{tag}engine kernels, waits counted",
+                                      watch_waits=True)
     check(tok_w == tok_k, "the engine's tokens differ between two runs")
+    k6 = (k6_census_run(torch, model, packed, reqs, f"{tag}engine", tok_k,
+                        launches) if k6_census else [])
     with kernels.use_impl("reference"):
-        plain_launches, tok_p, st_p, _ = run_engine(
+        plain_launches, tok_p, st_p, _, _ = run_engine(
             torch, model, packed, reqs, f"{tag}engine plain")
     check(not any(plain_launches.values()),
           "the plain engine run launched a kernel")
@@ -1566,7 +1726,7 @@ def phase_engine(torch, cfg, model, packed, tag, exact_first):
     return launches, tok_k, dict(kernels=st_k, waits_counted=st_w,
                                  plain=st_p, identical=len(same),
                                  requests=len(tok_k), parts=parts,
-                                 first_equal=first_equal), census
+                                 first_equal=first_equal), census, k6
 
 
 def check_spill_restore(torch, model, packed, reqs):
@@ -1615,7 +1775,7 @@ def check_spill_restore(torch, model, packed, reqs):
 
 
 def phase_paged_engine(torch, cfg, model, packed, tag, exact_first,
-                       slot_tokens=None):
+                       slot_tokens=None, k6_census=False):
     """The paged engine (``PAGED_ENGINE``) over ``paged_trace``: through
     the kernels (K4, K5 and K6p must launch, K6p once a layer a decode
     step, nothing else), once more in sync-debug mode (one host wait a
@@ -1625,27 +1785,29 @@ def phase_paged_engine(torch, cfg, model, packed, tag, exact_first,
     page in use and count the same in all three runs. Its tokens are held
     to the kernels' slot-engine run (``slot_tokens``) on the requests the
     two traces share; with ``exact_first`` every request's first token
-    must equal on the kernel and plain paths. Then the spill/restore round
-    trip at full width."""
+    must equal on the kernel and plain paths; with ``k6_census`` a fourth
+    run records K6p's census (:func:`k6_census_run`). Then the
+    spill/restore round trip at full width."""
     from repro_torch import kernels
     reqs = paged_trace(cfg)
     log(f"[{tag}paged] {len(reqs)} requests ({PREFIX['requests']} behind a "
         f"{PREFIX['prefix']}-token shared prefix), "
         f"{sum(r.max_new_tokens for r in reqs)} new tokens; {PAGED_ENGINE}")
-    launches, tok_k, st_k, census = run_engine(torch, model, packed, reqs,
-                                               f"{tag}paged kernels",
-                                               ecfg=PAGED_ENGINE)
+    launches, tok_k, st_k, census, _ = run_engine(
+        torch, model, packed, reqs, f"{tag}paged kernels", ecfg=PAGED_ENGINE)
     check_path(launches, PAGED_PATH, "the paged engine path")
     per_step = model.cfg.num_layers * st_k["decode_steps"]
     check(launches["decode_attn_paged"] == per_step,
           f"K6p launched {launches['decode_attn_paged']} times, expected "
           f"{per_step} (one a layer a decode step)")
-    _, tok_w, st_w, _ = run_engine(torch, model, packed, reqs,
-                                   f"{tag}paged kernels, waits counted",
-                                   watch_waits=True, ecfg=PAGED_ENGINE)
+    _, tok_w, st_w, _, _ = run_engine(torch, model, packed, reqs,
+                                      f"{tag}paged kernels, waits counted",
+                                      watch_waits=True, ecfg=PAGED_ENGINE)
     check(tok_w == tok_k, "the paged engine's tokens differ between runs")
+    k6 = (k6_census_run(torch, model, packed, reqs, f"{tag}paged", tok_k,
+                        launches, ecfg=PAGED_ENGINE) if k6_census else [])
     with kernels.use_impl("reference"):
-        plain_launches, tok_p, st_p, _ = run_engine(
+        plain_launches, tok_p, st_p, _, _ = run_engine(
             torch, model, packed, reqs, f"{tag}paged plain",
             ecfg=PAGED_ENGINE)
     check(not any(plain_launches.values()),
@@ -1687,7 +1849,7 @@ def phase_paged_engine(torch, cfg, model, packed, tag, exact_first,
     return launches, dict(kernels=st_k, waits_counted=st_w, plain=st_p,
                           identical=len(same), requests=len(tok_k),
                           parts=parts, first_equal=first_equal,
-                          vs_slot=vs_slot, spill_restore=spill), census
+                          vs_slot=vs_slot, spill_restore=spill), census, k6
 
 
 def phase_parity():
@@ -1840,13 +2002,18 @@ def main() -> None:
     model = data[0]
     del data
     torch.cuda.empty_cache()
-    eng_launches, slot_tokens, eng, slot_census = phase_engine(
-        torch, cfg, model, packed, "", exact_first=False)
-    paged_launches, paged, paged_census = phase_paged_engine(
+    eng_launches, slot_tokens, eng, slot_census, slot_k6 = phase_engine(
+        torch, cfg, model, packed, "", exact_first=False, k6_census=True)
+    paged_launches, paged, paged_census, paged_k6 = phase_paged_engine(
         torch, cfg, model, packed, "", exact_first=False,
-        slot_tokens=slot_tokens)
+        slot_tokens=slot_tokens, k6_census=True)
     del model, packed
     torch.cuda.empty_cache()
+    k6_census = phase_k6_census(torch, dev, {"slot": slot_k6,
+                                             "paged": paged_k6},
+                                cfg.num_layers)
+    rows["decode_attn"]["census"] = k6_census["slot"]
+    rows["decode_attn_paged"]["census"] = k6_census["paged"]
     k4_census = phase_k4_census(torch, dev, dict(zip(
         K4_PATHS, (census, slot_census, paged_census))))
     rows["dequant_matmul"]["census"] = k4_census
@@ -1868,7 +2035,7 @@ def main() -> None:
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"],
                  "library_ms": row["library_ms"], "shape": row["shape"]}
-        for extra in ("dense", "by_shape", "census"):
+        for extra in ("dense", "by_shape", "by_lengths", "census"):
             if extra in row:
                 entry[extra] = row[extra]
         out.append(entry)

@@ -35,8 +35,8 @@ SIGNATURES = {
     "dequant_matmul_f32": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "dequant_matmul_smem_bytes": ([_I, _I], _I),
     "kv_dequant_u8": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "decode_attn": ([_P] * 9 + [_I] * 8 + [_P], _I),
-    "decode_attn_paged": ([_P] * 10 + [_I] * 10 + [_P], _I),
+    "decode_attn": ([_P] * 10 + [_I] * 9 + [_P], _I),
+    "decode_attn_paged": ([_P] * 11 + [_I] * 11 + [_P], _I),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -9,7 +9,9 @@ the plain version runs); a CUDA tensor launches the kernel or raises.
 main path went through the kernels; a batched (3-D) call of
 :func:`awp_pgd_step` is K1b and counts under ``awp_pgd_step_batched``.
 ``K4_CENSUS`` counts K4's launches by (M, N, K, variant), ``K2_CENSUS``
-K2's by (rows, d, k, variant).
+K2's by (rows, d, k, variant); while :func:`arm_k6_census` is on,
+``K6_CENSUS`` records each K6 and K6p launch's shapes with device-side
+clones of its lengths (and table), read on the host only afterwards.
 
 TF32 is switched off for the whole port at import: the PGD stop rule sits
 at tol 1e-4 on ‖∇f‖/‖W‖ (``repro/core/awp.py:46``) and TF32's 10-bit
@@ -34,6 +36,10 @@ LAUNCHES = dict.fromkeys(("awp_pgd_step", "awp_pgd_step_batched")
 K4_CENSUS: dict = {}
 # K2's card launches by (rows, d, k, variant)
 K2_CENSUS: dict = {}
+# K6's and K6p's card launches while armed: one dict a launch (kernel,
+# shapes, device clones of lengths and table)
+K6_CENSUS: list = []
+_K6_ARMED = False
 
 
 def reset_launches() -> None:
@@ -41,6 +47,16 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
     K4_CENSUS.clear()
     K2_CENSUS.clear()
+    K6_CENSUS.clear()
+
+
+def arm_k6_census(on: bool = True) -> bool:
+    """Record (``on``) or stop recording K6/K6p launches in
+    ``K6_CENSUS``; returns the previous setting. A record clones lengths
+    and table on the device, so arming adds no host wait."""
+    global _K6_ARMED
+    prev, _K6_ARMED = _K6_ARMED, bool(on)
+    return prev
 
 
 def _on_card(name: str, *tensors: torch.Tensor) -> bool:
@@ -433,14 +449,58 @@ def _decode_checks(name, q, k, v, lengths, planes, group_size, rows):
     return kind, ptrs
 
 
+# K6/K6p's split plan: at most DECODE_MAX_SPLITS chunks a row, and no
+# more than it takes to give every SM DECODE_BLOCKS_PER_SM blocks
+DECODE_MAX_SPLITS = 64
+DECODE_BLOCKS_PER_SM = 4
+
+
+def decode_attn_splits(b: int, hk: int, t: int, block_t: int = 256,
+                       sms: int = H100_SMS):
+    """(chunk, splits) of K6/K6p over rows of ``t`` cache positions (K6p:
+    n_pages·page) for ``b`` rows and ``hk`` KV heads, from these host-known
+    sizes only (never the lengths): split s covers tokens
+    [s·chunk, (s + 1)·chunk) ∩ [0, t), one block each per (row, KV head).
+    The chunk is ``block_t`` (at most t), grown by whole multiples until
+    there are at most ``DECODE_MAX_SPLITS`` splits and at most the splits
+    that give ``sms`` SMs ``DECODE_BLOCKS_PER_SM`` blocks each. So the
+    engines' shape (8 rows, 8 KV heads, t = 2048) runs 8 splits of 256
+    tokens: 512 blocks on 132 SMs. (splits − 1)·chunk < max(t, 1), so no
+    split starts past t."""
+    base = max(1, min(block_t, t))
+    cap = max(1, min(DECODE_MAX_SPLITS,
+                     -(-DECODE_BLOCKS_PER_SM * sms // max(1, b * hk))))
+    chunk = base * max(1, -(-(-(-t // base)) // cap))
+    return chunk, max(1, -(-t // chunk))
+
+
+def _k6_workspace(q, b, hk, splits):
+    """The merge pass's partials (m, l, acc a split) when the plan splits,
+    else None."""
+    if splits == 1:
+        return None
+    g, d = q.shape[1] // hk, q.shape[2]
+    return torch.empty(b * hk * splits * (2 * g + g * d),
+                       dtype=torch.float32, device=q.device)
+
+
+def _k6_record(kernel, lengths, table=None, **shape):
+    if _K6_ARMED:
+        K6_CENSUS.append(dict(shape, kernel=kernel, lengths=lengths.clone(),
+                              table=None if table is None else table.clone()))
+
+
 def decode_attn(q, k, v, lengths, k_scale=None, k_zero=None, v_scale=None,
                 v_zero=None, group_size: int = 0, block_t: int = 256):
     """K6: one-token GQA decode attention over a slot cache. q (B, H, D)
     f32; k/v (B, T, Hk, D) f32 or bf16, or uint8 codes with (B, T, Hk, D/g)
-    f16 ``*_scale``/``*_zero`` planes (dequantized in the tile); lengths
+    f16 ``*_scale``/``*_zero`` planes (dequantized by the kernel); lengths
     (B,) int32 on the device — row b attends [0, lengths[b]), clamped to
-    T. Online softmax over tiles of ``block_t`` tokens. A row of length 0
-    gives exact zeros; a NaN row propagates. Returns (B, H, D) f32."""
+    T. Each row is split over its tokens by :func:`decode_attn_splits`
+    (chunks of ``block_t``, grown for long T), each split an online softmax,
+    and the splits merged in split order (one launch count; a merge pass
+    runs when there is more than one split). A row of length 0 gives exact
+    zeros; a NaN row propagates. Returns (B, H, D) f32."""
     quant = k_scale is not None
     planes = (k_scale, k_zero, v_scale, v_zero) if quant else ()
     if not _on_card("decode_attn", q, k, v, lengths, *planes):
@@ -451,11 +511,15 @@ def decode_attn(q, k, v, lengths, k_scale=None, k_zero=None, v_scale=None,
                                 group_size, b)
     _, h, d = q.shape
     t, hk = k.shape[1], k.shape[2]
-    bt = max(1, min(block_t, t))
+    chunk, splits = decode_attn_splits(b, hk, t, block_t, _sms(q.device))
+    ws = _k6_workspace(q, b, hk, splits)
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     _launch("decode_attn", "decode_attn", q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), lengths.data_ptr(), *ptrs, out.data_ptr(), b, t, h,
-            hk, d, group_size if quant else 0, bt, kind)
+            v.data_ptr(), lengths.data_ptr(), *ptrs, out.data_ptr(),
+            0 if ws is None else ws.data_ptr(), b, t, h, hk, d,
+            group_size if quant else 0, chunk, splits, kind)
+    _k6_record("decode_attn", lengths, b=b, t=t, h=h, hk=hk, d=d,
+               group=group_size if quant else 0, block_t=block_t)
     return out
 
 
@@ -467,8 +531,9 @@ def decode_attn_paged(q, k_pool, v_pool, table, lengths, k_scale=None,
     through a block table (B, n_pages) int32 in device memory: position t
     of row b is page ``table[b, t // page]`` (clipped to [0, P − 1]; the
     sentinel P is never read), offset ``t % page``. Row b attends
-    [0, min(lengths[b], n_pages·page)); tiles of ``block_t`` tokens.
-    Returns (B, H, D) f32."""
+    [0, min(lengths[b], n_pages·page)), split as K6 splits rows of
+    n_pages·page positions, so the two give the same bits on the same
+    tokens. Returns (B, H, D) f32."""
     quant = k_scale is not None
     planes = (k_scale, k_zero, v_scale, v_zero) if quant else ()
     if not _on_card("decode_attn_paged", q, k_pool, v_pool, table, lengths,
@@ -488,20 +553,28 @@ def decode_attn_paged(q, k_pool, v_pool, table, lengths, k_scale=None,
     if p_num < 1 or npg < 1:
         raise ValueError(f"decode_attn_paged: {p_num} pages, {npg} table "
                          f"columns")
-    bt = max(1, min(block_t, npg * page))
+    chunk, splits = decode_attn_splits(b, hk, npg * page, block_t,
+                                       _sms(q.device))
+    ws = _k6_workspace(q, b, hk, splits)
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     _launch("decode_attn_paged", "decode_attn_paged", q.data_ptr(),
             k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-            lengths.data_ptr(), *ptrs, out.data_ptr(), b, p_num, page, npg,
-            h, hk, d, group_size if quant else 0, bt, kind)
+            lengths.data_ptr(), *ptrs, out.data_ptr(),
+            0 if ws is None else ws.data_ptr(), b, p_num, page, npg, h, hk,
+            d, group_size if quant else 0, chunk, splits, kind)
+    _k6_record("decode_attn_paged", lengths, table, b=b, t=npg * page, h=h,
+               hk=hk, d=d, group=group_size if quant else 0,
+               block_t=block_t, pool=p_num, page=page)
     return out
 
 
-__all__ = ["AWP_PGD_TILES", "DEQUANT_SPLITS", "DEQUANT_TILES", "GEMV_COLS",
-           "GEMV_MAX_M", "K2_CENSUS", "K4_CENSUS", "KERNELS", "LAUNCHES",
-           "TILE_COST", "TILE_SHARE", "TOPK_FORMS", "awp_pgd_grid",
-           "awp_pgd_step", "awp_pgd_tiles", "awp_pgd_vector_copies",
-           "decode_attn", "decode_attn_paged", "dequant_matmul",
+__all__ = ["AWP_PGD_TILES", "DECODE_BLOCKS_PER_SM", "DECODE_MAX_SPLITS",
+           "DEQUANT_SPLITS", "DEQUANT_TILES", "GEMV_COLS", "GEMV_MAX_M",
+           "K2_CENSUS", "K4_CENSUS", "K6_CENSUS", "KERNELS", "LAUNCHES",
+           "TILE_COST", "TILE_SHARE", "TOPK_FORMS", "arm_k6_census",
+           "awp_pgd_grid", "awp_pgd_step", "awp_pgd_tiles",
+           "awp_pgd_vector_copies", "decode_attn", "decode_attn_paged",
+           "decode_attn_splits", "dequant_matmul",
            "dequant_matmul_grid", "dequant_matmul_tiles",
            "dequant_matmul_variant_name", "dequant_matmul_variants",
            "dequant_matmul_vector_copies", "kv_dequant", "quant_project",

@@ -612,6 +612,181 @@ def test_decode_attn_paged_bf16_nan_and_lengths_past_the_table(cuda):
             rtol=1e-5, atol=1e-5, equal_nan=True)
 
 
+# K6 and K6p split each row over its tokens (ops.decode_attn_splits) and
+# merge the splits in split order. block_t values that give 1, 2, 3, 5, 9,
+# 19, 34 and 38 splits (the cap for 7 rows of 2 KV heads on 132 SMs) at
+# T = 300, not a multiple of any chunk but 300
+K6_SPLIT_BLOCKS = (300, 256, 100, 64, 37, 16, 9, 1)
+# INT8 group by D; D = 20 rows are 80, 40 and 20 bytes, so f32, bf16 and
+# INT8 take the 16-, 8- and 4-byte copies, and group 4 gives odd plane rows
+K6_GROUPS = {16: 8, 20: 4, 32: 32, 64: 64, 128: 32, 256: 64}
+
+
+def _k6_case(rng, dev, lens, t, hk, g, d, kind):
+    q, (k, v), kw = _kv_case(rng, dev, len(lens), t, hk, g, d, kind == "u8",
+                             K6_GROUPS[d])
+    if kind == "bf16":
+        k, v = k.bfloat16(), v.bfloat16()
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, k, v, lengths, kw
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _as_pages(x, perm, page):
+    """Slot rows (B, T, ...) cut into pages of ``page`` positions, row b's
+    page j at pool page perm[b·T/page + j]."""
+    b, t = x.shape[:2]
+    pool = torch.empty((b * t // page, page) + tuple(x.shape[2:]),
+                       dtype=x.dtype, device=x.device)
+    pool[perm] = x.reshape(pool.shape)
+    return pool
+
+
+def _off_by_2(x):
+    """A contiguous copy of the f16 plane ``x`` whose data lies 2 bytes
+    past a 4-byte boundary (the planes' element-wise copies)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 4 == 2
+    return y
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "u8"])
+@pytest.mark.parametrize("g,d", [(1, 16), (3, 32), (4, 64), (8, 128),
+                                 (16, 64), (32, 32), (4, 256), (12, 64),
+                                 (2, 20)])
+def test_decode_attn_every_split_count(cuda, kind, g, d):
+    """Every split count of K6_SPLIT_BLOCKS, rows ending at, beside and
+    past the split boundaries: within 1e-5 of the plain version, two
+    launches the same bits, the length-0 row exact zeros, and K6p the same
+    bits as K6 on the same rows cut into shuffled pages of 5 positions.
+    The (g, D) cover the fast form (g ≤ 4, D ≤ 128) and the generic one
+    (g > 4 or D > 128, up to g = 32 and g·D = 1024); INT8 rows also run
+    with plane views 2 bytes off a 4-byte boundary, which must give the
+    same bits."""
+    rng = np.random.default_rng(20 + g)
+    t, hk, b, page = 300, 2, 7, 5
+    seen = []
+    for block_t in K6_SPLIT_BLOCKS:
+        chunk, splits = ops.decode_attn_splits(b, hk, t, block_t,
+                                               ops._sms(cuda))
+        lens = [0, 1, min(chunk - 1, t), min(chunk + 1, t),
+                min(2 * chunk, t), t - 1, t]
+        q, k, v, lengths, kw = _k6_case(rng, cuda, lens, t, hk, g, d, kind)
+        out = _launched("decode_attn", lambda: ops.decode_attn(
+            q, k, v, lengths, block_t=block_t, **kw))
+        want = ref.decode_attn(q, k, v, lengths, **kw)
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+        assert _same_bits(out, ops.decode_attn(q, k, v, lengths,
+                                               block_t=block_t, **kw))
+        assert torch.equal(out[0], torch.zeros_like(out[0]))
+        perm = torch.from_numpy(rng.permutation(b * t // page)).to(cuda)
+        table = perm.to(torch.int32).reshape(b, t // page).contiguous()
+        pkw = {n: _as_pages(x, perm, page) if torch.is_tensor(x) else x
+               for n, x in kw.items()}
+        paged = _launched("decode_attn_paged", lambda: ops.decode_attn_paged(
+            q, _as_pages(k, perm, page), _as_pages(v, perm, page), table,
+            lengths, block_t=block_t, **pkw))
+        assert _same_bits(paged, out), (block_t, g, d, kind)
+        if kind == "u8":
+            off = {n: _off_by_2(x) if torch.is_tensor(x) else x
+                   for n, x in kw.items()}
+            assert _same_bits(ops.decode_attn(
+                q, k, v, lengths, block_t=block_t, **off), out)
+        seen.append(splits)
+    assert seen == [1, 2, 3, 5, 9, 19, 34, 38]
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "u8"])
+def test_decode_attn_one_long_row(cuda, kind):
+    """B = 1 with one 2,048-token row (8 splits of 256 tokens a KV head),
+    and the same row cut one token short."""
+    rng = np.random.default_rng(30)
+    for n in (2048, 2047):
+        q, k, v, lengths, kw = _k6_case(rng, cuda, [n], 2048, 8, 4, 64, kind)
+        out = _launched("decode_attn", lambda: ops.decode_attn(
+            q, k, v, lengths, **kw))
+        torch.testing.assert_close(out, ref.decode_attn(q, k, v, lengths,
+                                                        **kw),
+                                   rtol=1e-5, atol=1e-5)
+        assert _same_bits(out, ops.decode_attn(q, k, v, lengths, **kw))
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "u8"])
+@pytest.mark.parametrize("page", [4, 5, 8, 16])
+def test_decode_attn_paged_equals_slot_every_page(cuda, page, kind):
+    """K6p on shuffled, shared pages with sentinel tails, split as K6 splits
+    rows of n_pages·page positions: the same bits as K6 on the gathered
+    rows, within 1e-5 of the plain version, two launches the same bits."""
+    rng = np.random.default_rng(40 + page)
+    lens = [0, 1, 17, 150, 299, 300]
+    q, k, v, table, lengths, kw = _paged_case(
+        rng, cuda, lens, page, 2, 4, 64, kind == "u8", 64)
+    if kind == "bf16":
+        k, v = k.bfloat16(), v.bfloat16()
+    for block_t in (256, 64, 9):
+        out = _launched("decode_attn_paged", lambda: ops.decode_attn_paged(
+            q, k, v, table, lengths, block_t=block_t, **kw))
+        torch.testing.assert_close(
+            out, ref.decode_attn_paged(q, k, v, table, lengths, **kw),
+            rtol=1e-5, atol=1e-5)
+        rows = {n: ref.gather_pages(x, table) for n, x in kw.items()
+                if torch.is_tensor(x)}
+        slot = ops.decode_attn(q, ref.gather_pages(k, table),
+                               ref.gather_pages(v, table), lengths,
+                               block_t=block_t, **dict(kw, **rows))
+        assert torch.equal(out, slot), (block_t, page, kind)
+        assert _same_bits(out, ops.decode_attn_paged(
+            q, k, v, table, lengths, block_t=block_t, **kw))
+        assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "u8"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_attn_nan_token_in_a_later_split(cuda, kind, paged):
+    """A NaN token in the third split of one row, at KV head 1: that row's
+    query heads of KV head 1 are NaN and nothing else moves; lengths past
+    T (K6) or past the table (K6p) read only the positions there are."""
+    rng = np.random.default_rng(50)
+    hk, g, d, block_t = 2, 3, 32, 16
+    lens = [40, 0, 37, 5]
+    if paged:
+        q, k, v, table, lengths, kw = _paged_case(
+            rng, cuda, lens, 8, hk, g, d, kind == "u8", 32)
+        if kind == "bf16":
+            k, v = k.bfloat16(), v.bfloat16()
+        pos = (int(table[2, 35 // 8]), 35 % 8)
+        run = lambda kk, kw_, n: ops.decode_attn_paged(     # noqa: E731
+            q, kk, v, table, n, block_t=block_t, **kw_)
+        reach = table.shape[1] * 8
+    else:
+        q, k, v, lengths, kw = _k6_case(rng, cuda, lens, 40, hk, g, d, kind)
+        pos = (2, 35)
+        run = lambda kk, kw_, n: ops.decode_attn(           # noqa: E731
+            q, kk, v, n, block_t=block_t, **kw_)
+        reach = 40
+    clean = run(k, kw, lengths)
+    if kind == "u8":
+        bad_kw = dict(kw, k_scale=kw["k_scale"].clone())
+        bad_kw["k_scale"][pos[0], pos[1], 1] = float("nan")
+        bad = run(k, bad_kw, lengths)
+    else:
+        bad_k = k.clone()
+        bad_k[pos[0], pos[1], 1] = float("nan")
+        bad = run(bad_k, kw, lengths)
+    keep = torch.ones(bad.shape[:2], dtype=torch.bool, device=cuda)
+    keep[2, g:2 * g] = False
+    assert torch.isnan(bad[2, g:2 * g]).all()
+    assert torch.equal(bad[keep], clean[keep])
+    long = torch.tensor([10**6, 0, 37, 5], dtype=torch.int32, device=cuda)
+    assert torch.equal(run(k, kw, long), run(k, kw, torch.clamp(
+        long, max=reach)))
+
+
 def test_spill_restore_round_trip_on_the_card(cuda):
     """Pages of INT8 pools spilled to the host in one transfer and restored
     into other pages in one upload hold the same bytes."""

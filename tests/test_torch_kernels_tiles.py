@@ -237,3 +237,70 @@ def test_topk_row_vector_copies():
     shifted = buf[1: 1 + 4 * 2048].view(4, 2048)
     assert shifted.is_contiguous()
     assert not ops.topk_row_vector_copies(2048, aligned, shifted)
+
+
+# K6/K6p (``kernels.ops.decode_attn_splits``): each row's [0, T) cut into
+# splits of ``chunk`` tokens, one block each per (row, KV head), planned
+# from B, Hk, T and block_t alone. The engines' shape: 8 rows (slots), 8
+# KV heads, T = 2048
+K6_ENGINE = (8, 8, 2048)
+
+
+@pytest.mark.parametrize("b,hk,t,block_t", [
+    (8, 8, 2048, 256), (1, 8, 2048, 256), (1, 1, 2048, 256),
+    (8, 8, 300, 256), (6, 2, 40, 16), (6, 2, 40, 7), (7, 2, 300, 1),
+    (1, 1, 320, 1), (64, 8, 2048, 256), (8, 8, 131072, 256),
+    (1, 1, 131072, 256), (1, 8, 1 << 20, 256), (3, 2, 0, 256)])
+def test_decode_attn_splits_cover_the_row(b, hk, t, block_t):
+    """The splits cover [0, T) and no split starts at or past T; the chunk
+    is a whole multiple of block_t (or T itself, when shorter); at most
+    DECODE_MAX_SPLITS splits, and no more than give every SM
+    DECODE_BLOCKS_PER_SM blocks."""
+    chunk, splits = ops.decode_attn_splits(b, hk, t, block_t)
+    assert chunk >= 1 and splits >= 1
+    assert (splits - 1) * chunk < max(t, 1) <= splits * chunk
+    assert chunk % max(1, min(block_t, t)) == 0
+    assert splits <= ops.DECODE_MAX_SPLITS
+    assert (splits == 1 or b * hk * (splits - 1)
+            < ops.DECODE_BLOCKS_PER_SM * ops.H100_SMS)
+
+
+def test_decode_attn_splits_every_short_row():
+    """Every T from 1 to 300 at the engines' batch and at B = 1: covered,
+    with no empty tail split past T."""
+    for b, hk in ((8, 8), (1, 8), (1, 1)):
+        for block_t in (256, 64, 7):
+            for t in range(1, 301):
+                chunk, splits = ops.decode_attn_splits(b, hk, t, block_t)
+                assert (splits - 1) * chunk < t <= splits * chunk, (
+                    b, hk, block_t, t)
+
+
+def test_decode_attn_splits_census_fills_the_card():
+    """The engines' shape takes 8 splits of 256 tokens: 512 blocks, more
+    than 3 for each of the H100's 132 SMs."""
+    b, hk, t = K6_ENGINE
+    assert ops.decode_attn_splits(b, hk, t) == (256, 8)
+    assert b * hk * 8 >= 3 * ops.H100_SMS
+
+
+def test_decode_attn_splits_same_for_both_layouts():
+    """K6p plans rows of n_pages·page positions as K6 plans rows of T: the
+    plan depends on that count, never on the page size (80 positions as
+    20 pages of 4, 16 of 5, 10 of 8 and 5 of 16)."""
+    want = ops.decode_attn_splits(6, 2, 80, 16)
+    for page, n_pages in ((4, 20), (5, 16), (8, 10), (16, 5)):
+        assert ops.decode_attn_splits(6, 2, n_pages * page, 16) == want
+    b, hk, t = K6_ENGINE
+    assert (ops.decode_attn_splits(b, hk, 128 * 16)
+            == ops.decode_attn_splits(b, hk, t))
+
+
+def test_decode_attn_splits_long_rows_stay_bounded():
+    """Long rows grow the chunk, not the split count: at B = 1, Hk = 1 the
+    cap is DECODE_MAX_SPLITS; at the engines' batch 9 splits already give
+    each SM 4 blocks."""
+    assert ops.decode_attn_splits(1, 1, 131072) == (2048, 64)
+    chunk, splits = ops.decode_attn_splits(8, 8, 131072)
+    assert splits == 9 and chunk % 256 == 0
+    assert ops.decode_attn_splits(128, 8, 2048) == (2048, 1)

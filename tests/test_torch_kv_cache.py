@@ -22,7 +22,7 @@ from repro.kernels import ops as jops
 from repro.serving import kv_cache as J
 from repro_torch.bridge import quantized_kv_from_jax
 from repro_torch.configs import get_tiny_config
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.serving import kv_cache as P
 
 jit_quantize = jax.jit(J.kv_quantize, static_argnums=1)
@@ -213,6 +213,139 @@ def test_plain_decode_attn_nan_row_propagates():
     assert np.isnan(want[1]).all() and np.isnan(got[1]).all()
     assert np.isfinite(got[0]).all() and np.all(got[2] == 0.0)
     assert_allclose(got[0], want[0], atol=1e-5, rtol=1e-5)
+
+
+# K6's split-then-merge arithmetic (csrc/decode_attn.cu), emulated in f32
+# numpy: each row's [0, T) cut by ops.decode_attn_splits; in a split, 8
+# warps take pieces of ``piece`` tokens in turn, each warp an online
+# softmax from m = −1e30 (fmax drops a NaN score, which poisons p, l and
+# acc); the warps' carries, then the live splits', merged in order by
+#   m = max m_s;  l = Σ l_s·exp(m_s − m);  acc = Σ acc_s·exp(m_s − m)
+# and out = l == 0 ? 0 : acc / l.
+def _merge(parts, g, d):
+    m = np.full(g, -np.inf, np.float32)
+    for mp, _, _ in parts:
+        m = np.fmax(m, mp)
+    l, acc = np.zeros(g, np.float32), np.zeros((g, d), np.float32)
+    for mp, lp, ap in parts:
+        e = np.exp(mp - m)
+        l = l + lp * e
+        acc = acc + ap * e[:, None]
+    return m, l, acc
+
+
+def _split_merge_emulation(q, k, v, lens, block_t, piece, warps=8):
+    b, h, d = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    chunk, _ = ops.decode_attn_splits(b, hk, t, block_t)
+    scale = np.float32(1.0 / np.sqrt(d))
+    out = np.zeros((b, h, d), np.float32)
+    for bi in range(b):
+        n = min(max(int(lens[bi]), 0), t)
+        for kh in range(hk):
+            qh = q[bi, kh * g:(kh + 1) * g]
+            splits = []
+            for c0 in range(0, n, chunk):
+                c1 = min(c0 + chunk, n)
+                carries = []
+                for w in range(warps):
+                    m = np.full(g, -1e30, np.float32)
+                    l, acc = np.zeros(g, np.float32), np.zeros((g, d),
+                                                               np.float32)
+                    for p0 in range(c0 + w * piece, c1, warps * piece):
+                        kk = k[bi, p0:min(p0 + piece, c1), kh]
+                        vv = v[bi, p0:min(p0 + piece, c1), kh]
+                        s = (qh @ kk.T) * scale
+                        m_new = np.fmax(m, np.fmax.reduce(s, axis=1))
+                        p = np.exp(s - m_new[:, None])
+                        corr = np.exp(m - m_new)
+                        l = l * corr + p.sum(axis=1)
+                        acc = acc * corr[:, None] + p @ vv
+                        m = m_new
+                    carries.append((m, l, acc))
+                splits.append(_merge(carries, g, d))
+            _, l, acc = _merge(splits, g, d)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                out[bi, kh * g:(kh + 1) * g] = np.where(
+                    (l == 0)[:, None], np.float32(0), acc / l[:, None])
+    return out
+
+
+# lengths 0 and 1, at and beside the split boundaries of chunk 16, and rows
+# whose later splits are all empty (T = 40: three splits of 16)
+SPLIT_LENS = [0, 1, 5, 15, 16, 17, 32, 33, 40]
+
+
+@pytest.mark.parametrize("block_t", [16, 7, 40])
+@pytest.mark.parametrize("piece", [32, 4])
+@pytest.mark.parametrize("hk,g,quant,group", [(2, 4, False, 0),
+                                              (1, 3, True, 8),
+                                              (2, 2, True, 16)])
+def test_split_merge_emulation_against_pallas(block_t, piece, hk, g, quant,
+                                              group):
+    """The kernel's split-then-merge arithmetic against the reference's
+    interpreted Pallas flash-decode (one tile carry over the whole row), at
+    its bar of 1e-5, dense and INT8 (dequantized as K5 does); a length-0
+    row gives exact zeros."""
+    rng = np.random.default_rng(11)
+    b, d = len(SPLIT_LENS), 16
+    q = rng.standard_normal((b, hk * g, d)).astype(np.float32)
+    k = rng.standard_normal((b, T, hk, d)).astype(np.float32)
+    v = rng.standard_normal((b, T, hk, d)).astype(np.float32)
+    lens = np.asarray(SPLIT_LENS, np.int32)
+    if quant:
+        qk, qv = (jit_quantize(jnp.asarray(a), group) for a in (k, v))
+        want = jops.decode_attn(jnp.asarray(q), qk.codes, qv.codes,
+                                jnp.asarray(lens), qk.scale, qk.zero,
+                                qv.scale, qv.zero, group_size=group,
+                                block_t=16)
+        k, v = (P.kv_dequantize(_port_q(x)).numpy() for x in (qk, qv))
+    else:
+        want = jops.decode_attn(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), jnp.asarray(lens),
+                                block_t=16)
+    got = _split_merge_emulation(q, k, v, lens, block_t, piece)
+    assert_allclose(got, np.asarray(want), atol=1e-5, rtol=1e-5)
+    assert np.all(got[0] == 0.0)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_split_merge_emulation_nan_poisons_one_head_group(quant):
+    """A NaN in a later split of one row, at KV head 1: the emulated merge
+    makes exactly that row's query heads of KV head 1 NaN, as the
+    interpreted Pallas kernel does, and the rest agrees within 1e-5."""
+    rng = np.random.default_rng(12)
+    b, hk, g, d = 4, 2, 3, 16
+    q = rng.standard_normal((b, hk * g, d)).astype(np.float32)
+    k = rng.standard_normal((b, T, hk, d)).astype(np.float32)
+    v = rng.standard_normal((b, T, hk, d)).astype(np.float32)
+    lens = np.asarray([40, 0, 37, 5], np.int32)
+    if quant:
+        qk, qv = (jit_quantize(jnp.asarray(a), 8) for a in (k, v))
+        ks = np.array(qk.scale)
+        ks[2, 35, 1] = np.nan
+        want = np.asarray(jops.decode_attn(
+            jnp.asarray(q), qk.codes, qv.codes, jnp.asarray(lens),
+            jnp.asarray(ks), qk.zero, qv.scale, qv.zero, group_size=8,
+            block_t=16))
+        bad = _port_q(qk)
+        k = P.kv_dequantize(P.QuantizedKV(bad.codes, _t(ks), bad.zero,
+                                          8)).numpy()
+        v = P.kv_dequantize(_port_q(qv)).numpy()
+    else:
+        k[2, 35, 1] = np.nan
+        want = np.asarray(jops.decode_attn(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), jnp.asarray(lens),
+                                           block_t=16))
+    got = _split_merge_emulation(q, k, v, lens, 16, 4)
+    poisoned = np.zeros((b, hk * g), bool)
+    poisoned[2, g:2 * g] = True
+    assert np.array_equal(np.isnan(got).all(axis=-1), poisoned)
+    assert np.array_equal(np.isnan(want).all(axis=-1), poisoned)
+    assert not np.isnan(got[~poisoned]).any()
+    assert_allclose(got[~poisoned], want[~poisoned], atol=1e-5, rtol=1e-5)
+    assert np.all(got[1] == 0.0)
 
 
 def test_fused_decode_attn_reads_the_cache_layer():
