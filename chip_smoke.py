@@ -60,7 +60,19 @@ once a decode step, batched prefill, chunked prompt and preemption. A third
 kernel run of each engine, timed by nothing, records K6's and K6p's census
 (``ops.K6_CENSUS``: each launch's shapes and device clones of its lengths
 and table); every decode step's lengths are then replayed on the kernel,
-and each path's K6/K6p device seconds printed. This first process, with every time in its JSON line, runs cuBLAS in its
+and each path's K6/K6p device seconds printed. Every engine run holds its
+``metrics_snapshot()`` (the port's ``repro_torch.obs`` registry) to its
+counters and prints it on an ``[obs]`` line. Last, after every timed run
+and census, the profile phase: a fourth kernel run of each engine, timed
+by nothing, inside the port's ``StepTraceWindow`` (``torch.profiler``,
+CPU and CUDA activity) from its first step to its last, whose tokens must
+equal the timed run's and whose trace must hold K4's and K6's (K6p's)
+kernel events at their launch counts; ``[profile]`` lines print the
+device idle share of decode-only and admission steps, busy ms and kernels
+a step, the top device and host ops, the longest idle gaps and what the
+host was in at each; then one batched compression with block 1 in a
+``trace_window``, whose codes and masks must equal the timed run's. This
+first process, with every time in its JSON line, runs cuBLAS in its
 default configuration, as the port's CLIs do.
 
 cuBLAS splits K for short products (measured on the H100: 256-, 512- and
@@ -88,6 +100,7 @@ numbers, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import json
 import math
@@ -95,6 +108,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -186,6 +200,8 @@ K1B_SHAPES = ((2, 512, 2048), (2, 8192, 2048), (2, 2048, 2048),
 # the main path's buckets at B = 2: 16 blocks x {wk, wv} and {wg, wu} x 10
 # quantization steps
 K1B_MAIN_LAUNCHES = 16 * 2 * 10
+# the compression block wrapped in a torch.profiler window
+PROFILE_BLOCK = 1
 # the engines' parity bars (tests/test_torch_compress.py,
 # tests/test_torch_batched.py): per-layer loss, share of equal entries
 LOSS_BAR, AGREE_BAR = 1e-5, 0.999
@@ -262,6 +278,180 @@ def time_ms(torch, fn, reps: int) -> float:
 
 def copies_for(nbytes: int) -> int:
     return max(1, math.ceil(2 * 50e6 / nbytes))
+
+
+# ---------------------------------------------------------------------------
+# reading a torch.profiler Chrome trace
+# ---------------------------------------------------------------------------
+
+# what the card does (CUPTI's activity records) and what the host does
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CATS = ("cpu_op", "cuda_runtime", "cuda_driver", "user_annotation")
+STEP_SPAN = "ProfilerStep#"
+
+
+def _union(intervals):
+    """Sorted, disjoint [start, end] lists covering ``intervals``."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _covered(merged, start, end):
+    """How much of [start, end] the sorted, disjoint ``merged`` covers."""
+    i = max(bisect.bisect_right(merged, [start, math.inf]) - 1, 0)
+    got = 0.0
+    while i < len(merged) and merged[i][0] < end:
+        got += max(0.0, min(merged[i][1], end) - max(merged[i][0], start))
+        i += 1
+    return got
+
+
+def _inside(windows):
+    """A test of whether a time lies inside one of the sorted, disjoint
+    ``windows``."""
+    starts = [w["start"] for w in windows]
+
+    def test(ts):
+        i = bisect.bisect_right(starts, ts) - 1
+        return i >= 0 and ts < windows[i]["end"]
+    return test
+
+
+def read_profile(events):
+    """A Chrome trace's events, read once: its step windows (one a
+    ``ProfilerStep#N`` span on the host; without any, one window over the
+    whole trace, step -1), each with its length, the union of the card's
+    kernel, copy and memset intervals clipped to it (``busy_ms``), the
+    device idle share (1 - busy / length), the kernels that start in it,
+    the union of the host ops on the stepping thread (``host_ms``: the
+    rest of the window is Python outside any op), and the window cut at
+    that thread's first and last kernel launch call (``lead_ms`` before
+    the first, ``dispatch_ms`` from the first to the end of the last,
+    ``tail_ms`` after it); the count of every
+    kernel by name; and the device and host spans and the card's merged
+    busy intervals, for :func:`device_ops`, :func:`host_ops` and
+    :func:`idle_gaps`."""
+    marks, dev, host = {}, [], []
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        cat, name = e.get("cat"), e.get("name", "")
+        if name.startswith(STEP_SPAN):
+            if cat == "user_annotation":
+                marks[int(name[len(STEP_SPAN):])] = e
+        elif cat in DEVICE_CATS:
+            dev.append(e)
+        elif cat in HOST_CATS:
+            host.append(e)
+    busy = _union([(e["ts"], e["ts"] + e["dur"]) for e in dev])
+    if marks:
+        wins = [(k, marks[k]["ts"], marks[k]["ts"] + marks[k]["dur"])
+                for k in sorted(marks)]
+        first = marks[min(marks)]
+        thread = (first.get("pid"), first.get("tid"))
+        mine = [e for e in host if (e.get("pid"), e.get("tid")) == thread]
+    else:
+        wins = [(-1, min(e["ts"] for e in dev + host),
+                 max(e["ts"] + e["dur"] for e in dev + host))]
+        mine = host
+    calls = sorted((e["ts"], e["ts"] + e["dur"]) for e in mine
+                   if e["cat"] != "cpu_op" and "Launch" in e["name"])
+    mine = _union([(e["ts"], e["ts"] + e["dur"]) for e in mine])
+    windows = [dict(step=step, start=start, end=end, ms=(end - start) / 1e3,
+                    busy_ms=_covered(busy, start, end) / 1e3,
+                    host_ms=_covered(mine, start, end) / 1e3, kernels=0)
+               for step, start, end in wins]
+    for w in windows:
+        w["idle"] = 1.0 - w["busy_ms"] / w["ms"]
+        i = bisect.bisect_left(calls, (w["start"],))
+        j = bisect.bisect_left(calls, (w["end"],))
+        first, last = ((calls[i][0], calls[j - 1][1]) if j > i
+                       else (w["end"], w["end"]))
+        w["lead_ms"] = (first - w["start"]) / 1e3
+        w["dispatch_ms"] = (last - first) / 1e3
+        w["tail_ms"] = (w["end"] - last) / 1e3
+    starts = [w["start"] for w in windows]
+    kernels = {}
+    for e in dev:
+        if e["cat"] == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+            i = bisect.bisect_right(starts, e["ts"]) - 1
+            if i >= 0 and e["ts"] < windows[i]["end"]:
+                windows[i]["kernels"] += 1
+    return dict(windows=windows, kernels=kernels, device=dev, host=host,
+                busy=busy)
+
+
+def device_ops(prof, windows, n):
+    """The ``n`` device ops with the most total time among those that
+    start inside ``windows``: (name, ms, count)."""
+    tot, inside = {}, _inside(windows)
+    for e in prof["device"]:
+        if inside(e["ts"]):
+            ms, cnt = tot.get(e["name"], (0.0, 0))
+            tot[e["name"]] = (ms + e["dur"] / 1e3, cnt + 1)
+    return sorted(((k, ms, c) for k, (ms, c) in tot.items()),
+                  key=lambda r: -r[1])[:n]
+
+
+def host_ops(prof, windows, n):
+    """The ``n`` host ops with the most self time (their length less their
+    nested ops', on one thread) among those that start inside
+    ``windows``: (name, ms, count)."""
+    threads, inside = {}, _inside(windows)
+    for e in prof["host"]:
+        if inside(e["ts"]):
+            threads.setdefault((e.get("pid"), e.get("tid")), []).append(e)
+    own, tot = {}, {}
+    for evs in threads.values():
+        stack = []
+        for e in sorted(evs, key=lambda e: (e["ts"], -e["dur"])):
+            while stack and stack[-1]["ts"] + stack[-1]["dur"] <= e["ts"]:
+                stack.pop()
+            own[id(e)] = e["dur"]
+            if stack:
+                own[id(stack[-1])] -= e["dur"]
+            stack.append(e)
+        for e in evs:
+            ms, cnt = tot.get(e["name"], (0.0, 0))
+            tot[e["name"]] = (ms + own[id(e)] / 1e3, cnt + 1)
+    return sorted(((k, ms, c) for k, (ms, c) in tot.items()),
+                  key=lambda r: -r[1])[:n]
+
+
+def idle_gaps(prof, windows, n):
+    """The ``n`` longest stretches inside ``windows`` where the card runs
+    nothing, each with the innermost host op open at its start ("" when
+    none is: Python between ops): dicts of step, at_us (from the window's
+    start), ms and host_op."""
+    busy, gaps = prof["busy"], []
+    for w in windows:
+        t, end = w["start"], w["end"]
+        i = max(bisect.bisect_right(busy, [t, math.inf]) - 1, 0)
+        while t < end:
+            if i == len(busy) or busy[i][0] >= end:
+                gaps.append((end - t, t, w))
+                break
+            a, b = busy[i]
+            i += 1
+            if a > t:
+                gaps.append((a - t, t, w))
+            t = max(t, b)
+    gaps.sort(key=lambda g: -g[0])
+    out = []
+    for length, t, w in gaps[:n]:
+        inner = max((e for e in prof["host"]
+                     if e["ts"] <= t < e["ts"] + e["dur"]),
+                    key=lambda e: (e["ts"], -e["dur"]), default=None)
+        out.append(dict(step=w["step"], at_us=t - w["start"],
+                        ms=length / 1e3,
+                        host_op=inner["name"] if inner else ""))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -670,6 +860,8 @@ def phase_k4_census(torch, dev, census):
             by_variant[name] = by_variant.get(name, 0) + cnt
         gemv = sum(cnt for key, cnt in c.items()
                    if key[3] >= len(ops.DEQUANT_TILES))
+        gemv_s = sum(cnt * times[key][0] for key, cnt in c.items()
+                     if key[3] >= len(ops.DEQUANT_TILES)) / 1e3
         log(f"[K4 census] {path}: {sum(c.values())} launches at "
             f"{len(c)} shapes (GEMV {gemv}, tile {sum(c.values()) - gemv}; "
             f"{by_variant}); K4 device seconds {secs[0]:.4f} s, the plain "
@@ -677,6 +869,7 @@ def phase_k4_census(torch, dev, census):
         out[path] = dict(launches=sum(c.values()), shapes=len(c),
                          gemv=gemv, tile=sum(c.values()) - gemv,
                          by_variant=by_variant, device_s=secs[0],
+                         gemv_device_s=gemv_s,
                          plain_s=secs[1], library_s=secs[2])
     out["by_shape"] = [dict(shape=f"M={m},N={n},K={k}",
                             variant=ops.dequant_matmul_variant_name(v),
@@ -1415,13 +1608,71 @@ def count_waits(torch, data, policy, tag):
     return per_block, report
 
 
+def profile_compression(torch, data, report, n_layers):
+    """One batched mixed-policy compression, timed by nothing, with block
+    ``PROFILE_BLOCK`` wrapped in the port's ``trace_window``
+    (``torch.profiler``, CPU and CUDA activity) and a registry of its own:
+    its codes, masks and iteration counts must equal ``report``'s (the
+    timed kernel run's), the window must hold K1's, K2's and K3's kernel
+    events, and the block's device idle share, top device and host ops
+    and longest idle gaps are printed, with one ``[obs]`` line of the
+    registry."""
+    from repro_torch.core.compress import compress_model
+    from repro_torch.obs import MetricsRegistry, hist_quantile
+    model, params, calib, _ = data
+    reg = MetricsRegistry()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cp, rep = compress_model(model, params, calib, policy_for("mixed"),
+                                 metrics=reg, profile_dir=tmp,
+                                 profile_block=PROFILE_BLOCK)
+        del cp
+        path = Path(tmp) / "block-0.trace.json"
+        check(path.is_file(), "the profiled compression block wrote no "
+                              "trace (the profiler did not start)")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    prof = read_profile(events)
+    kernels = prof["kernels"]
+    check(sum(kernels.values()) > 0, "the profiled compression block's "
+                                     "trace holds no CUDA kernel event")
+    by_kernel = {name: sum(c for k, c in kernels.items() if name in k)
+                 for name in ("awp_pgd_step_kernel", "topk_row_kernel",
+                              "quant_project_kernel")}
+    log(f"[profile] compression block {PROFILE_BLOCK}: {len(events)} trace "
+        f"events; kernel events {by_kernel}, {sum(kernels.values())} in all")
+    check(all(by_kernel.values()), f"the profiled compression block lacks "
+                                   f"a kernel: {by_kernel}")
+    held = hold_reports(torch, report, rep, "profiled compression",
+                        n_layers, iters_equal=True)
+    check(held["identical"], "the profiled compression's codes, masks or "
+                             "iteration counts differ from the timed run's")
+    out = profile_summary(prof, f"compression block {PROFILE_BLOCK}",
+                          {"block": prof["windows"]})
+    snap = reg.snapshot()
+    layers = {s["labels"]["method"]: s["value"] for s in
+              snap["counters"]["compress_layers_total"]["series"]}
+    (blocks,) = snap["histograms"]["compress_block_seconds"]["series"]
+    iters = snap["histograms"]["compress_pgd_iters"]["series"]
+    check(sum(layers.values()) == n_layers and blocks["count"]
+          == model.num_blocks(), f"compression registry: layers {layers}, "
+                                 f"{blocks['count']} block samples")
+    log(f"[obs] profiled compression: layers {layers}; block seconds "
+        f"{blocks['sum'] / blocks['count']:.3f} mean over "
+        f"{blocks['count']} blocks; PGD iterations p50 " + ", ".join(
+            f"{s['labels']['method']} {hist_quantile(s, 0.5):.0f}"
+            for s in iters))
+    out["kernel_events"] = by_kernel
+    return out
+
+
 def phase_main_path(torch, dev, cfg, data):
     """The main path as the port's users run it (the batched engine):
     through the kernels (counted), and through the plain versions for
     their times; then the reference driver on the kernels, held to the
     batched engine's compression, and the host's waits in one batched
     compression. Returns the counts, the kernels' packed params (the
-    engine's), K4's census, K2's census of both engines and the numbers."""
+    engine's), K4's census, K2's census of both engines, the numbers and
+    the kernel run's report (the profiled compression is held to it)."""
     from repro_torch.kernels import ops
     model, _, _, prompts = data
     launches, out_k, out_p, (census, k2_batched) = both_paths(
@@ -1452,7 +1703,8 @@ def phase_main_path(torch, dev, cfg, data):
     k2 = {"compress batched": k2_batched, "compress sequential": k2_seq}
     return launches, out_k[1], census, k2, dict(
         batched_s=out_k[4], sequential_s=t_seq, batched_plain_s=t_plain,
-        kernels_vs_plain=summary, engines=engines, waits_per_block=per_block)
+        kernels_vs_plain=summary, engines=engines,
+        waits_per_block=per_block), out_k[0]
 
 
 def phase_prune_path(torch, cfg, data):
@@ -1563,7 +1815,7 @@ def host_waits(torch, on: bool):
 
 
 def run_engine(torch, model, packed, reqs, label, watch_waits=False,
-               ecfg=None, k6_census=False):
+               ecfg=None, k6_census=False, profile=None):
     """One engine run over ``reqs`` (warm-up first, uncounted) with
     ``ecfg`` (the slot phase's ``ENGINE`` by default): launch counts set
     to 0 just before the run and read just after (and K4's census),
@@ -1572,20 +1824,27 @@ def run_engine(torch, model, packed, reqs, label, watch_waits=False,
     unless there is exactly one a decode step, batched prefill, chunked
     prompt and preemption. ``k6_census`` arms ``ops.K6_CENSUS`` for the
     run (device clones of each K6/K6p launch's lengths and table, read
-    after it); its records are the last value returned."""
+    after it); its records are the last value returned. ``profile`` (a
+    directory and the run's step count) wraps the run in the port's
+    ``StepTraceWindow`` from its first step to its last; the trace's path
+    is ``stats["trace"]``. Every run checks the engine's registry snapshot
+    against its counters (:func:`check_snapshot`)."""
     from repro_torch.kernels import ops
+    from repro_torch.obs import StepTraceWindow
     from repro_torch.serving import Engine, EngineConfig, cache_is_finite
     engine = Engine(model, packed, EngineConfig(**(ecfg or ENGINE)))
     engine.warmup(reqs)
     torch.cuda.synchronize()
     steps = []          # (seconds, admitted in the step)
     last = [0.0, 0]     # end of the previous step, admissions so far
+    window = StepTraceWindow(*(profile or ("", 0)))
 
     def hook(eng):
         # every step ends in a host read of its tokens, so the host clock
         # sees the device's work done
         eng.check_invariants()
         now = time.perf_counter()
+        window.on_step(eng)           # the step's ProfilerStep span ends
         admits = eng.prefill_dispatches + eng.chunk_dispatches + eng.resumes
         steps.append((now - last[0], admits != last[1]))
         last[0], last[1] = now, admits
@@ -1594,6 +1853,9 @@ def run_engine(torch, model, packed, reqs, label, watch_waits=False,
     armed = ops.arm_k6_census(k6_census)
     try:
         with host_waits(torch, watch_waits) as waits:
+            window.start()
+            check(window.active or not window.enabled,
+                  f"{label}: the profiler window did not start")
             t0 = last[0] = time.perf_counter()
             for r in reqs:
                 engine.submit(r)
@@ -1602,6 +1864,10 @@ def run_engine(torch, model, packed, reqs, label, watch_waits=False,
     finally:
         ops.arm_k6_census(armed)
     wall = time.perf_counter() - t0
+    check(not window.active, f"{label}: the profiler window outlived the "
+                             f"run ({window.steps} steps asked)")
+    check(window.path or not window.enabled,
+          f"{label}: the profiler window wrote no trace")
     launches = dict(ops.LAUNCHES)
     census = dict(ops.K4_CENSUS)
     k6 = list(ops.K6_CENSUS)
@@ -1637,6 +1903,8 @@ def run_engine(torch, model, packed, reqs, label, watch_waits=False,
                  decode_only_step_ms=1e3 * sum(dec) / max(len(dec), 1),
                  decode_only_steps=len(dec),
                  admission_s=sum(t for t, a in steps if a),
+                 admission_steps=len(steps) - len(dec),
+                 admitted=[a for _, a in steps], trace=window.path,
                  kv_bytes=engine.kv_cache_bytes(),
                  prefills=engine.prefill_dispatches,
                  chunks=engine.chunk_dispatches,
@@ -1655,6 +1923,7 @@ def run_engine(torch, model, packed, reqs, label, watch_waits=False,
     if stats["page_stats"]:
         log(f"[{label}] pages: {stats['page_stats']}")
     log(f"[{label}] launches: {launches}")
+    check_snapshot(engine, label, len(reqs))
     del engine
     torch.cuda.empty_cache()
     check(sum(census.values()) == launches["dequant_matmul"],
@@ -1663,6 +1932,158 @@ def run_engine(torch, model, packed, reqs, label, watch_waits=False,
           + launches["decode_attn_paged"],
           f"{label}: K6's census does not match its launches")
     return launches, {r.rid: r.tokens for r in results}, stats, census, k6
+
+
+def check_snapshot(engine, label, n_requests):
+    """One ``[obs]`` line from the engine's registry snapshot, held to the
+    engine's own counters: its decode steps, one TTFT sample and one ``ok``
+    result a request and, on the paged layout, the preemption, resume and
+    prefix-hit counters of ``page_stats()``."""
+    from repro_torch.obs import hist_quantile, snapshot_series
+    snap = engine.metrics_snapshot()
+
+    def series(kind, name, **labels):
+        entry = snapshot_series(snap, kind, name, labels or None)
+        check(entry is not None, f"{label}: no {name} {labels} in the "
+                                 f"registry snapshot")
+        return entry
+
+    dec = series("counters", "engine_decode_steps_total")["value"]
+    ok = series("counters", "engine_requests_total", status="ok")["value"]
+    hists = {k: series("histograms", f"request_{k}_seconds")
+             for k in ("queue", "ttft", "tpot", "latency")}
+    check(dec == engine.decode_steps,
+          f"{label}: engine_decode_steps_total {dec}, decode_steps "
+          f"{engine.decode_steps}")
+    check(hists["ttft"]["count"] == n_requests,
+          f"{label}: {hists['ttft']['count']} TTFT samples for "
+          f"{n_requests} requests")
+    check(ok == n_requests, f"{label}: {ok} ok results of {n_requests}")
+    line = (f"decode steps {dec:.0f}, requests ok {ok:.0f}, queue depth "
+            f"peak {series('gauges', 'engine_queue_depth')['peak']:.0f}; "
+            + ", ".join(f"{k} p50 {1e3 * hist_quantile(h, 0.5):.1f} ms p99 "
+                        f"{1e3 * hist_quantile(h, 0.99):.1f} ms"
+                        for k, h in hists.items()))
+    ps = engine.page_stats()
+    if ps:
+        got = {k: series("counters", f"engine_{k}_total")["value"]
+               for k in ("preemptions", "resumes", "prefix_hits")}
+        check(got == {k: ps[k] for k in got},
+              f"{label}: registry {got}, page_stats {ps}")
+        line += "; " + ", ".join(f"{k} {v:.0f}" for k, v in got.items())
+    log(f"[obs] {label}: {line}")
+
+
+def profile_summary(prof, label, classes):
+    """Idle share, busy and step ms and kernels of each class of step
+    windows (``classes``: name -> windows of :func:`read_profile`'s
+    ``prof``), then the top device and host ops and the longest idle gaps
+    of the first class. Prints them and returns the numbers."""
+    out = {}
+    for name, wins in classes.items():
+        if not wins:
+            continue
+        idle = [w["idle"] for w in wins]
+        out[name] = dict(
+            steps=len(wins), idle_mean=sum(idle) / len(idle),
+            idle_min=min(idle), idle_max=max(idle),
+            busy_ms=sum(w["busy_ms"] for w in wins) / len(wins),
+            step_ms=sum(w["ms"] for w in wins) / len(wins),
+            host_ops_ms=sum(w["host_ms"] for w in wins) / len(wins),
+            kernels=sum(w["kernels"] for w in wins) / len(wins),
+            **{k: sum(w[k] for w in wins) / len(wins)
+               for k in ("lead_ms", "dispatch_ms", "tail_ms")})
+        o = out[name]
+        log(f"[profile] {label}, {name}: {o['steps']} windows; device idle "
+            f"share {o['idle_mean']:.4f} mean ({o['idle_min']:.4f} min, "
+            f"{o['idle_max']:.4f} max); device busy {o['busy_ms']:.3f} ms "
+            f"a step of {o['step_ms']:.3f} ms profiled, {o['kernels']:.1f} "
+            f"kernels a step; host inside ops {o['host_ops_ms']:.3f} ms a "
+            f"step (the rest is Python between ops); before the first "
+            f"launch {o['lead_ms']:.3f} ms, first to last launch "
+            f"{o['dispatch_ms']:.3f} ms, after the last {o['tail_ms']:.3f} "
+            f"ms")
+    first = next(iter(classes.values()))
+    dev = device_ops(prof, first, 10)
+    host = host_ops(prof, first, 10)
+    gaps = idle_gaps(prof, first, 5)
+    n = max(len(first), 1)
+    log(f"[profile] {label}: top device ops by total time (ms and count a "
+        f"window): " + "; ".join(f"{k[:90]} {ms / n:.4f} ({c / n:.1f})"
+                                 for k, ms, c in dev))
+    log(f"[profile] {label}: top host ops by self time (ms and count a "
+        f"window): " + "; ".join(f"{k[:60]} {ms / n:.4f} ({c / n:.1f})"
+                                 for k, ms, c in host))
+    log(f"[profile] {label}: longest idle gaps: " + "; ".join(
+        f"{g['ms']:.3f} ms at step {g['step']} +{g['at_us'] / 1e3:.3f} ms "
+        f"under {g['host_op'] or '(no op: Python)'}" for g in gaps))
+    return dict(out, device_ops=dev, host_ops=host, gaps=gaps)
+
+
+def profile_engine(torch, model, packed, reqs, label, tokens, st_timed,
+                   k6_name, ecfg=None):
+    """One more kernel run of an engine, timed by nothing, wrapped in the
+    port's ``StepTraceWindow`` (``torch.profiler``, CPU and CUDA activity)
+    from its first step to its last. It must give the timed run's tokens,
+    one ``ProfilerStep`` window a step, and kernel events at its launch
+    counts: K4's GEMV and tile kernels at ``dequant_matmul``'s, K6's or
+    K6p's split kernel at ``k6_name``'s. Prints the device idle share of
+    the decode-only steps and of the steps that admit or resume, the top
+    device and host ops and the longest idle gaps of the decode-only
+    steps, and the profiled step time beside the timed run's."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        launches, tok, st, _, _ = run_engine(
+            torch, model, packed, reqs, f"{label} kernels, profiled",
+            ecfg=ecfg, profile=(tmp, st_timed["steps"]))
+        t0 = time.perf_counter()
+        with open(st["trace"]) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(st["trace"])
+    t_read = time.perf_counter() - t0
+    check(tok == tokens, f"{label}: the profiled run's tokens differ")
+    prof = read_profile(events)
+    wins, kernels = prof["windows"], prof["kernels"]
+    check(sum(kernels.values()) > 0,
+          f"{label}: the profiler trace holds no CUDA kernel event")
+    check(len(wins) == st["steps"] == st_timed["steps"],
+          f"{label}: {len(wins)} ProfilerStep windows for {st['steps']} "
+          f"steps")
+    n_k4 = sum(c for k, c in kernels.items()
+               if "dequant_gemv_kernel" in k or "dequant_gemm_kernel" in k)
+    n_k6 = sum(c for k, c in kernels.items() if "decode_split_kernel" in k)
+    log(f"[profile] {label}: {len(events)} trace events ({size / 1e6:.1f} "
+        f"MB); kernel events: K4 {n_k4} (launches "
+        f"{launches['dequant_matmul']}), {k6_name} split {n_k6} (launches "
+        f"{launches[k6_name]}), {sum(kernels.values())} in all")
+    check(n_k4 == launches["dequant_matmul"],
+          f"{label}: {n_k4} K4 kernel events, {launches['dequant_matmul']} "
+          f"launches")
+    check(n_k6 == launches[k6_name],
+          f"{label}: {n_k6} split kernel events, {launches[k6_name]} "
+          f"{k6_name} launches")
+    classes = {"decode-only": [w for w, a in zip(wins, st["admitted"])
+                               if not a],
+               "admission": [w for w, a in zip(wins, st["admitted"]) if a]}
+    out = profile_summary(prof, label, classes)
+    timed = {"decode-only": st_timed["decode_only_step_ms"],
+             "admission": 1e3 * st_timed["admission_s"]
+             / max(st_timed["admission_steps"], 1)}
+    for name, ms in timed.items():
+        o = out[name]
+        o["timed_step_ms"] = ms
+        log(f"[profile] {label}, {name}: profiled step {o['step_ms']:.3f} "
+            f"ms against {ms:.3f} ms in the timed run: the profiler adds "
+            f"{o['step_ms'] - ms:.3f} ms ({o['step_ms'] / ms:.2f}x) on the "
+            f"host")
+    t_total = time.perf_counter() - t0
+    log(f"[profile] {label}: the profiled run {st['wall_s']:.1f} s (the "
+        f"timed run {st_timed['wall_s']:.1f} s; the trace's export is in "
+        f"its last step), reading the trace {t_read:.1f} s, its analysis "
+        f"{t_total - t_read:.1f} s")
+    out["trace_events"], out["trace_mb"] = len(events), size / 1e6
+    out["cost_s"] = dict(run=st["wall_s"], timed_run=st_timed["wall_s"],
+                         read=t_read, analysis=t_total - t_read)
+    return out
 
 
 def k6_census_run(torch, model, packed, reqs, label, tokens, launches,
@@ -1687,8 +2108,9 @@ def phase_engine(torch, cfg, model, packed, tag, exact_first,
     """The engine through the kernels (K4, K5 and K6 must launch), then
     through the plain versions (nothing may launch), on the same packed
     model and trace; with ``k6_census`` a third kernel run records K6's
-    census (:func:`k6_census_run`). Greedy tokens are compared; with ``exact_first`` the
-    first token of every request must be equal on both paths."""
+    census (:func:`k6_census_run`). Greedy tokens are compared; with
+    ``exact_first`` the first token of every request must be equal on both
+    paths."""
     from repro_torch import kernels
     reqs = engine_trace(cfg)
     plens = sorted(r.prompt_len for r in reqs)
@@ -1787,7 +2209,8 @@ def phase_paged_engine(torch, cfg, model, packed, tag, exact_first,
     two traces share; with ``exact_first`` every request's first token
     must equal on the kernel and plain paths; with ``k6_census`` a fourth
     run records K6p's census (:func:`k6_census_run`). Then the
-    spill/restore round trip at full width."""
+    spill/restore round trip at full width. Returns the kernel run's
+    tokens last."""
     from repro_torch import kernels
     reqs = paged_trace(cfg)
     log(f"[{tag}paged] {len(reqs)} requests ({PREFIX['requests']} behind a "
@@ -1849,7 +2272,46 @@ def phase_paged_engine(torch, cfg, model, packed, tag, exact_first,
     return launches, dict(kernels=st_k, waits_counted=st_w, plain=st_p,
                           identical=len(same), requests=len(tok_k),
                           parts=parts, first_equal=first_equal,
-                          vs_slot=vs_slot, spill_restore=spill), census, k6
+                          vs_slot=vs_slot,
+                          spill_restore=spill), census, k6, tok_k
+
+
+def phase_profile(torch, cfg, data, report, packed, timed):
+    """The profile phase: each engine's fourth kernel run in a
+    ``StepTraceWindow`` (:func:`profile_engine`; ``timed``: each layout's
+    tokens and stats from its timed run), then one compression with a
+    profiled block (:func:`profile_compression`). It comes after every
+    timed run and census of this process: a ``torch.profiler`` session
+    with CUDA activity slows the later host-bound runs of the same process
+    (``PERF.md``), so nothing this process times follows it; the parity
+    process is another process."""
+    model = data[0]
+    slot = profile_engine(torch, model, packed, engine_trace(cfg), "engine",
+                          *timed["slot"], "decode_attn")
+    paged = profile_engine(torch, model, packed, paged_trace(cfg), "paged",
+                           *timed["paged"], "decode_attn_paged",
+                           ecfg=PAGED_ENGINE)
+    comp = profile_compression(torch, data, report, 7 * cfg.num_layers)
+    return slot, paged, comp
+
+
+def check_busy_floor(engines, k4_census, k6_census):
+    """A sanity floor on the profiles: a decode-only step's mean device
+    busy time is at least what the censuses put in every decode step, K4's
+    GEMVs (the engines' M = 8 linears) and K6/K6p, in ms a step."""
+    for path, summary in engines.items():
+        steps = summary["kernels"]["decode_steps"]
+        floor = 1e3 * (k4_census[path]["gemv_device_s"] / steps
+                       + k6_census[path]["device_s"]
+                       / k6_census[path]["steps"])
+        busy = summary["profile"]["decode-only"]["busy_ms"]
+        log(f"[profile] {path} engine: decode-only device busy {busy:.3f} "
+            f"ms a step; the censuses' K4 GEMV + {k6_census[path]['kernel']}"
+            f" {floor:.3f} ms a decode step")
+        check(busy >= floor, f"{path} engine: device busy {busy:.3f} ms a "
+                             f"decode-only step, below the censuses' "
+                             f"{floor:.3f} ms")
+        summary["profile"]["census_floor_ms"] = floor
 
 
 def phase_parity():
@@ -1996,19 +2458,15 @@ def main() -> None:
     phase_build()
     rows = phase_kernels(torch, dev)
     data = setup(torch, dev, cfg)
-    launches, packed, census, k2_main, comp = phase_main_path(
+    launches, packed, census, k2_main, comp, report = phase_main_path(
         torch, dev, cfg, data)
     prune_launches, k2_prune, prune = phase_prune_path(torch, cfg, data)
     model = data[0]
-    del data
-    torch.cuda.empty_cache()
     eng_launches, slot_tokens, eng, slot_census, slot_k6 = phase_engine(
         torch, cfg, model, packed, "", exact_first=False, k6_census=True)
-    paged_launches, paged, paged_census, paged_k6 = phase_paged_engine(
-        torch, cfg, model, packed, "", exact_first=False,
-        slot_tokens=slot_tokens, k6_census=True)
-    del model, packed
-    torch.cuda.empty_cache()
+    paged_launches, paged, paged_census, paged_k6, paged_tokens = \
+        phase_paged_engine(torch, cfg, model, packed, "", exact_first=False,
+                           slot_tokens=slot_tokens, k6_census=True)
     k6_census = phase_k6_census(torch, dev, {"slot": slot_k6,
                                              "paged": paged_k6},
                                 cfg.num_layers)
@@ -2019,6 +2477,13 @@ def main() -> None:
     rows["dequant_matmul"]["census"] = k4_census
     rows["topk_row"]["census"] = phase_k2_census(torch, dev,
                                                  {**k2_main, **k2_prune})
+    eng["profile"], paged["profile"], comp["profile"] = phase_profile(
+        torch, cfg, data, report, packed,
+        {"slot": (slot_tokens, eng["kernels"]),
+         "paged": (paged_tokens, paged["kernels"])})
+    check_busy_floor({"slot": eng, "paged": paged}, k4_census, k6_census)
+    del data, model, packed, report
+    torch.cuda.empty_cache()
     phase_parity()
 
     out = []

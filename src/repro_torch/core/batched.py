@@ -18,6 +18,7 @@ sequential driver does.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -61,13 +62,36 @@ def bucket_works(works: Sequence[LayerWork]) -> Dict[tuple, List[int]]:
     return buckets
 
 
-def compress_block(works: Sequence[LayerWork]):
+def compress_block(works: Sequence[LayerWork], metrics=None):
     """Compress every queued linear; per-work ``(CompressResult, loss)`` in
     ``works`` order. Losses stay on the device: the driver reads them with
-    the rest of the block's metrics in one transfer at the block's end."""
+    the rest of the block's metrics in one transfer at the block's end.
+
+    ``metrics`` (a :class:`repro_torch.obs.MetricsRegistry`) receives the
+    reference's per-bucket telemetry: buckets, layers a bucket, and each
+    bucket's wall time. That time covers queueing the bucket's work only:
+    the host reads nothing until the block's end, so it understates the
+    card's time."""
     out: List[Optional[tuple]] = [None] * len(works)
-    for idxs in bucket_works(works).values():
+    for (shape, spec), idxs in bucket_works(works).items():
+        t0 = time.perf_counter()
         results, losses = _compress_bucket([works[j] for j in idxs])
+        if metrics is not None:
+            lab = {"method": spec.method,
+                   "shape": "x".join(str(d) for d in shape)}
+            names = ("method", "shape")
+            metrics.counter("compress_buckets_total",
+                            "shape/spec buckets dispatched",
+                            labelnames=names).labels(**lab).inc()
+            metrics.counter("compress_bucket_layers_total",
+                            "layers routed through each bucket",
+                            labelnames=names).labels(**lab).inc(len(idxs))
+            metrics.histogram(
+                "compress_bucket_seconds",
+                "per-bucket dispatch wall (host syncs deferred to the "
+                "block boundary)", labelnames=names,
+                unit="seconds").labels(**lab).observe(
+                    time.perf_counter() - t0)
         for pos, j in enumerate(idxs):
             out[j] = (results[pos], losses[pos])
     return out

@@ -12,6 +12,12 @@ Block-wise compression with error propagation:
   4. re-run the block with compressed weights to produce the next block's
      (error-propagated) inputs.
 
+Telemetry goes to a :class:`repro_torch.obs.MetricsRegistry` as in the
+reference: per layer its PGD iterations, residual and (block-amortized)
+seconds, per bucket of the batched engine its counts and seconds, per block
+its seconds; one block can be wrapped in a ``torch.profiler`` window. Every
+value recorded is one the driver already brought to the host.
+
 Weights are stored (d_in, d_out); the compression math runs in paper
 orientation (d_out, d_in), transposed at this boundary only. The driver
 works on a copy of the params and writes compressed weights into it in
@@ -20,6 +26,7 @@ most. ``compress_model`` returns ``(params, CompressionReport)``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Union
@@ -30,6 +37,8 @@ import torch
 from repro_torch.core import awp, calibration as calib, registry
 from repro_torch.core.specs import CompressSpec, Policy, qualified_name
 from repro_torch.device import to_host
+from repro_torch.obs import (ITER_BUCKETS, RESIDUAL_BUCKETS, MetricsRegistry,
+                             default_registry, trace_window)
 
 PolicyLike = Union[Policy, CompressSpec]
 
@@ -175,9 +184,36 @@ class CompressionReport:
 # the driver
 # ---------------------------------------------------------------------------
 
+def _record_layer_metrics(metrics: Optional[MetricsRegistry], method: str,
+                          loss: float, seconds: float, iters) -> None:
+    """Per-layer convergence telemetry: the PGD iterations the layer took,
+    the residual it reached and its (possibly block-amortized) wall time."""
+    if metrics is None:
+        return
+    lab = {"method": method}
+    metrics.counter("compress_layers_total", "layers compressed",
+                    labelnames=("method",)).labels(**lab).inc()
+    metrics.histogram(
+        "compress_residual",
+        "normalized activation-aware loss after compression",
+        labelnames=("method",),
+        buckets=RESIDUAL_BUCKETS).labels(**lab).observe(loss)
+    metrics.histogram(
+        "compress_layer_seconds",
+        "per-layer compression wall time (batched: block time amortized)",
+        labelnames=("method",), unit="seconds").labels(**lab).observe(seconds)
+    if iters is not None:
+        metrics.histogram(
+            "compress_pgd_iters",
+            "projected-gradient iterations to convergence",
+            labelnames=("method",),
+            buckets=ITER_BUCKETS).labels(**lab).observe(int(iters))
+
+
 def _compress_block_sequential(model, params, block_idx: int, stats,
                                policy: Policy, report: CompressionReport,
-                               verbose: bool):
+                               verbose: bool,
+                               metrics: Optional[MetricsRegistry] = None):
     """Layer-at-a-time reference driver (host reads per layer for the
     metrics); the numerical baseline the batched engine is held to."""
     for (name, path, cap_key) in model.block_linears(block_idx):
@@ -207,6 +243,7 @@ def _compress_block_sequential(model, params, block_idx: int, stats,
                                          qualname=qname))
         report.artifacts[qname] = LayerArtifact(qname, tuple(path), layer,
                                                 spec, res)
+        _record_layer_metrics(metrics, spec.method, loss, seconds, res.iters)
         if verbose:
             print(f"  block {block_idx} {name} [{spec.method}]: "
                   f"loss={loss:.4f} sparsity={sp:.2f} iters={res.iters}")
@@ -243,7 +280,8 @@ def _block_works(model, params, block_idx: int, stats, policy: Policy):
 
 def _compress_block_batched(model, params, block_idx: int, stats,
                             policy: Policy, report: CompressionReport,
-                            verbose: bool):
+                            verbose: bool,
+                            metrics: Optional[MetricsRegistry] = None):
     """Shape-bucketed block compression: one program per bucket, and the
     block's losses, sparsities, masks and iteration counts read on the
     host in one transfer at the block's end."""
@@ -252,7 +290,7 @@ def _compress_block_batched(model, params, block_idx: int, stats,
     works = _block_works(model, params, block_idx, stats, policy)
     if not works:
         return params
-    outcomes = _batched.compress_block(works)
+    outcomes = _batched.compress_block(works, metrics=metrics)
     results = [res for res, _ in outcomes]
     # in place, slice by slice: the reference gathers a leaf's writes into
     # one scatter because each functional update copies the whole leaf
@@ -290,6 +328,8 @@ def _compress_block_batched(model, params, block_idx: int, stats,
                                          qualname=wk.qname))
         report.artifacts[wk.qname] = LayerArtifact(wk.qname, wk.path,
                                                    wk.layer, wk.spec, res)
+        _record_layer_metrics(metrics, wk.spec.method, loss, seconds,
+                              res.iters)
         if verbose:
             print(f"  block {block_idx} {wk.name} [{wk.spec.method}]: "
                   f"loss={loss:.4f} sparsity={sp:.2f} iters={res.iters}")
@@ -298,7 +338,9 @@ def _compress_block_batched(model, params, block_idx: int, stats,
 
 def compress_model(model, params, calib_batches: List[dict],
                    policy: PolicyLike, verbose: bool = False,
-                   engine: str = "batched"):
+                   engine: str = "batched",
+                   metrics: Optional[MetricsRegistry] = None,
+                   profile_dir: str = "", profile_block: int = -1):
     """Compress every linear of every block per the policy.
 
     ``engine="batched"`` (the default, as in the reference) buckets each
@@ -307,7 +349,13 @@ def compress_model(model, params, calib_batches: List[dict],
     ``engine="sequential"`` is the layer-at-a-time reference driver. Both
     return ``(params, CompressionReport)`` with per-layer losses within
     ~1e-5 of each other. ``calib_batches`` are dicts with ``"tokens"``
-    tensors on the params' device."""
+    tensors on the params' device.
+
+    ``metrics`` receives the telemetry (per-layer iterations, residual and
+    seconds, per-bucket counts and seconds, per-block seconds); None uses
+    the process-global :func:`repro_torch.obs.default_registry`.
+    ``profile_block`` wraps that block (capture, compress, propagate) in a
+    ``torch.profiler`` window written under ``profile_dir``."""
     if engine not in ("batched", "sequential"):
         raise ValueError(f"engine must be 'batched' or 'sequential', "
                          f"got {engine!r}")
@@ -315,22 +363,34 @@ def compress_model(model, params, calib_batches: List[dict],
     for s in [r.spec for r in policy.rules] + [policy.default]:
         if s is not None:
             registry.validate_spec(s)
+    if metrics is None:
+        metrics = default_registry()
     block_fn = (_compress_block_batched if engine == "batched"
                 else _compress_block_sequential)
     params = _clone(params)
     hs = [model.embed(params, b) for b in calib_batches]
     report = CompressionReport(policy=policy)
+    h_block = metrics.histogram(
+        "compress_block_seconds",
+        "per-block wall time: capture + compress + propagate",
+        labelnames=("engine",), unit="seconds").labels(engine=engine)
     for i in range(model.num_blocks()):
-        stats: Dict[str, calib.CalibStats] = {}
-        for h in hs:
-            _, caps = model.block_apply_one(params, i, h, capture=True)
-            for key, val in caps.items():
-                st = stats.get(key)
-                if st is None:
-                    st = calib.init(val.shape[-1], device=val.device)
-                stats[key] = calib.update(st, val)
-        params = block_fn(model, params, i, stats, policy, report, verbose)
-        hs = [model.block_apply_one(params, i, h)[0] for h in hs]
+        ctx = (trace_window(profile_dir) if i == profile_block
+               else contextlib.nullcontext())
+        tb = time.time()
+        with ctx:
+            stats: Dict[str, calib.CalibStats] = {}
+            for h in hs:
+                _, caps = model.block_apply_one(params, i, h, capture=True)
+                for key, val in caps.items():
+                    st = stats.get(key)
+                    if st is None:
+                        st = calib.init(val.shape[-1], device=val.device)
+                    stats[key] = calib.update(st, val)
+            params = block_fn(model, params, i, stats, policy, report,
+                              verbose, metrics=metrics)
+            hs = [model.block_apply_one(params, i, h)[0] for h in hs]
+        h_block.observe(time.time() - tb)
     return params, report
 
 

@@ -14,6 +14,14 @@ not ported) with the batched engine (``--engine sequential`` for the
 layer-at-a-time reference driver), prints the per-layer losses and
 saves the compressed params: packed QTensor codes included with
 ``--save-packed``, in the checkpoint format of the JAX package.
+Perplexity before and after is not printed: the model's loss is not
+ported.
+
+``--metrics-json PATH`` writes the compression telemetry
+(``repro_torch.obs``: per-layer iterations, residuals and seconds, per-bucket
+and per-block seconds) there and its Prometheus text at ``PATH.prom``;
+``--profile-dir DIR --profile-block I`` wraps block I in a
+``torch.profiler`` window written to ``DIR/block-<i>.trace.json``.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from repro_torch.core.compress import compress_model
 from repro_torch.core.specs import Policy
 from repro_torch.data import DataConfig, calibration_batches
 from repro_torch.models import build_model
+from repro_torch.obs import MetricsRegistry
 
 
 def build_policy(args) -> Policy:
@@ -66,6 +75,15 @@ def main(argv=None):
                     choices=("batched", "sequential"),
                     help="shape-bucketed batched engine (default) or the "
                          "layer-at-a-time reference driver")
+    ap.add_argument("--metrics-json", default="",
+                    help="write the compression telemetry snapshot as JSON "
+                         "here (plus Prometheus text exposition at "
+                         "PATH.prom)")
+    ap.add_argument("--profile-dir", default="",
+                    help="directory for torch.profiler traces")
+    ap.add_argument("--profile-block", type=int, default=-1,
+                    help="block index to wrap in a torch.profiler trace "
+                         "window (needs --profile-dir; -1 -> off)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -79,9 +97,20 @@ def main(argv=None):
     calib = [{"tokens": torch.as_tensor(t, device=dev)}
              for t, _ in calibration_batches(dc, args.calib_batches)]
     policy = build_policy(args)
+    reg = MetricsRegistry()
     cp, report = compress_model(model, params, calib, policy, verbose=True,
-                                engine=args.engine)
+                                engine=args.engine, metrics=reg,
+                                profile_dir=args.profile_dir,
+                                profile_block=args.profile_block)
     print("[compress] " + report.summary().replace("\n", "\n[compress] "))
+    if args.metrics_json:
+        reg.dump_json(args.metrics_json, meta={
+            "source": "compress", "arch": args.arch, "engine": args.engine,
+            "method": args.method})
+        with open(args.metrics_json + ".prom", "w") as f:
+            f.write(reg.to_prometheus())
+        print(f"[compress] metrics snapshot -> {args.metrics_json} "
+              f"(+ {args.metrics_json}.prom)")
     if args.save_packed and report.packed_layers():
         path = save_packed_checkpoint(args.out, 0, cp, report)
         print(f"[compress] wrote packed checkpoint {path} "

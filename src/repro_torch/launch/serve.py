@@ -19,6 +19,15 @@ and preemption when ``--pages`` oversubscribes the pool:
       [--kv paged --page-size 16 --pages N --no-prefix-cache] \
       [--mixed-admission] [--verify] [--device cpu]
 
+Telemetry (engine path): ``--metrics-json PATH`` writes the engine's
+registry snapshot (``repro_torch.obs``) there and its Prometheus text at
+``PATH.prom``; ``--metrics-interval N`` prints one line of engine stats
+every N steps; ``--profile-steps N --profile-dir DIR`` wraps the first N
+engine steps in a ``torch.profiler`` window written to
+``DIR/steps-<i>.trace.json`` (Chrome-trace JSON, one ``ProfilerStep#k``
+span a step); with ``--verify`` each request's queue, TTFT and TPOT are
+printed.
+
 With ``--packed`` the checkpoint is a packed QTensor checkpoint (written by
 ``repro_torch.launch.compress --save-packed`` or by the JAX package's
 ``repro.launch.compress --save-packed``; the format is shared). Quantized
@@ -128,7 +137,26 @@ def _verify_against_static(model, params, reqs, results, max_len) -> tuple:
     return bad, checked
 
 
+def _interval_printer(every: int):
+    """Step hook: one line of engine stats every ``every`` steps."""
+    t0 = time.time()
+    n = 0
+
+    def on_step(eng):
+        nonlocal n
+        n += 1
+        if n % every:
+            return
+        print(f"[serve] step {n}: active "
+              f"{eng.scheduler.num_active}/{eng.cfg.num_slots}, queue "
+              f"{len(eng.scheduler.queue)}, decode steps {eng.decode_steps}, "
+              f"util {eng.utilization():.2f}, {time.time() - t0:.1f}s")
+
+    return on_step
+
+
 def _serve_engine(args, cfg, model, params):
+    from repro_torch.obs import StepTraceWindow
     from repro_torch.serving import Engine, EngineConfig
 
     max_len = min(args.max_len, args.prompt_len + args.gen) \
@@ -153,13 +181,32 @@ def _serve_engine(args, cfg, model, params):
                        temperature=args.temperature, top_k=args.top_k)
     engine.warmup(reqs)
     dev = params["embed"].device
+
+    hooks = []
+    prof = StepTraceWindow(args.profile_dir, args.profile_steps)
+    if prof.enabled:
+        print(f"[serve] profiling first {args.profile_steps} steps -> "
+              f"{args.profile_dir}")
+    if args.metrics_interval > 0:
+        hooks.append(_interval_printer(args.metrics_interval))
+    hook = None
+    if prof.enabled or hooks:
+        def hook(eng, _hooks=tuple(hooks)):
+            prof.on_step(eng)
+            for h in _hooks:
+                h(eng)
+
     _sync(dev)
+    prof.start()
     t0 = time.time()
     for r in reqs:
         engine.try_submit(r)           # --max-queue sheds, never raises
-    results = engine.run()
+    results = engine.run(step_hook=hook)
     _sync(dev)
     wall = time.time() - t0
+    prof.stop()                        # no-op unless still inside the window
+    if prof.path:
+        print(f"[serve] profiler trace -> {prof.path}")
 
     done = [r for r in results if r.ok]
     statuses = {}
@@ -207,11 +254,26 @@ def _serve_engine(args, cfg, model, params):
         else:
             bad, checked = _verify_against_static(model, params, reqs,
                                                   results, max_len)
+            for r in sorted(results, key=lambda r: r.rid):
+                print(f"[serve]   rid={r.rid} status={r.status} "
+                      f"queue {r.queue_time * 1e3:.1f}ms "
+                      f"ttft {r.ttft * 1e3:.1f}ms "
+                      f"tpot {r.tpot * 1e3:.2f}ms "
+                      f"({len(r.tokens)} tok)")
             print(f"[serve] verify vs static path: {checked - bad}/{checked} "
                   f"completed requests identical "
                   f"({len(reqs) - checked} not completed)")
             if bad:
                 raise SystemExit(1)
+    if args.metrics_json:
+        engine.metrics_snapshot()      # refresh the state gauges
+        engine.metrics.dump_json(args.metrics_json, meta={
+            "source": "serve", "engine": "continuous", "arch": args.arch,
+            "layout": args.kv, "requests": len(reqs), "wall_s": wall})
+        prom = args.metrics_json + ".prom"
+        with open(prom, "w") as f:
+            f.write(engine.metrics.to_prometheus())
+        print(f"[serve] metrics snapshot -> {args.metrics_json} (+ {prom})")
     return results
 
 
@@ -305,6 +367,17 @@ def main(argv=None):
     ap.add_argument("--no-fused-decode", action="store_true",
                     help="engine: decode cache reads by expand-then-attend "
                          "instead of the flash-decode kernel K6")
+    ap.add_argument("--metrics-json", default="",
+                    help="engine: write the registry snapshot as JSON here "
+                         "(plus Prometheus text exposition at PATH.prom)")
+    ap.add_argument("--metrics-interval", type=int, default=0,
+                    help="engine: print one-line stats every N steps "
+                         "(0 -> off)")
+    ap.add_argument("--profile-steps", type=int, default=0,
+                    help="engine: torch.profiler trace window around the "
+                         "first N steps (needs --profile-dir)")
+    ap.add_argument("--profile-dir", default="",
+                    help="directory for torch.profiler traces")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--verify", action="store_true",

@@ -44,23 +44,33 @@ request's pages spill to host memory in one transfer and its
 uploads them in one non-blocking copy). Greedy outputs equal the slot
 layout's when the page size divides max_len.
 
-What the reference has and this port leaves out: the metrics registry
-(``repro.obs``; the engine keeps plain integer counters, and
-``metrics_snapshot`` waits for it), and ``compile_counts``, which has no
-counterpart in eager PyTorch: nothing is compiled per shape.
+Telemetry (:mod:`repro_torch.obs`, as in the reference): every dispatch
+and utilization counter is a child of the engine's
+:class:`~repro_torch.obs.MetricsRegistry` under the ``layout`` and ``kv``
+labels, and the legacy integer attributes (``engine.decode_steps`` …) are
+read-only views over them; ``queue_stats`` is a view over the
+``engine_queue_depth`` gauge's ring. Each request carries a
+:class:`~repro_torch.obs.Trace` stamped on the engine's clock at submit,
+admission, first token, preemption, resume and its terminal status, and
+terminal results feed the queue, TTFT, TPOT and latency histograms. Every
+observation is a host float or integer the engine already holds: no
+telemetry waits on the card. ``metrics_snapshot`` exports it all.
+
+What the reference has and this port leaves out: ``compile_counts``, which
+has no counterpart in eager PyTorch: nothing is compiled per shape.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import time
-from collections import deque
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.device import to_device
+from repro_torch.obs import MetricsRegistry, Trace
 from repro_torch.serving.kv_cache import (KVCacheConfig, cache_bytes,
                                           init_paged_storage,
                                           init_slot_cache, set_slot_rows,
@@ -79,10 +89,22 @@ from repro_torch.serving.scheduler import (AdmittedBatch,
                                            QueueFullError, RequestStatus,
                                            ResumeTicket, Scheduler)
 
-COUNTERS = ("decode_steps", "active_slot_steps", "prefill_dispatches",
-            "prefill_admitted", "chunk_dispatches", "chunked_admitted",
-            "prefix_hits", "prefix_misses", "prefix_hit_tokens",
-            "preemptions", "resumes", "pages_spilled", "rejected")
+# the dispatch and utilization counters: engine_<name>_total families
+_COUNTER_HELP = (
+    ("decode_steps", "decode dispatches"),
+    ("active_slot_steps", "slot-steps that carried a live request"),
+    ("prefill_dispatches", "batched-prefill device calls"),
+    ("prefill_admitted", "requests admitted via batched prefill"),
+    ("chunk_dispatches", "chunked-prefill device calls"),
+    ("chunked_admitted", "requests admitted via chunking"),
+    ("prefix_hits", "admissions with a cached prefix"),
+    ("prefix_misses", "admissions without one (paged only)"),
+    ("prefix_hit_tokens", "prompt tokens skipped via prefix reuse"),
+    ("preemptions", "requests spilled under page pressure"),
+    ("resumes", "tickets restored onto a slot"),
+    ("pages_spilled", "pages round-tripped through host memory"),
+    ("rejected", "try_submit load-shed rejections"),
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,12 +156,19 @@ def batch_buckets(num_slots: int) -> tuple:
     return tuple(out)
 
 
+def _counter_view(key: str):
+    """Legacy integer counter attribute backed by a registry child."""
+    return property(lambda self: int(self._c[key].value))
+
+
 class Engine:
     """Continuous batching over one decode program, on a slot or paged
-    KV cache."""
+    KV cache. ``registry`` receives the engine's telemetry (None: a
+    registry of its own; ``MetricsRegistry(enabled=False)`` keeps the
+    counters and drops the traces and histograms)."""
 
     def __init__(self, model, params, cfg: EngineConfig = EngineConfig(),
-                 faults=None):
+                 faults=None, registry: Optional[MetricsRegistry] = None):
         mcfg = model.cfg
         if mcfg.family != "dense" or mcfg.frontend:
             raise ValueError(f"the port's engine serves the dense family, "
@@ -200,27 +229,120 @@ class Engine:
         self._steps = np.zeros(s, np.int64)
         self._results: Dict[int, GenerationResult] = {}
         self._done: List[GenerationResult] = []
+        self.metrics = registry if registry is not None else MetricsRegistry()
+        self._init_metrics()
         self._reset_counters()
 
-    # -- counters ----------------------------------------------------------
+    # -- telemetry ---------------------------------------------------------
+    def _init_metrics(self) -> None:
+        """Register the engine's metric families (the reference's names,
+        help strings, labels and buckets) and bind one child a family under
+        this engine's constant labels."""
+        m = self.metrics
+        cfg = self.cfg
+        self._mlabels = {"layout": cfg.kv_layout,
+                         "kv": "int8" if cfg.kv_quantized else "dense"}
+        names = tuple(sorted(self._mlabels))
+        self._metric_children: List[Any] = []
+
+        def counter(key: str, help: str):
+            fam = m.counter(f"engine_{key}_total", help, labelnames=names)
+            child = fam.labels(**self._mlabels)
+            self._metric_children.append(child)
+            return child
+
+        self._c = {k: counter(k, h) for k, h in _COUNTER_HELP}
+        self._g_queue = m.gauge(
+            "engine_queue_depth", "scheduler backlog, sampled per step",
+            labelnames=names,
+            trace_capacity=cfg.queue_trace_samples).labels(**self._mlabels)
+        self._g_slots = m.gauge(
+            "engine_slots_active", "slots holding a live request",
+            labelnames=names).labels(**self._mlabels)
+        self._g_pages = m.gauge(
+            "engine_pages_in_use", "allocated KV pages (paged layout)",
+            labelnames=names).labels(**self._mlabels)
+        self._g_prefix_pages = m.gauge(
+            "engine_prefix_cached_pages", "pages held by the prefix cache",
+            labelnames=names).labels(**self._mlabels)
+        self._metric_children += [self._g_queue, self._g_slots,
+                                  self._g_pages, self._g_prefix_pages]
+
+        def hist(key: str, help: str):
+            fam = m.histogram(key, help, labelnames=names, unit="seconds")
+            child = fam.labels(**self._mlabels)
+            self._metric_children.append(child)
+            return child
+
+        self._h_queue = hist("request_queue_seconds",
+                             "submit to first admission")
+        self._h_ttft = hist("request_ttft_seconds",
+                            "submit to first generated token")
+        self._h_tpot = hist("request_tpot_seconds",
+                            "mean seconds per generated token after the first")
+        self._h_latency = hist("request_latency_seconds",
+                               "submit to terminal status")
+        # the per-status counters bind their children lazily (statuses
+        # appear as results do); the families are registered up front
+        m.counter("engine_requests_total", "terminal results by status",
+                  labelnames=names + ("status",))
+        m.counter("engine_tokens_generated_total",
+                  "generated tokens in terminal results by status",
+                  labelnames=names + ("status",))
+        self._status_children: Dict[tuple, Any] = {}
+
+    def _status_counter(self, name: str, status: str):
+        child = self._status_children.get((name, status))
+        if child is None:
+            fam = self.metrics.counter(f"engine_{name}_total")
+            child = fam.labels(status=status, **self._mlabels)
+            self._status_children[(name, status)] = child
+            self._metric_children.append(child)
+        return child
+
     def _reset_counters(self) -> None:
-        for name in COUNTERS:
-            setattr(self, name, 0)
+        for child in self._metric_children:
+            child.reset()
         if self.alloc is not None:
             self.alloc.peak_in_use = self.alloc.pages_in_use
             self.alloc.alloc_calls = 0
             self.alloc.alloc_failures = 0
-        self._queue_trace: deque = deque(maxlen=self.cfg.queue_trace_samples)
-        self._queue_samples = 0
-        self._queue_sum = 0
-        self._queue_peak = 0
 
-    def _sample_queue(self) -> None:
-        depth = len(self.scheduler.queue)
-        self._queue_trace.append(depth)
-        self._queue_samples += 1
-        self._queue_sum += depth
-        self._queue_peak = max(self._queue_peak, depth)
+    # legacy counter attributes: read-only views over the registry
+    decode_steps = _counter_view("decode_steps")
+    active_slot_steps = _counter_view("active_slot_steps")
+    prefill_dispatches = _counter_view("prefill_dispatches")
+    prefill_admitted = _counter_view("prefill_admitted")
+    chunk_dispatches = _counter_view("chunk_dispatches")
+    chunked_admitted = _counter_view("chunked_admitted")
+    prefix_hits = _counter_view("prefix_hits")
+    prefix_misses = _counter_view("prefix_misses")
+    prefix_hit_tokens = _counter_view("prefix_hit_tokens")
+    preemptions = _counter_view("preemptions")
+    resumes = _counter_view("resumes")
+    pages_spilled = _counter_view("pages_spilled")
+    rejected = _counter_view("rejected")
+
+    def _observe_terminal(self, res: GenerationResult) -> None:
+        """Terminal observations: close the trace, count the result by
+        status, feed the latency histograms (host floats only)."""
+        if res.trace is not None:
+            res.trace.finish(res.status, res.t_finish)
+        self._status_counter("requests", res.status).inc()
+        if res.tokens:
+            self._status_counter("tokens_generated",
+                                 res.status).inc(len(res.tokens))
+        if not self.metrics.enabled:
+            return
+        if res.status != RequestStatus.REJECTED.value:
+            # rejected requests never entered the queue; everyone else gets
+            # a queue-time sample (the whole lifetime when never admitted)
+            self._h_queue.observe(res.queue_time)
+        if res.t_first_token > 0.0:
+            self._h_ttft.observe(res.ttft)
+            if len(res.tokens) > 1:
+                self._h_tpot.observe(res.tpot)
+        self._h_latency.observe(res.latency)
 
     def set_faults(self, plan) -> None:
         """Attach or replace the :class:`~.faults.FaultPlan` (engine hooks
@@ -351,9 +473,12 @@ class Engine:
                 f"request rid={req.rid} rejected: queue at "
                 f"max_queue={self.cfg.max_queue}")
         self.scheduler.submit(req)
-        self._results[req.rid] = GenerationResult(
-            rid=req.rid, prompt_len=req.prompt_len, tokens=[],
-            t_enqueue=self._now())
+        now = self._now()
+        res = GenerationResult(rid=req.rid, prompt_len=req.prompt_len,
+                               tokens=[], t_enqueue=now)
+        if self.metrics.enabled:
+            res.trace = Trace(req.rid, now)
+        self._results[req.rid] = res
 
     def try_submit(self, req: GenerationRequest) -> bool:
         """Load-shedding submit: capacity and validity rejections become a
@@ -366,12 +491,16 @@ class Engine:
             raise
         except (QueueFullError, InvalidRequestError) as e:
             now = self._now()
-            self.rejected += 1
-            self._done.append(GenerationResult(
+            res = GenerationResult(
                 rid=req.rid, prompt_len=req.prompt_len, tokens=[],
                 t_enqueue=now, t_finish=now,
                 status=RequestStatus.REJECTED.value,
-                finish_reason=RequestStatus.REJECTED.value, error=str(e)))
+                finish_reason=RequestStatus.REJECTED.value, error=str(e))
+            if self.metrics.enabled:
+                res.trace = Trace(req.rid, now)
+            self._c["rejected"].inc()
+            self._observe_terminal(res)
+            self._done.append(res)
             return False
 
     def cancel(self, rid: int) -> bool:
@@ -477,7 +606,9 @@ class Engine:
         if self.faults is not None:
             self.faults.tick()
         self._expire_deadlines()
-        self._sample_queue()
+        # the backlog at each step boundary: peak, mean and samples in the
+        # gauge child, the most recent queue_trace_samples in its ring
+        self._g_queue.set(len(sched.queue))
         if self._paged:
             self._admit_paged()
         else:
@@ -501,8 +632,8 @@ class Engine:
         out = self._decode().cpu().numpy()
         toks, finite = out[:, 0], out[:, 1]
         now = self._now()
-        self.decode_steps += 1
-        self.active_slot_steps += sched.num_active
+        self._c["decode_steps"].inc()
+        self._c["active_slot_steps"].inc(sched.num_active)
         for slot in list(sched.active_slots()):
             state = sched.slots[slot]
             rid = state.request.rid
@@ -553,8 +684,8 @@ class Engine:
         # one transfer per batched prefill: the B first tokens
         toks = self._prefill(tokens, lengths, slots, temps, topks,
                              seeds).cpu().numpy()
-        self.prefill_dispatches += 1
-        self.prefill_admitted += b
+        self._c["prefill_dispatches"].inc()
+        self._c["prefill_admitted"].inc(b)
         now = self._now()
         for i, (slot, req) in enumerate(batch.items):
             self._record_first_token(slot, req, int(toks[i]), now, t_admit)
@@ -573,8 +704,8 @@ class Engine:
             chunk[0, :clen] = req.prompt[start:start + clen]
             tok = self._chunk(chunk, start, clen, slot, sp.temperature,
                               sp.top_k, int(np.uint32(sp.seed)))
-            self.chunk_dispatches += 1
-        self.chunked_admitted += 1
+            self._c["chunk_dispatches"].inc()
+        self._c["chunked_admitted"].inc()
         # one scalar per chunked prefill
         self._record_first_token(slot, req, int(tok), self._now(), t_admit)
 
@@ -645,8 +776,11 @@ class Engine:
                               pos=int(self._pos[slot]),
                               n_pages=len(pages), payload=payload)
         sched.preempt(slot, ticket)
-        self.preemptions += 1
-        self.pages_spilled += len(pages)
+        self._c["preemptions"].inc()
+        self._c["pages_spilled"].inc(len(pages))
+        res = self._results[state.request.rid]
+        if res.trace is not None:
+            res.trace.stamp("preempt", self._now())
         self.alloc.decref(pages)
         self._slot_pages[slot] = []
         self._set_table_row(slot, [])
@@ -689,7 +823,10 @@ class Engine:
         self._topks[slot] = sp.top_k
         self._seeds[slot] = np.uint32(sp.seed)
         self._steps[slot] = ticket.generated   # the sampler's token index
-        self.resumes += 1
+        self._c["resumes"].inc()
+        res = self._results[ticket.request.rid]
+        if res.trace is not None:
+            res.trace.stamp("resume", self._now())
         return True
 
     def _extend_for_decode(self) -> None:
@@ -755,10 +892,10 @@ class Engine:
                     self.alloc.decref(matched)
                 break
             if mtok:
-                self.prefix_hits += 1
-                self.prefix_hit_tokens += mtok
+                self._c["prefix_hits"].inc()
+                self._c["prefix_hit_tokens"].inc(mtok)
             elif self.prefix is not None:
-                self.prefix_misses += 1
+                self._c["prefix_misses"].inc()
             slot, _ = sched.admit_head()
             pages = matched + fresh
             self._slot_pages[slot] = pages
@@ -818,8 +955,8 @@ class Engine:
         # one transfer per paged prefill: the B first tokens
         toks = self._prefill(tokens, lengths, maps, temps, topks,
                              seeds).cpu().numpy()
-        self.prefill_dispatches += 1
-        self.prefill_admitted += b
+        self._c["prefill_dispatches"].inc()
+        self._c["prefill_admitted"].inc(b)
         now = self._now()
         for i, (slot, req) in enumerate(pending):
             self._record_first_token(slot, req, int(toks[i]), now, t_admit)
@@ -840,8 +977,8 @@ class Engine:
             chunk[0, :clen] = req.prompt[start:start + clen]
             tok = self._chunk(chunk, start, clen, slot, sp.temperature,
                               sp.top_k, int(np.uint32(sp.seed)))
-            self.chunk_dispatches += 1
-        self.chunked_admitted += 1
+            self._c["chunk_dispatches"].inc()
+        self._c["chunked_admitted"].inc()
         # one scalar per chunked prefill
         self._record_first_token(slot, req, int(tok), self._now(), t_admit)
 
@@ -851,6 +988,9 @@ class Engine:
         res = self._results[req.rid]
         res.t_admit = now if t_admit is None else t_admit
         res.t_first_token = now
+        if res.trace is not None:
+            res.trace.stamp("admitted", res.t_admit)
+            res.trace.stamp("first_token", now)
         res.tokens.append(tok)
         state = self.scheduler.slots[slot]
         state.generated = 1
@@ -872,6 +1012,7 @@ class Engine:
         res.finish_reason = (RequestStatus.EOS.value
                              if res.tokens and res.tokens[-1] == req.eos_id
                              else RequestStatus.LENGTH.value)
+        self._observe_terminal(res)
         self._done.append(res)
         self._release_slot(slot)
 
@@ -886,6 +1027,7 @@ class Engine:
         res.status = status
         res.finish_reason = status
         res.error = msg
+        self._observe_terminal(res)
         self._done.append(res)
         self._release_slot(slot)
 
@@ -909,6 +1051,7 @@ class Engine:
         res.status = status
         res.finish_reason = status
         res.error = msg
+        self._observe_terminal(res)
         self._done.append(res)
 
     def _park(self, slot: int) -> None:
@@ -1079,18 +1222,31 @@ class Engine:
                                          * self.cfg.num_slots)
 
     def queue_stats(self) -> Dict[str, Any]:
-        """Backlog sampled at each step boundary: peak and mean over all
-        samples, the most recent ``queue_trace_samples`` values (older
-        ones counted in ``dropped``), and the ``try_submit`` shed count.
-        Reset by :meth:`warmup`."""
-        n = self._queue_samples
-        return {"peak": self._queue_peak,
-                "mean": self._queue_sum / n if n else 0.0,
-                "samples": n,
+        """Backlog, a view over the ``engine_queue_depth`` gauge: the depth
+        sampled at each step boundary (peak and mean over all samples, the
+        most recent ``queue_trace_samples`` values in a ring with overwrites
+        counted in ``dropped``), and the ``try_submit`` shed count. Reset
+        by :meth:`warmup`."""
+        g = self._g_queue
+        return {"peak": int(g.peak),
+                "mean": g.mean,
+                "samples": g.samples,
                 "rejected": self.rejected,
-                "trace": list(self._queue_trace),
-                "dropped": n - len(self._queue_trace)}
+                "trace": [int(v) for v in g.trace_values()],
+                "dropped": g.trace_dropped}
+
+    def metrics_snapshot(self) -> dict:
+        """The registry's snapshot (counters, gauges, histograms) with the
+        state gauges (active slots, pages in use, prefix-cached pages)
+        refreshed: everything ``page_stats``, ``queue_stats`` and the
+        legacy counter attributes show, for ``serve.py --metrics-json``."""
+        self._g_slots.set_value(self.scheduler.num_active)
+        if self._paged:
+            self._g_pages.set_value(self.alloc.pages_in_use)
+            if self.prefix is not None:
+                self._g_prefix_pages.set_value(self.prefix.cached_pages)
+        return self.metrics.snapshot()
 
 
-__all__ = ["COUNTERS", "Engine", "EngineConfig", "GenerationRequest",
+__all__ = ["Engine", "EngineConfig", "GenerationRequest",
            "GenerationResult", "batch_buckets"]

@@ -119,7 +119,7 @@ class GenerationResult:
     status: str = RequestStatus.OK.value
     finish_reason: str = ""            # length|eos|cancelled|deadline|...
     error: str = ""                    # detail for error/rejected statuses
-    trace: Optional[object] = None     # request trace (the obs slice; None)
+    trace: Optional[object] = None     # repro_torch.obs.Trace (None: metrics off)
 
     @property
     def ok(self) -> bool:

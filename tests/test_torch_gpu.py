@@ -921,3 +921,117 @@ def test_paged_engine_waits_on_the_card_once_a_step(cuda):
     assert ops.LAUNCHES["decode_attn_paged"] == \
         cfg.num_layers * eng.decode_steps
     assert ops.LAUNCHES["kv_dequant"] > 0 and ops.LAUNCHES["decode_attn"] == 0
+
+
+def _obs_engine(cuda, layout, registry=None):
+    """A tiny INT8 engine of either layout on packed weights (wo pruned,
+    the other linears int4, so K4 runs) and its requests: the slot
+    engine's trace has a chunked prompt; the paged engine's pool of 7
+    four-token pages for 3 slots preempts, and a shared prefix hits."""
+    from repro_torch.checkpoint import pack_params
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.core.compress import compress_model
+    from repro_torch.core.specs import Policy, PruneSpec, QuantSpec
+    from repro_torch.data import DataConfig, calibration_batches
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine, EngineConfig, GenerationRequest
+
+    cfg = get_tiny_config("llama32-1b")
+    model = build_model(cfg)
+    calib = [{"tokens": torch.as_tensor(t, device=cuda)}
+             for t, _ in calibration_batches(DataConfig(
+                 vocab_size=cfg.vocab_size, seq_len=16, global_batch=4), 1)]
+    params = pack_params(*compress_model(
+        model, model.init(0, device=cuda), calib,
+        Policy({"*.attn.wo": PruneSpec(ratio=0.5)},
+               default=QuantSpec(bits=4, group_size=64))))
+    rng = np.random.default_rng(0)
+    if layout == "slots":
+        ecfg = EngineConfig(num_slots=4, max_len=64, prompt_buckets=(8, 16),
+                            kv_quantized=True)
+        prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+                   for n in (5, 12, 40, 7, 3)]
+        gens = [6, 4, 5, 8, 3]
+    else:
+        ecfg = EngineConfig(num_slots=3, max_len=24, prompt_buckets=(4, 8),
+                            kv_quantized=True, kv_layout="paged",
+                            page_size=4, num_pages=7)
+        shared = rng.integers(1, cfg.vocab_size, 9).astype(np.int32)
+        prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+                   for n in (5, 7, 3)]
+        prompts += [np.concatenate([shared, [7, 8]]).astype(np.int32),
+                    np.concatenate([shared, [9]]).astype(np.int32)]
+        gens = [9, 8, 10, 4, 4]
+    reqs = [GenerationRequest(rid=i, prompt=p, max_new_tokens=g)
+            for i, (p, g) in enumerate(zip(prompts, gens))]
+    eng = Engine(model, params, ecfg, registry=registry)
+    eng.warmup(reqs)
+    return eng, reqs
+
+
+@pytest.mark.parametrize("layout", ["slots", "paged"])
+def test_profiled_engine_trace_holds_the_kernel_events(cuda, layout,
+                                                       tmp_path):
+    """A ``StepTraceWindow`` around a whole engine run records CUDA
+    activity: its trace holds K4's GEMV and tile kernels as often as
+    ``dequant_matmul`` launched, and K6's or K6p's split kernel as often
+    as ``decode_attn`` or ``decode_attn_paged`` did."""
+    import json
+
+    from repro_torch.obs import StepTraceWindow
+
+    eng, reqs = _obs_engine(cuda, layout)
+    win = StepTraceWindow(str(tmp_path), 10**6)
+    ops.reset_launches()
+    win.start()
+    assert win.active
+    for r in reqs:
+        eng.submit(r)
+    got = eng.run(step_hook=win.on_step)
+    torch.cuda.synchronize()
+    win.stop()
+    assert win.path and all(r.status == "ok" for r in got)
+    events = json.load(open(win.path))["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k6 = "decode_attn" if layout == "slots" else "decode_attn_paged"
+    assert sum("dequant_gemv_kernel" in k or "dequant_gemm_kernel" in k
+               for k in kernels) == ops.LAUNCHES["dequant_matmul"] > 0
+    assert sum("decode_split_kernel" in k for k in kernels) == \
+        ops.LAUNCHES[k6] > 0
+    steps = {e["name"] for e in events
+             if e.get("name", "").startswith("ProfilerStep#")}
+    assert len(steps) >= eng.decode_steps
+
+
+@pytest.mark.parametrize("layout", ["slots", "paged"])
+def test_engine_with_registry_waits_once_a_step(cuda, layout):
+    """With the registry on (traces, histograms, counters) the engine still
+    waits on the card once a decode step, batched prefill, chunked prompt
+    and preemption, and its snapshot agrees with its counters."""
+    import warnings
+
+    from repro_torch.obs import MetricsRegistry, snapshot_series
+
+    reg = MetricsRegistry()
+    eng, reqs = _obs_engine(cuda, layout, registry=reg)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for r in reqs:
+                eng.submit(r)
+            got = eng.run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    waits = [w for w in caught if SYNC_WARNING in str(w.message)]
+    assert len(waits) == (eng.decode_steps + eng.prefill_dispatches
+                          + eng.chunked_admitted + eng.preemptions), \
+        sorted({f"{w.filename}:{w.lineno}" for w in waits})
+    assert all(r.status == "ok" and r.trace.validate() for r in got)
+    snap = eng.metrics_snapshot()
+    assert snapshot_series(snap, "counters", "engine_decode_steps_total"
+                           )["value"] == eng.decode_steps
+    assert snapshot_series(snap, "histograms", "request_ttft_seconds"
+                           )["count"] == len(reqs)
+    if layout == "paged":
+        assert eng.preemptions >= 1 and eng.prefix_hits >= 1
