@@ -3,15 +3,29 @@
 
   python3 chip_smoke.py
 
-Builds the hand-written kernels K1–K6 (and K1b, K1 over a batch, and K6p,
-K6 through a block table) from
+Builds the hand-written kernels K1–K6 (and K1b, K1 over a batch, K4x, K4
+over a stack of experts, and K6p, K6 through a block table) from
 ``src/repro_torch/kernels/csrc``, holds each against its plain PyTorch
 version at the shapes of the main paths (and a few edge cases), timing
 both (K1 and K4 at every tile variant, K4's GEMV at every split, K2 at
 every form, with a NaN/±inf matrix, ties, a 73728-wide row and a
-misaligned view), then
-drives the port at the full width of llama32-1b (16 layers, d_model 2048,
-d_ff 8192, padded vocab 129024, random weights from a seed):
+misaligned view), then runs the MoE phase (:func:`phase_moe`):
+qwen3-moe-235b-a22b at its published widths cut to 2 of its 94 layers
+(d_model 4096, 64 heads over 4 KV heads of 128, 128 experts of d_ff 1536,
+top-8, padded vocab 153600; 6.23e9 f32 parameters from the seed). K4x is
+held to its plain version at E 8 and 128, both projections' (N, K), M
+1-512, groups 128 and 64, shared and per-expert (strided, and misaligned)
+x and every variant, and timed beside ``torch.matmul`` on the stack
+dequantized beforehand; K6 at its decode shape (g = 16, D = 128). The
+model is compressed (batched engine, the mixed policy below, 16,384
+calibration tokens), packed in memory and decoded statically through the
+kernels and through the plain versions, the two held to the parity bars,
+then served by the slot engine of 3 below on the kernels' packed model
+(kernels, sync-debug, plain): only K4, K4x, K5 and K6 may launch, K4x
+three times a layer in every forward, and K4x's census is timed key by
+key. Then it drives the port at the full width of llama32-1b (16 layers,
+d_model 2048, d_ff 8192, padded vocab 129024, random weights from a
+seed):
 
   1. calibrate (Zipf-Markov, 32 x 512 tokens) -> compress_model with the
      batched engine, the default (every attn.wo pruned to 50% by AWP,
@@ -92,7 +106,11 @@ engine request (prefill is K4's tile path and K5, which is exact; K6 and K6p sum
 in tile order, so later engine tokens may part). With the batched engine
 the plain K1b is cuBLAS's strided-batched product: if it also sums in
 K1b's order the two paths must agree as well; if not, the first differing
-layer is printed and the pair held to the bars.
+layer is printed and the pair held to the bars. Before them the MoE phase
+runs again: K4x's tile bit-equal to its plain version, the MoE
+compression with its host waits counted a block in sync-debug mode, its
+codes, masks and static tokens the same bits on both paths if the
+compressions agree, and every slot-engine request's first token equal.
 
 Exits non-zero on any failed check, without a CUDA card, and outside a
 checkout of the repository. Prints the card, a JSON line of per-kernel
@@ -146,6 +164,16 @@ SYNC_WARNING = "called a synchronizing CUDA operation"
 # wk and wv; wg and wu; wd (wo is pruned and stays dense)
 K4_M = (4, 8, 64, 512, 8 * 512)
 K4_NK = ((2048, 2048), (512, 2048), (8192, 2048), (2048, 8192))
+# the MoE phase: qwen3-moe-235b-a22b at its published widths, 2 of its 94
+# layers; K4x at its expert counts (E 8 and qwen3-moe's 128), its rows
+# (decode 1-8, a short prompt, a prompt of 512) and (N, K) of wg/wu and wd,
+# and K4x's row in the JSON line: the slot engine's decode (M = 8) at wg/wu,
+# shared x
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 2
+K4X_E = (8, 128)
+K4X_M = (1, 4, 8, 64, 512)
+K4X_NK = ((1536, 4096), (4096, 1536))
+K4X_ROW = (128, 8, 1536, 4096, False)
 # K4's representative row in the JSON line: the static decode at wg, wu
 K4_ROW = (4, 8192, 2048)
 # the serving paths whose K4 launches the census counts
@@ -177,6 +205,8 @@ KERNELS = {   # wrapper name -> (CUDA source, the TPU kernel it replaces)
                       "src/repro/kernels/quant_proj.py:33"),
     "dequant_matmul": ("src/repro_torch/kernels/csrc/dequant_matmul.cu",
                        "src/repro/kernels/dequant_matmul.py:51"),
+    "dequant_matmul_experts": ("src/repro_torch/kernels/csrc/dequant_matmul.cu",
+                               "src/repro/models/layers.py:58"),
     "kv_dequant": ("src/repro_torch/kernels/csrc/kv_dequant.cu",
                    "src/repro/kernels/kv_dequant.py:29"),
     "decode_attn": ("src/repro_torch/kernels/csrc/decode_attn.cu",
@@ -188,6 +218,12 @@ COMPRESS_PATH = ("awp_pgd_step", "awp_pgd_step_batched", "topk_row",
                  "quant_project", "dequant_matmul")
 PRUNE_PATH = ("awp_pgd_step", "awp_pgd_step_batched", "topk_row")
 ENGINE_PATH = ("dequant_matmul", "kv_dequant", "decode_attn")
+# the MoE phase: compress (K1, K1b, K2, K3) then static decode (K4 for the
+# attention's packed linears, K4x for the experts'); its slot engine
+MOE_PATH = ("awp_pgd_step", "awp_pgd_step_batched", "topk_row",
+            "quant_project", "dequant_matmul", "dequant_matmul_experts")
+MOE_ENGINE_PATH = ("dequant_matmul", "dequant_matmul_experts", "kv_dequant",
+                   "decode_attn")
 PAGED_PATH = ("dequant_matmul", "kv_dequant", "decode_attn_paged")
 # K6p at the paged engine's decode shape: pages of 16 tokens, tables of
 # 128 pages (max_len 2048) into a pool of 512 pages
@@ -1328,6 +1364,552 @@ def check_k6p(torch, dev, gen):
     return row
 
 
+# ---------------------------------------------------------------------------
+# the MoE family: qwen3-moe-235b-a22b at full width, two layers
+# ---------------------------------------------------------------------------
+
+def k4x_stack(torch, dev, gen, e, n, k, group):
+    """Random packed int4 expert stack (E, N, K/2) with (E, N, K/group)
+    scale and integer-valued zero."""
+    packed = torch.randint(0, 256, (e, n, k // 2), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    scale = torch.rand((e, n, k // group), generator=gen, device=dev) * 0.02
+    zero = torch.randint(0, 16, (e, n, k // group), generator=gen,
+                         device=dev).float()
+    return packed, scale, zero
+
+
+def k4x_bound(e, m, n, k, group, per_expert):
+    """K4x's bound: each code, scale and zero read once, x once (once a
+    stack when shared), y written once; 2·E·M·N·K operations."""
+    nbytes = (e * n * k / 2 + 8.0 * e * n * k / group
+              + 4.0 * (e if per_expert else 1) * m * k + 4.0 * e * m * n)
+    return bound_ms(2.0 * e * m * n * k, nbytes)
+
+
+def k4x_x(torch, dev, gen, e, m, k, per_expert):
+    """K4x's input: shared (M, K), or per expert the (E, M, K) view of an
+    (M, E, K) tensor, as the MoE down projection hands it over."""
+    if per_expert:
+        return torch.randn((m, e, k), generator=gen, device=dev).transpose(0,
+                                                                           1)
+    return torch.randn((m, k), generator=gen, device=dev)
+
+
+def k4x_times(torch, x, stack, group, per_expert, variant, w32t):
+    """(kernel, plain, bmm) ms of one K4x call; the yardstick is
+    ``torch.matmul`` of x with the stack dequantized beforehand, (E, K, N),
+    which the port never calls."""
+    from repro_torch.kernels import ops, ref
+    reps = 10 if x.shape[-2] <= 64 else 3
+    ms = time_ms(torch, lambda i: ops.dequant_matmul_experts(
+        x, *stack, group, per_expert, variant=variant), reps)
+    plain = time_ms(torch, lambda i: ref.dequant_matmul_experts(
+        x, *stack, group, per_expert), 2)
+    lib = time_ms(torch, lambda i: torch.matmul(x, w32t), reps)
+    return ms, plain, lib
+
+
+def check_k4x(torch, dev):
+    """K4x against its plain version (K4's plain version expert by expert)
+    at E 8 and 128, qwen3-moe's (N, K) of wg/wu (1536, 4096) and wd (4096,
+    1536), M in ``K4X_M``, groups 128 and 64, shared and per-expert x (the
+    per-expert x a transposed view, as the model hands it over), with every
+    variant the wrapper can run: within 1e-5 of max|y|, and two launches
+    the same bits; a per-expert view 4 bytes past a 16-byte boundary at
+    every tile variant. At E = 128 and group 128 each variant is timed and
+    the pick timed beside the plain version and the bmm yardstick."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    err_all, by_shape, row, checked = 0.0, [], None, 0
+    for e in K4X_E:
+        for group in (128, 64):
+            for n, k in K4X_NK:
+                stack = k4x_stack(torch, dev, gen, e, n, k, group)
+                timed = e == K4X_E[-1] and group == 128
+                w32t = None
+                if timed:
+                    w32t = torch.stack([ref.dequant(
+                        ref.unpack_int4(stack[0][i]), stack[1][i],
+                        stack[2][i], group) for i in range(e)]).transpose(1,
+                                                                          2)
+                for m in K4X_M:
+                    for per_expert in (False, True):
+                        x = k4x_x(torch, dev, gen, e, m, k, per_expert)
+                        y_ref = ref.dequant_matmul_experts(
+                            x, *stack, group, per_expert)
+                        ymax = float(y_ref.abs().max())
+                        vec = ops.dequant_matmul_vector_copies(
+                            k, n, group, x, stack[0])
+                        chosen = ops.dequant_matmul_tiles(m, n, k, vec, sms,
+                                                          e)
+                        err, times = 0.0, {}
+                        form = "per-expert" if per_expert else "shared"
+                        for v in ops.dequant_matmul_variants(m, k, vec):
+                            name = ops.dequant_matmul_variant_name(v)
+                            y = ops.dequant_matmul_experts(
+                                x, *stack, group, per_expert, variant=v)
+                            again = ops.dequant_matmul_experts(
+                                x, *stack, group, per_expert, variant=v)
+                            d = float((y - y_ref).abs().max())
+                            check(d <= 1e-5 * ymax,
+                                  f"K4x E={e} M={m} N={n} K={k} group="
+                                  f"{group} {form} {name}: max|dy| {d:.3e} "
+                                  f"(|y| {ymax:.3e})")
+                            check(torch.equal(y, again),
+                                  f"K4x E={e} M={m} N={n} K={k} {form} "
+                                  f"{name}: two launches differ")
+                            err = max(err, d)
+                            checked += 1
+                            if timed:
+                                times[name] = time_ms(
+                                    torch, lambda i: ops.dequant_matmul_experts(
+                                        x, *stack, group, per_expert,
+                                        variant=v), 3 if m > 64 else 10)
+                        err_all = max(err_all, err)
+                        if not timed:
+                            continue
+                        ms, plain, lib = k4x_times(torch, x, stack, group,
+                                                   per_expert, chosen, w32t)
+                        bnd, by = k4x_bound(e, m, n, k, group, per_expert)
+                        name = ops.dequant_matmul_variant_name(chosen)
+                        log(f"[K4x] E={e} M={m} N={n} K={k} {form}: {name}, "
+                            f"max|dy| {err:.2e}, kernel {ms:.4f} ms "
+                            f"({bnd / ms:.1%} of the bound), plain "
+                            f"{plain:.4f} ms, bmm {lib:.4f} ms, bound "
+                            f"{bnd:.4f} ms ({by}); variants " + ", ".join(
+                                f"{v}: {t:.4f} ms" for v, t in times.items()))
+                        entry = dict(shape=f"E={e},M={m},N={n},K={k},{form}",
+                                     variant=name, ms=ms, plain_ms=plain,
+                                     bound_ms=bnd, bound_by=by,
+                                     library_ms=lib, max_abs_err=err,
+                                     variant_ms=times)
+                        by_shape.append(entry)
+                        if (e, m, n, k, per_expert) == K4X_ROW:
+                            row = dict(entry)
+                del stack, w32t
+                torch.cuda.empty_cache()
+            log(f"[K4x] E={e} group={group}: every variant within 1e-5 of "
+                f"max|y| at (N, K) {list(K4X_NK)}, M {list(K4X_M)}, shared "
+                f"and per-expert x, two launches the same bits")
+    # a per-expert view off a 16-byte boundary: the tile's scalar copies
+    e, n, k, m = K4X_E[0], 4096, 1536, 64
+    stack = k4x_stack(torch, dev, gen, e, n, k, 128)
+    raw = torch.randn(m * e * k + 1, generator=gen, device=dev)
+    x = raw[1:].view(m, e, k).transpose(0, 1)
+    check(not ops.dequant_matmul_vector_copies(k, n, 128, x, stack[0]),
+          "K4x: the shifted view should take the scalar copies")
+    y_ref = ref.dequant_matmul_experts(x, *stack, 128, True)
+    for v in range(len(ops.DEQUANT_TILES)):
+        d = float((ops.dequant_matmul_experts(x, *stack, 128, True,
+                                              variant=v) - y_ref).abs().max())
+        check(d <= 1e-5 * float(y_ref.abs().max()),
+              f"K4x misaligned view, tile variant {v}: max|dy| {d:.3e}")
+        checked += 1
+    log(f"[K4x] {checked} (shape, variant) checks within 1e-5 of max|y|, "
+        f"the misaligned view at every tile variant included")
+    row["max_abs_err"] = err_all
+    row["by_shape"] = by_shape
+    return row
+
+
+def check_k6_moe(torch, dev):
+    """K6 at qwen3-moe's slot-engine decode shape (8 rows, 64 query heads
+    over 4 KV heads, g = 16, D = 128, T = 2048, INT8, group 64), which no
+    earlier phase runs: within 1e-5 of the plain version, two launches the
+    same bits."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving.kv_cache import kv_quantize
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    b, h, hk, d, t, group = 8, 64, 4, 128, 2048, 64
+    q = torch.randn((b, h, d), generator=gen, device=dev)
+    kq = kv_quantize(torch.randn((b, t, hk, d), generator=gen, device=dev),
+                     group)
+    vq = kv_quantize(torch.randn((b, t, hk, d), generator=gen, device=dev),
+                     group)
+    kw = dict(k_scale=kq.scale, k_zero=kq.zero, v_scale=vq.scale,
+              v_zero=vq.zero, group_size=group)
+    lengths = torch.tensor(K6_LENGTHS, dtype=torch.int32, device=dev)
+    out = ops.decode_attn(q, kq.codes, vq.codes, lengths, **kw)
+    want = ref.decode_attn(q, kq.codes, vq.codes, lengths, **kw)
+    err = float((out - want).abs().max())
+    rel = float(((out - want).abs() / (want.abs() + 1.0)).max())
+    check(err <= 1e-5 or rel <= 1e-5,
+          f"K6 at the MoE shape: max|d| {err:.3e} against the plain version")
+    check(torch.equal(out.view(torch.int32), ops.decode_attn(
+        q, kq.codes, vq.codes, lengths, **kw).view(torch.int32)),
+          "K6 at the MoE shape: two launches differ")
+    log(f"[K6] decode_attn int8 at the MoE shape B={b} H={h} Hk={hk} D={d} "
+        f"T={t}: max|d| {err:.2e}, two launches the same bits")
+
+
+def moe_config():
+    """qwen3-moe-235b-a22b at its published widths, cut to MOE_LAYERS
+    layers (the one cut: 94 layers are 940 GB in f32)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+
+
+def moe_setup(torch, dev, cfg):
+    """The MoE model, its calibration batches and prompts (the llama
+    phase's sizes at the MoE vocabulary). Each run makes the weights from
+    the seed itself (:func:`moe_run`), so the card holds one set."""
+    from repro_torch.data import DataConfig, ZipfMarkov, calibration_batches
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=CALIB_SEQ,
+                    global_batch=CALIB_BATCH)
+    calib = [{"tokens": torch.as_tensor(t, device=dev)}
+             for t, _ in calibration_batches(dc, CALIB_BATCHES)]
+    prompts, _ = ZipfMarkov(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=PROMPT_LEN,
+                                       global_batch=BATCH)).batch(0)
+    return model, calib, prompts
+
+
+def moe_run(torch, dev, cfg, model, calib, prompts, label, count=False):
+    """The MoE main path once, on the active implementation: weights from
+    the seed, compress (batched engine, mixed policy), pack in memory,
+    prefill logits and a static greedy decode; launch counts and K4x's
+    census from 0 just before. With ``count`` the compression runs in
+    sync-debug mode and its host waits a block are counted
+    (:func:`count_waits`); otherwise it is timed. Returns the report, the
+    packed params, logits, tokens, seconds, launches and K4x's census."""
+    from repro_torch.checkpoint import pack_params
+    from repro_torch.core.compress import compress_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import greedy_decode
+    params = model.init(SEED, device=dev)
+    if label.endswith("kernels") and not count:
+        log(f"[model] {cfg.name}: {cfg.num_layers} of 94 layers (the one "
+            f"cut), d_model {cfg.d_model}, {cfg.num_heads} heads over "
+            f"{cfg.num_kv_heads} KV heads of {cfg.resolved_head_dim}, "
+            f"{cfg.num_experts} experts of d_ff {cfg.d_ff}, top-"
+            f"{cfg.experts_per_token}, vocab {cfg.vocab_size} (padded "
+            f"{cfg.padded_vocab}), {sum(t.numel() for t in _leaves(params)) / 1e9:.3f}"
+            f"e9 f32 parameters from seed {SEED}")
+    ops.reset_launches()
+    waits = None
+    if count:
+        waits, report, cp = count_waits(
+            torch, (model, params, calib, None), policy_for("mixed"),
+            f"{label} ", keep=True)
+        t_comp = float("nan")
+    else:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cp, report = compress_model(model, params, calib,
+                                    policy_for("mixed"))
+        torch.cuda.synchronize()
+        t_comp = time.time() - t0
+    del params
+    comp_launches = dict(ops.LAUNCHES)
+    packed = pack_params(cp, report)
+    del cp
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for res in (a.result for a in report.artifacts.values()):
+        res.qtensor = None               # the packed leaves hold the codes
+    logits, _ = model.prefill(
+        packed, {"tokens": torch.as_tensor(prompts, device=dev)},
+        model.init_cache(BATCH, PROMPT_LEN + GEN, torch.float32, device=dev))
+    tokens, secs = greedy_decode(model, packed, prompts, GEN)
+    launches = dict(ops.LAUNCHES)
+    log(f"[{label}] compress {t_comp:.1f}s (peak {peak:.1f} GB allocated), "
+        f"prefill {secs['prefill']:.3f}s, {GEN - 1} decode steps "
+        f"{secs['decode']:.3f}s; launches in compression {comp_launches}, "
+        f"in all {launches}")
+    return dict(report=report, packed=packed, logits=logits, tokens=tokens,
+                compress_s=t_comp, decode=secs, launches=launches,
+                compress_launches=comp_launches, waits=waits,
+                k4x=dict(ops.K4X_CENSUS))
+
+
+def to_host_tree(tree):
+    from repro_torch.models.transformer import tree_map
+    return tree_map(lambda t: t.cpu(), tree)
+
+
+def to_card_tree(tree, dev):
+    from repro_torch.models.transformer import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+MOE_PACKED = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("moe", "wg"),
+              ("moe", "wu"), ("moe", "wd"))
+
+
+def moe_hold(torch, cfg, run_k, run_p, tag, exact):
+    """Two MoE runs held to each other: every layer's loss within
+    ``LOSS_BAR``, its codes (from the packed leaves, one (L[, E]) count of
+    differing codes a leaf) or its mask equal on >= ``AGREE_BAR`` of
+    entries, losses finite in (0, 1), pruned layers at 50%; with ``exact``
+    equal iteration counts. Then the logits and static tokens. Returns the
+    summary, ``identical`` when no layer differs."""
+    from repro_torch.core.compress import resolve_path
+    from repro_torch.quant import QTensor
+    rep_k, rep_p = run_k["report"], run_p["report"]
+    n_layers = cfg.num_layers * (4 + 3 * cfg.num_experts)
+    check(len(rep_k) == len(rep_p) == n_layers,
+          f"{tag}: {len(rep_k)} and {len(rep_p)} layers, expected {n_layers}")
+    diff = {}
+    for group, name in MOE_PACKED:
+        a, b = (r["packed"]["blocks"][group][name] for r in (run_k, run_p))
+        check(isinstance(a, QTensor) and isinstance(b, QTensor),
+              f"{tag}: {group}.{name} is not a packed leaf")
+        x = (a.packed ^ b.packed)
+        diff[name] = ((x & 0xF) != 0).sum((-2, -1)) + ((x >> 4) != 0).sum(
+            (-2, -1))
+    host = {k: v.cpu() for k, v in diff.items()}
+    max_dloss, min_agree, iters_differ, first, differing = 0.0, 1.0, 0, None, 0
+    for r_k, r_p in zip(rep_k, rep_p):
+        check(r_k.qualname == r_p.qualname, f"{tag}: layer order")
+        res_k = rep_k.artifacts[r_k.qualname].result
+        res_p = rep_p.artifacts[r_p.qualname].result
+        art = rep_k.artifacts[r_k.qualname]
+        dict_path, idx = resolve_path(art.path, art.layer)
+        if res_k.mask is not None:
+            n_diff = int((res_k.mask != res_p.mask).sum())
+            total = res_k.mask.size
+        else:
+            n_diff = int(host[dict_path[-1]][idx])
+            total = cfg.d_model * (cfg.d_ff if "moe" in dict_path
+                                   else cfg.num_heads * cfg.resolved_head_dim
+                                   if dict_path[-1] == "wq"
+                                   else cfg.num_kv_heads
+                                   * cfg.resolved_head_dim)
+        for r in (r_k, r_p):
+            check(math.isfinite(r.loss_after) and 0.0 <= r.loss_after < 1.0,
+                  f"{r.qualname}: loss {r.loss_after}")
+            if r.method == "awp_prune":
+                check(r.sparsity == 0.5, f"{r.qualname}: sparsity "
+                                         f"{r.sparsity}")
+        dloss = abs(r_k.loss_after - r_p.loss_after)
+        if n_diff or res_k.iters != res_p.iters:
+            differing += 1
+            first = first or (r_k.qualname, n_diff, total)
+        iters_differ += res_k.iters != res_p.iters
+        max_dloss = max(max_dloss, dloss)
+        min_agree = min(min_agree, 1.0 - n_diff / total)
+    log(f"[{tag}] {n_layers} layers; max |loss difference| {max_dloss:.3e}; "
+        f"least share of equal codes/mask entries {min_agree:.6f}; layers "
+        f"with other iteration counts {iters_differ}; layers that differ "
+        f"{differing}, the first {first}; mean loss {rep_k.mean_loss():.6f} "
+        f"/ {rep_p.mean_loss():.6f}")
+    check(max_dloss <= LOSS_BAR and min_agree >= AGREE_BAR,
+          f"{tag}: the two compressions differ beyond the repo's bars")
+    check(not exact or iters_differ == 0, f"{tag}: iteration counts differ")
+    v, vp = cfg.vocab_size, cfg.padded_vocab
+    for run in (run_k, run_p):
+        lg, tok = run["logits"], run["tokens"]
+        check(tuple(lg.shape) == (BATCH, 1, vp), f"logits shape {lg.shape}")
+        check(bool(torch.isfinite(lg[..., :v]).all()), "non-finite logits")
+        check(bool((lg[..., v:] == torch.finfo(lg.dtype).min).all()),
+              "padded vocab columns not masked")
+        check(tok.shape == (BATCH, GEN) and tok.min() >= 0 and tok.max() < v,
+              "greedy tokens malformed")
+    dlog = float((run_k["logits"] - run_p["logits"].to(
+        run_k["logits"].device)).abs().max())
+    same_tok = bool((run_k["tokens"] == run_p["tokens"]).all())
+    parts = [int(i) for i in (run_k["tokens"] != run_p["tokens"]).nonzero()[0][:1]]
+    log(f"[{tag}] prefill logits max |kernels - plain| {dlog:.3e}; greedy "
+        f"tokens " + ("identical on both paths" if same_tok else
+                      f"differ (first at row {parts})")
+        + f"; row 0: {run_k['tokens'][0][:12].tolist()}")
+    return dict(max_dloss=max_dloss, min_agree=min_agree,
+                iters_differ=iters_differ, layers_differ=differing,
+                first_diff=first, identical=differing == 0,
+                logits_dmax=dlog, tokens_identical=same_tok)
+
+
+def moe_engine_check(launches, stats, label):
+    """Only K4, K4x, K5 and K6 launch in the MoE engine, and K4x three
+    times a layer in every forward (decode steps, prefills, chunks)."""
+    check_path(launches, MOE_ENGINE_PATH, label)
+    forwards = stats["decode_steps"] + stats["prefills"] + stats["chunks"]
+    check(launches["dequant_matmul_experts"]
+          == 3 * MOE_LAYERS * forwards,
+          f"{label}: K4x launched {launches['dequant_matmul_experts']} "
+          f"times in {forwards} forwards, expected {3 * MOE_LAYERS} a "
+          f"forward")
+
+
+def phase_k4x_census(torch, dev, census):
+    """K4x at every key the MoE paths launched (``census``: each path's
+    ``ops.K4X_CENSUS``): every variant the wrapper can run there within
+    1e-5 of max|y| of the plain version, the variant the path ran timed
+    beside the plain version and the bmm yardstick, and each path's K4x
+    device seconds (launches x time at each key)."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    keys = sorted({key for c in census.values() for key in c})
+    times = {}
+    for e, n, k in sorted({key[:1] + key[2:4] for key in keys}):
+        stack = k4x_stack(torch, dev, gen, e, n, k, 128)
+        w32t = torch.stack([ref.dequant(ref.unpack_int4(stack[0][i]),
+                                        stack[1][i], stack[2][i], 128)
+                            for i in range(e)]).transpose(1, 2)
+        for key in [key for key in keys if (key[0],) + key[2:4] == (e, n, k)]:
+            m, v, per_expert = key[1], key[4], key[5]
+            x = k4x_x(torch, dev, gen, e, m, k, per_expert)
+            y_ref = ref.dequant_matmul_experts(x, *stack, 128, per_expert)
+            ymax = float(y_ref.abs().max())
+            for vv in ops.dequant_matmul_variants(m, k):
+                d = float((ops.dequant_matmul_experts(
+                    x, *stack, 128, per_expert, variant=vv) - y_ref)
+                    .abs().max())
+                check(d <= 1e-5 * ymax,
+                      f"K4x census {key} variant {vv}: max|dy| {d:.3e}")
+            times[key] = k4x_times(torch, x, stack, 128, per_expert, v, w32t)
+            ms, plain, lib = times[key]
+            bnd, by = k4x_bound(e, m, n, k, 128, per_expert)
+            log(f"[K4x census] E={e} M={m} N={n} K={k} "
+                f"{'per-expert' if per_expert else 'shared'} "
+                f"{ops.dequant_matmul_variant_name(v)}: launches "
+                + ", ".join(f"{p} {c.get(key, 0)}" for p, c in census.items())
+                + f"; every variant within 1e-5; kernel {ms:.4f} ms "
+                f"({bnd / ms:.1%} of the bound), plain {plain:.4f} ms, bmm "
+                f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+        del stack, w32t
+        torch.cuda.empty_cache()
+    out = {}
+    for path, c in census.items():
+        secs = [sum(cnt * times[key][i] for key, cnt in c.items()) / 1e3
+                for i in range(3)]
+        log(f"[K4x census] {path}: {sum(c.values())} launches at {len(c)} "
+            f"keys; K4x device seconds {secs[0]:.4f} s, the plain "
+            f"version's {secs[1]:.4f} s, bmm's {secs[2]:.4f} s")
+        out[path] = dict(launches=sum(c.values()), keys=len(c),
+                         device_s=secs[0], plain_s=secs[1],
+                         library_s=secs[2])
+    out["by_key"] = [dict(key=list(key), ms=t[0], plain_ms=t[1],
+                          library_ms=t[2]) for key, t in sorted(times.items())]
+    return out
+
+
+def phase_moe(torch, dev):
+    """The MoE family at full width (two layers): K4x and K6 at its shapes,
+    then the main path through the kernels (counted, timed) and through
+    the plain versions, held to each other at the parity bars; the slot
+    engine on the kernels' packed model (kernels, sync-debug, plain); K4x's
+    census. Nothing else is on the card meanwhile: each run makes its
+    weights from the seed, and the kernel run's packed model waits in host
+    memory while the plain run compresses. Returns the JSON row of K4x,
+    the launches by path and the numbers."""
+    from repro_torch import kernels
+    t0 = time.time()
+    row = check_k4x(torch, dev)
+    check_k6_moe(torch, dev)
+    cfg = moe_config()
+    model, calib, prompts = moe_setup(torch, dev, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    run_k = moe_run(torch, dev, cfg, model, calib, prompts, "moe kernels")
+    check_path(run_k["launches"], MOE_PATH, "the MoE compress and decode path")
+    check(run_k["compress_launches"]["dequant_matmul_experts"] == 0,
+          "K4x launched during compression (no packed linear there)")
+    forwards = 1 + GEN        # the logits prefill, greedy's prefill, steps
+    check(run_k["launches"]["dequant_matmul_experts"]
+          == 3 * MOE_LAYERS * forwards,
+          f"K4x launched {run_k['launches']['dequant_matmul_experts']} "
+          f"times on the static path, expected {3 * MOE_LAYERS} a forward")
+    run_k["packed"] = to_host_tree(run_k["packed"])
+    torch.cuda.empty_cache()
+    with kernels.use_impl("reference"):
+        from repro_torch.kernels import ops
+        run_p = moe_run(torch, dev, cfg, model, calib, prompts, "moe plain")
+        check(not any(ops.LAUNCHES.values()), "the plain MoE run launched a "
+                                              "kernel")
+    run_k["packed"] = to_card_tree(run_k["packed"], dev)
+    held = moe_hold(torch, cfg, run_k, run_p, "moe layer", exact=False)
+    plain_s = run_p["compress_s"]
+    del run_p
+    torch.cuda.empty_cache()
+    packed = run_k["packed"]
+    launches_e, _, eng, _, _ = phase_engine(
+        torch, cfg, model, packed, "moe ", exact_first=False,
+        path=MOE_ENGINE_PATH)
+    k4x_slot = eng["kernels"]["k4x"]
+    for run in ("kernels", "waits_counted", "plain"):
+        eng[run].pop("k4x")
+    moe_engine_check(launches_e, eng["kernels"], "the MoE engine")
+    del packed, run_k["packed"]
+    torch.cuda.empty_cache()
+    census = phase_k4x_census(torch, dev, {"static": run_k["k4x"],
+                                           "slot": k4x_slot})
+    row["census"] = census
+    secs = time.time() - t0
+    log(f"[moe] phase {secs:.1f}s; compression kernels "
+        f"{run_k['compress_s']:.1f}s")
+    summary = dict(seconds=secs, compress_s=run_k["compress_s"],
+                   compress_plain_s=plain_s, decode=run_k["decode"],
+                   kernels_vs_plain=held, engine=eng)
+    return row, {"moe_compress_decode": run_k["launches"],
+                 "moe_engine": launches_e}, summary
+
+
+def parity_moe(torch, dev):
+    """Under unsplit cuBLAS: K4x's tile bit-equal to its plain version at
+    qwen3-moe's (N, K), M 64 and 512, E 8, both forms, every tile variant
+    (the GEMV's differing entries printed, a record); then the MoE main
+    path through the kernels, its compression in sync-debug mode with the
+    host's waits counted a block, and through the plain versions: the same
+    bits and static tokens if the compressions agree bit for bit (else the
+    first differing layer is printed and the pair held to the bars), and
+    every slot-engine request the same first token."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    checked, gemv = 0, {}
+    for n, k in K4X_NK:
+        stack = k4x_stack(torch, dev, gen, 8, n, k, 128)
+        for m in (4, 8, 64, 512):
+            for per_expert in (False, True):
+                x = k4x_x(torch, dev, gen, 8, m, k, per_expert)
+                y_ref = ref.dequant_matmul_experts(x, *stack, 128, per_expert)
+                for v in ops.dequant_matmul_variants(m, k):
+                    y = ops.dequant_matmul_experts(x, *stack, 128, per_expert,
+                                                   variant=v)
+                    n_diff = int((y != y_ref).sum())
+                    if v >= len(ops.DEQUANT_TILES):
+                        gemv[(m, n, k, per_expert, v)] = n_diff
+                        continue
+                    if m <= ops.GEMV_MAX_M:
+                        continue
+                    checked += 1
+                    check(n_diff == 0, f"K4x M={m} N={n} K={k} variant {v}: "
+                                       f"{n_diff} entries differ from the "
+                                       f"plain version under unsplit cuBLAS")
+    log(f"[parity K4x] tile bit-equal to the plain version at all {checked} "
+        f"(shape, form, variant) triples; GEMV entries differing (a record): "
+        + ", ".join(f"{key}: {d}" for key, d in gemv.items()))
+    cfg = moe_config()
+    model, calib, prompts = moe_setup(torch, dev, cfg)
+    run_k = moe_run(torch, dev, cfg, model, calib, prompts,
+                    "parity moe kernels", count=True)
+    run_k["packed"] = to_host_tree(run_k["packed"])
+    torch.cuda.empty_cache()
+    with kernels.use_impl("reference"):
+        run_p = moe_run(torch, dev, cfg, model, calib, prompts,
+                        "parity moe plain")
+    run_k["packed"] = to_card_tree(run_k["packed"], dev)
+    held = moe_hold(torch, cfg, run_k, run_p, "parity moe layer",
+                    exact=False)
+    log("[parity moe] kernels against plain: " + (
+        "the same bits in every layer" if held["identical"] else
+        f"{held['layers_differ']} layers differ, the first "
+        f"{held['first_diff']}; held to the bars instead"))
+    check(not held["identical"] or held["tokens_identical"],
+          "parity moe: the same compression bits but other greedy tokens")
+    del run_p
+    torch.cuda.empty_cache()
+    phase_engine(torch, cfg, model, run_k["packed"], "parity moe ",
+                 exact_first=True, path=MOE_ENGINE_PATH)
+    del run_k
+    torch.cuda.empty_cache()
+
+
 def policy_for(name: str):
     """The main path's policy ("mixed": every attn.wo AWP-pruned to 50%,
     every other linear AWP-int4, group 128) or the paper's Table-1 prune
@@ -1561,10 +2143,11 @@ class _BlockMarks:
         return self._model.block_apply_one(params, i, h, capture=capture)
 
 
-def count_waits(torch, data, policy, tag):
+def count_waits(torch, data, policy, tag, keep=False):
     """One batched compression, untimed, in PyTorch's sync-debug mode: the
     host's waits on the card per block and where each comes from (file and
-    line of the call that waited)."""
+    line of the call that waited). Returns the waits a block and the
+    report, and with ``keep`` the compressed params too."""
     from collections import Counter
     from repro_torch.core import awp
     from repro_torch.core.compress import compress_model
@@ -1577,7 +2160,8 @@ def count_waits(torch, data, policy, tag):
             return sum(SYNC_WARNING in str(w.message) for w in caught)
         marked = _BlockMarks(model, so_far)
         cp, report = compress_model(marked, params, calib, policy)
-        del cp
+        if not keep:
+            del cp
     syncs = waits["syncs"]
     starts = [marked.starts[i] for i in range(model.num_blocks())]
     ends = starts[1:] + [len(syncs)]
@@ -1605,7 +2189,7 @@ def count_waits(torch, data, policy, tag):
             expect[block] += min(-(-its // chunk), -(-cap // chunk) - 1)
     check(per_block == expect, f"host waits per block {per_block}, "
                                f"expected {expect}")
-    return per_block, report
+    return (per_block, report, cp) if keep else (per_block, report)
 
 
 def profile_compression(torch, data, report, n_layers):
@@ -1870,6 +2454,7 @@ def run_engine(torch, model, packed, reqs, label, watch_waits=False,
           f"{label}: the profiler window wrote no trace")
     launches = dict(ops.LAUNCHES)
     census = dict(ops.K4_CENSUS)
+    k4x = dict(ops.K4X_CENSUS)
     k6 = list(ops.K6_CENSUS)
     if watch_waits:
         # one wait each: a decode step's (S, 2) read, a prefill's first
@@ -1910,7 +2495,7 @@ def run_engine(torch, model, packed, reqs, label, watch_waits=False,
                  chunks=engine.chunk_dispatches,
                  chunked=engine.chunked_admitted,
                  utilization=engine.utilization(),
-                 page_stats=engine.page_stats())
+                 page_stats=engine.page_stats(), k4x=k4x)
     log(f"[{label}] {len(reqs)} requests, {n_tok} tokens in {wall:.3f}s "
         f"({stats['tok_s']:.1f} tok/s); {engine.decode_steps} decode steps, "
         f"{stats['step_ms']:.2f} ms a step overall, "
@@ -2104,7 +2689,7 @@ def k6_census_run(torch, model, packed, reqs, label, tokens, launches,
 
 
 def phase_engine(torch, cfg, model, packed, tag, exact_first,
-                 k6_census=False):
+                 k6_census=False, path=ENGINE_PATH):
     """The engine through the kernels (K4, K5 and K6 must launch), then
     through the plain versions (nothing may launch), on the same packed
     model and trace; with ``k6_census`` a third kernel run records K6's
@@ -2120,7 +2705,7 @@ def phase_engine(torch, cfg, model, packed, tag, exact_first,
         f" new tokens; {ENGINE}")
     launches, tok_k, st_k, census, _ = run_engine(
         torch, model, packed, reqs, f"{tag}engine kernels")
-    check_path(launches, ENGINE_PATH, "the engine path")
+    check_path(launches, path, f"the {tag}engine path")
     # the same run again, untimed by the numbers above, with every wait of
     # the host on the card counted (sync-debug mode)
     _, tok_w, st_w, _, _ = run_engine(torch, model, packed, reqs,
@@ -2418,6 +3003,8 @@ def parity_main(torch, dev, cfg):
     check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == UNSPLIT_CUBLAS,
           f"{PARITY} needs CUBLAS_WORKSPACE_CONFIG={UNSPLIT_CUBLAS}")
     parity_kernels(torch, dev)
+    parity_moe(torch, dev)
+    torch.cuda.empty_cache()
     data = setup(torch, dev, cfg)
     model, _, _, prompts = data
     for engine, mode in (("sequential", "bits"), ("batched", "bits_if_same")):
@@ -2457,6 +3044,8 @@ def main() -> None:
     card = phase_card(torch)
     phase_build()
     rows = phase_kernels(torch, dev)
+    rows["dequant_matmul_experts"], moe_launches, moe = phase_moe(torch, dev)
+    torch.cuda.empty_cache()
     data = setup(torch, dev, cfg)
     launches, packed, census, k2_main, comp, report = phase_main_path(
         torch, dev, cfg, data)
@@ -2492,7 +3081,8 @@ def main() -> None:
         by_path = {"compress_decode": launches[name],
                    "prune": prune_launches[name],
                    "engine": eng_launches[name],
-                   "paged_engine": paged_launches[name]}
+                   "paged_engine": paged_launches[name],
+                   **{path: n[name] for path, n in moe_launches.items()}}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -2508,6 +3098,7 @@ def main() -> None:
     log(f"[prune] summary: {json.dumps(prune)}")
     log(f"[engine] summary: {json.dumps(eng)}")
     log(f"[paged] summary: {json.dumps(paged)}")
+    log(f"[moe] summary: {json.dumps(moe)}")
     log(f"[done] {time.time() - t_start:.1f}s; card {card}")
     log(json.dumps({"kernels": out}))
     log(card)

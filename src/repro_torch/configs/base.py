@@ -1,25 +1,30 @@
-"""Model configuration (the port's copy of ``repro/configs/base.py``,
-dense family only: the port runs ``llama32-1b``)."""
+"""Model configuration (the port's copy of ``repro/configs/base.py``, for
+the families the port runs: dense ``llama32-1b`` and MoE
+``qwen3-moe-235b-a22b``)."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Optional
 
-_ARCH_IDS = ["llama32-1b"]
+_ARCH_IDS = ["llama32-1b", "qwen3-moe-235b-a22b"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense (the only family the port runs)
+    family: str                 # dense | moe (the families the port runs)
     num_layers: int
     d_model: int
     num_heads: int
     num_kv_heads: int
-    d_ff: int
+    d_ff: int                   # dense MLP dim; for moe = per-expert dim
     vocab_size: int
     head_dim: int = 0           # 0 -> d_model // num_heads
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
     mlp_act: str = "silu"       # silu (gated) | relu2 | gelu (non-gated)
     rope_theta: float = 1e4
     tie_embeddings: bool = False
@@ -39,17 +44,34 @@ class ModelConfig:
             return -(-self.vocab_size // 2048) * 2048
         return -(-self.vocab_size // 128) * 128
 
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.resolved_head_dim
+        return d * (self.num_heads * hd) * 2 + d * (self.num_kv_heads * hd) * 2
+
     def param_count(self) -> int:
-        """Total parameter count N of the dense family."""
-        if self.family != "dense":
-            raise ValueError(self.family)
+        """Total parameter count N of the dense and MoE families."""
         d, L = self.d_model, self.num_layers
-        hd = self.resolved_head_dim
-        attn = d * (self.num_heads * hd) * 2 + d * (self.num_kv_heads * hd) * 2
         gate = 3 if self.mlp_act == "silu" else 2
-        n = L * (attn + gate * d * self.d_ff)
+        if self.family == "dense":
+            mlp = gate * d * self.d_ff
+        elif self.family == "moe":
+            mlp = gate * d * self.d_ff * self.num_experts + d * self.num_experts
+        else:
+            raise ValueError(self.family)
+        n = L * (self._attn_params() + mlp)
         n += d * self.vocab_size * (1 if self.tie_embeddings else 2)
         return int(n)
+
+    def active_param_count(self) -> int:
+        """N_active: the parameters one token reads (MoE: its top-k
+        experts); the whole count for the dense family."""
+        if self.family != "moe":
+            return self.param_count()
+        d, L = self.d_model, self.num_layers
+        gate = 3 if self.mlp_act == "silu" else 2
+        mlp = (gate * d * self.d_ff * self.experts_per_token
+               + d * self.num_experts)
+        return int(L * (self._attn_params() + mlp) + 2 * d * self.vocab_size)
 
 
 def _module_name(arch_id: str) -> str:

@@ -3,12 +3,17 @@
 
 The paper's cost is the O(d_out·d_in²) PGD step, run once per linear and
 iteration. This module buckets a block's linears by ``(weight shape,
-spec)`` — k/v heads, gate/up pairs (and, once MoE is ported, all E experts)
-land in one bucket — stacks their weights into ``(B, d_out, d_in)`` and
+spec)`` — k/v heads, gate/up pairs, all E experts' gate and up projections
+(and apart from them all E down projections) land in one bucket — stacks
+their weights into ``(B, d_out, d_in)`` and
 their :class:`~repro_torch.core.calibration.CalibStats` into one batched
 set, and compresses the bucket with :func:`repro_torch.core.awp.pgd_batched`:
 one launch of the batched step K1b per iteration for the whole bucket,
-per-item convergence masking, no host read inside the loop.
+per-item convergence masking, no host read inside the loop. A bucket
+whose stack would take more than ``BUCKET_BYTES`` of device memory runs as
+consecutive sub-stacks (:func:`substacks`); every quantity of the recipes
+(η, the convergence mask, the projection, the loss) is per item, so each
+item's result is the same as in one stack of the whole bucket.
 
 Methods opt in through :func:`repro_torch.core.registry.register_batched`;
 a method without a batched form, or a bucket of one, runs per layer with
@@ -45,7 +50,7 @@ class LayerWork:
     layer: Optional[int]         # stacked-block index (None for shared)
     spec: CompressSpec
     stats: calib.CalibStats
-    w: torch.Tensor              # (d_out, d_in)
+    w: torch.Tensor              # (d_out, d_in), a view of its leaf
 
 
 def bucket_key(work: LayerWork) -> Tuple[tuple, CompressSpec]:
@@ -62,10 +67,43 @@ def bucket_works(works: Sequence[LayerWork]) -> Dict[tuple, List[int]]:
     return buckets
 
 
-def compress_block(works: Sequence[LayerWork], metrics=None):
+# device bytes a bucket's stack may take before it runs as sub-stacks: at
+# qwen3-moe's full width the {wg, wu} bucket of 256 experts would hold
+# 17.2 GB of covariances alone
+BUCKET_BYTES = 8 << 30
+
+
+def item_bytes(work: LayerWork) -> int:
+    """Device bytes one item adds to a stack, reckoned from its shapes:
+    about eight (d_out, d_in) f32 tensors (W, Θ, Z, the initial Θ, the
+    residual, the projection's and the loss's temporaries) and three
+    (d_in, d_in) (the stacked Σxᵀx, C, and the loss's product)."""
+    d_out, d_in = work.w.shape
+    return 4 * (8 * d_out * d_in + 3 * d_in * d_in)
+
+
+def substacks(bucket: Sequence[LayerWork], budget: int):
+    """A bucket's positions cut into consecutive sub-stacks of near-equal
+    size that fit ``budget`` bytes (:func:`item_bytes`), at least 3 items
+    each, so that no sub-stack is a single item (which would take the
+    per-layer path). One sub-stack when the bucket fits."""
+    n = len(bucket)
+    cap = max(3, budget // max(1, item_bytes(bucket[0])))
+    if n <= cap:
+        return [list(range(n))]
+    return [part.tolist() for part in np.array_split(np.arange(n),
+                                                     -(-n // cap))]
+
+
+def compress_block(works: Sequence[LayerWork], metrics=None,
+                   on_results=None):
     """Compress every queued linear; per-work ``(CompressResult, loss)`` in
     ``works`` order. Losses stay on the device: the driver reads them with
     the rest of the block's metrics in one transfer at the block's end.
+    Each bucket runs as :func:`substacks` of ``BUCKET_BYTES``;
+    ``on_results(indices, results)`` is called after each (where
+    ``compress_model`` writes the weights back), with the works' indices
+    and their results.
 
     ``metrics`` (a :class:`repro_torch.obs.MetricsRegistry`) receives the
     reference's per-bucket telemetry: buckets, layers a bucket, and each
@@ -75,7 +113,13 @@ def compress_block(works: Sequence[LayerWork], metrics=None):
     out: List[Optional[tuple]] = [None] * len(works)
     for (shape, spec), idxs in bucket_works(works).items():
         t0 = time.perf_counter()
-        results, losses = _compress_bucket([works[j] for j in idxs])
+        for part in substacks([works[j] for j in idxs], BUCKET_BYTES):
+            sub = [idxs[p] for p in part]
+            results, losses = _compress_bucket([works[j] for j in sub])
+            for pos, j in enumerate(sub):
+                out[j] = (results[pos], losses[pos])
+            if on_results is not None:
+                on_results(sub, results)
         if metrics is not None:
             lab = {"method": spec.method,
                    "shape": "x".join(str(d) for d in shape)}
@@ -92,8 +136,6 @@ def compress_block(works: Sequence[LayerWork], metrics=None):
                 "block boundary)", labelnames=names,
                 unit="seconds").labels(**lab).observe(
                     time.perf_counter() - t0)
-        for pos, j in enumerate(idxs):
-            out[j] = (results[pos], losses[pos])
     return out
 
 
@@ -105,11 +147,12 @@ def _compress_bucket(bucket: List[LayerWork]):
         # still built once per layer (handed back through aux)
         results, losses = [], []
         for wk in bucket:
-            res = registry.get_method(spec.method)(wk.w, wk.stats, spec)
+            w = wk.w.contiguous()
+            res = registry.get_method(spec.method)(w, wk.stats, spec)
             c = res.aux.pop("covariance", None)
             if c is None:
                 c = calib.covariance(wk.stats, damp=spec.damp)
-            losses.append(awp.activation_loss(wk.w, res.theta, c))
+            losses.append(awp.activation_loss(w, res.theta, c))
             results.append(res)
         return results, losses
 
@@ -330,6 +373,7 @@ def _magnitude_b(w_b, c_b, stats_b, spec):
             for i in range(w_b.shape[0])]
 
 
-__all__ = ["LayerWork", "bucket_key", "bucket_works", "compress_block",
+__all__ = ["BUCKET_BYTES", "LayerWork", "bucket_key", "bucket_works",
+           "compress_block", "item_bytes", "substacks",
            "prune_batched", "prune_batched_compacted", "quantize_batched",
            "joint_batched"]

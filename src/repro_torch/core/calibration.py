@@ -18,13 +18,16 @@ class CalibStats(NamedTuple):
     abs_sum: torch.Tensor    # (d_in,) f32 — Σ |x|
 
 
-def init(d_in: int, device="cuda") -> CalibStats:
+def init(d_in: int, device="cuda", lead=()) -> CalibStats:
+    """Zero stats for inputs of width ``d_in``; ``lead`` dims in front give
+    a stacked set (the MoE experts' (E,) stats)."""
     from repro_torch.device import resolve_device
     dev = resolve_device(device)
-    return CalibStats(n=torch.zeros((), dtype=torch.float32, device=dev),
-                      c_sum=torch.zeros((d_in, d_in), dtype=torch.float32,
-                                        device=dev),
-                      abs_sum=torch.zeros((d_in,), dtype=torch.float32,
+    lead = tuple(lead)
+    return CalibStats(n=torch.zeros(lead, dtype=torch.float32, device=dev),
+                      c_sum=torch.zeros(lead + (d_in, d_in),
+                                        dtype=torch.float32, device=dev),
+                      abs_sum=torch.zeros(lead + (d_in,), dtype=torch.float32,
                                           device=dev))
 
 
@@ -65,5 +68,10 @@ def stack_stats(stats_list: Sequence[CalibStats]) -> CalibStats:
     return CalibStats(*(torch.stack(xs) for xs in zip(*stats_list)))
 
 
+def slice_stats(stats: CalibStats, i) -> CalibStats:
+    """Item ``i`` of a stacked CalibStats (views; no host read)."""
+    return CalibStats(*(x[i] for x in stats))
+
+
 __all__ = ["CalibStats", "init", "update", "covariance", "act_mean_abs",
-           "col_l2", "stack_stats"]
+           "col_l2", "stack_stats", "slice_stats"]

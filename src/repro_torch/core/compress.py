@@ -4,7 +4,7 @@ Block-wise compression with error propagation:
 
   1. embed the calibration batches,
   2. per block: capture every linear's input activations → fold them into
-     per-linear CalibStats,
+     per-linear CalibStats (per-expert stats for MoE blocks),
   3. compress each linear with the method its policy rule selects — by
      default with the batched engine (``core/batched.py``: one program per
      shape bucket, the block's metrics read in one transfer at its end),
@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.core import awp, calibration as calib, registry
 from repro_torch.core.specs import CompressSpec, Policy, qualified_name
-from repro_torch.device import to_host
+from repro_torch.device import to_device, to_host
 from repro_torch.obs import (ITER_BUCKETS, RESIDUAL_BUCKETS, MetricsRegistry,
                              default_registry, trace_window)
 
@@ -59,9 +59,68 @@ def compress_layer(w_paper: torch.Tensor, stats: calib.CalibStats,
 
 
 # ---------------------------------------------------------------------------
+# capture folding
+# ---------------------------------------------------------------------------
+
+def _fold_experts(st: calib.CalibStats, mask: torch.Tensor, acts,
+                  t: int) -> calib.CalibStats:
+    """Fold one batch into stacked (E, …) expert stats, in place: expert e
+    adds Σ_t m_te·a_tᵀa_t and Σ_t m_te·|a_t| over the (T, d) inputs
+    ``acts(e)`` it sees, with ``mask`` (T, E) its 0/1 routing. The reference
+    writes this as one einsum over the expert axis (``te,td,tf->edf``),
+    which naively materializes (T, E, d); here it runs expert by expert.
+    ``n`` counts every token, routed or not, as the reference's does."""
+    for e in range(mask.shape[1]):
+        a = acts(e)
+        m = mask[:, e]
+        st.c_sum[e].addmm_((a * m[:, None]).T, a)
+        st.abs_sum[e].add_(m @ a.abs())
+    return st._replace(n=st.n + t)
+
+
+def _fold_captures(stats: Dict[Any, calib.CalibStats],
+                   caps: Dict[str, torch.Tensor], num_experts: int) -> None:
+    """Fold one batch's captures into the per-capture-key stats dict. MoE
+    experts fold into stacked (E, d, d) statistics under the keys
+    ``("moe",)`` (the gate and up projections' inputs) and
+    ``("moe_down",)`` (each expert's down-projection inputs)."""
+    for key, val in caps.items():
+        if key in ("moe_mask", "moe_up"):
+            continue
+        if key == "moe_in":
+            x = val.reshape(-1, val.shape[-1]).to(torch.float32)    # (T, d)
+            mask = caps["moe_mask"].to(torch.float32)               # (T, E)
+            up = caps["moe_up"].to(torch.float32)                   # (T, E, f)
+            t = x.shape[0]
+            for skey, width, acts in ((("moe",), x.shape[-1], lambda e: x),
+                                      (("moe_down",), up.shape[-1],
+                                       lambda e: up[:, e])):
+                st = stats.get(skey)
+                if st is None:
+                    st = calib.init(width, device=x.device,
+                                    lead=(num_experts,))
+                stats[skey] = _fold_experts(st, mask, acts, t)
+            continue
+        st = stats.get(key)
+        if st is None:
+            st = calib.init(val.shape[-1], device=val.device)
+        stats[key] = calib.update(st, val)
+
+
+def _stats_for(stats, cap_key: str, name: str) -> calib.CalibStats:
+    """A linear's stats: its capture key's, or for an expert ("moe_wu_3")
+    its slice of the stacked expert stats."""
+    if cap_key in ("moe", "moe_down"):
+        return calib.slice_stats(stats[(cap_key,)],
+                                 int(name.rsplit("_", 1)[1]))
+    return stats[cap_key]
+
+
+# ---------------------------------------------------------------------------
 # param tree get/set by path. Path grammar: dict keys, optionally ending in
 # one int (expert index); a leading "blocks" key means the leaf is
-# layer-stacked and ``layer`` selects the leading dim.
+# layer-stacked and ``layer`` selects the leading dim, e.g.
+# ("blocks", "moe", "wu", e) → params["blocks"]["moe"]["wu"][layer, e].
 # ---------------------------------------------------------------------------
 
 def resolve_path(path, layer: Optional[int]):
@@ -80,11 +139,16 @@ def _leaf(params, dict_path):
     return node
 
 
-def get_linear(params, path, layer: Optional[int]) -> torch.Tensor:
-    """Weight in PAPER orientation (d_out, d_in), as a contiguous copy."""
+def _linear_view(params, path, layer: Optional[int]) -> torch.Tensor:
+    """Weight in PAPER orientation (d_out, d_in), as a view of its leaf."""
     dict_path, idx = resolve_path(path, layer)
     leaf = _leaf(params, dict_path)
-    return (leaf[idx] if idx else leaf).T.contiguous()
+    return (leaf[idx] if idx else leaf).T
+
+
+def get_linear(params, path, layer: Optional[int]) -> torch.Tensor:
+    """Weight in PAPER orientation (d_out, d_in), as a contiguous copy."""
+    return _linear_view(params, path, layer).contiguous()
 
 
 def set_linear(params, path, layer: Optional[int], w_paper: torch.Tensor):
@@ -99,6 +163,20 @@ def set_linear(params, path, layer: Optional[int], w_paper: torch.Tensor):
         parent = _leaf(params, dict_path[:-1])
         parent[dict_path[-1]] = value.to(parent[dict_path[-1]].dtype).contiguous()
     return params
+
+
+def _tree_set_many(params, dict_path, idx_list, values) -> None:
+    """Write many PAPER-orientation weights of one stacked leaf in place:
+    ``idx_list`` their stacked-leaf index tuples (one arity), ``values``
+    the weights. One indexed write for the lot (all of a sub-stack's
+    experts of one leaf), not one a weight."""
+    leaf = _leaf(params, dict_path)
+    if len(values) == 1:
+        leaf[idx_list[0]] = values[0].T.to(leaf.dtype)
+        return
+    cols = tuple(to_device(np.array(col), leaf.device)
+                 for col in zip(*idx_list))
+    leaf[cols] = torch.stack([v.T for v in values]).to(leaf.dtype)
 
 
 def _clone(tree):
@@ -222,9 +300,9 @@ def _compress_block_sequential(model, params, block_idx: int, stats,
         spec = policy.spec_for(qname, name)
         if spec is None:
             continue                     # rule says: leave dense
-        st = stats[cap_key]
+        st = _stats_for(stats, cap_key, name)
         if float(st.n) < 1:
-            continue
+            continue                     # no calibration token: keep dense
         w = get_linear(params, path, layer)
         t0 = time.time()
         res = compress_layer(w, st, spec)
@@ -259,7 +337,9 @@ def _compress_block_sequential(model, params, block_idx: int, stats,
 def _block_works(model, params, block_idx: int, stats, policy: Policy):
     """This block's linears resolved against the policy, as LayerWork
     items; one host read per block (the token counts) drops layers that
-    saw no calibration token."""
+    saw no calibration token. Each item's weight is a view of its leaf:
+    the engine stacks a bucket's weights itself, so no second copy of the
+    block's weights is held."""
     from repro_torch.core import batched as _batched
     works = []
     for (name, path, cap_key) in model.block_linears(block_idx):
@@ -268,10 +348,9 @@ def _block_works(model, params, block_idx: int, stats, policy: Policy):
         spec = policy.spec_for(qname, name)
         if spec is None:
             continue                         # rule says: leave dense
-        st = stats[cap_key]
         works.append(_batched.LayerWork(name, qname, tuple(path), layer,
-                                        spec, st,
-                                        get_linear(params, path, layer)))
+                                        spec, _stats_for(stats, cap_key, name),
+                                        _linear_view(params, path, layer)))
     if not works:
         return works
     (ns,) = to_host([torch.stack([wk.stats.n for wk in works])])
@@ -282,20 +361,36 @@ def _compress_block_batched(model, params, block_idx: int, stats,
                             policy: Policy, report: CompressionReport,
                             verbose: bool,
                             metrics: Optional[MetricsRegistry] = None):
-    """Shape-bucketed block compression: one program per bucket, and the
-    block's losses, sparsities, masks and iteration counts read on the
-    host in one transfer at the block's end."""
+    """Shape-bucketed block compression: one program per bucket (or
+    sub-stack of one), and the block's losses, sparsities, masks and
+    iteration counts read on the host in one transfer at the block's end.
+    Each sub-stack's weights are written back as soon as it is done, one
+    indexed write a leaf (the reference's grouped ``_tree_set_many`` at
+    the block's end): no work reads another's weight, and the block's
+    compressed weights are never all held beside the params."""
     from repro_torch.core import batched as _batched
     t0 = time.time()
     works = _block_works(model, params, block_idx, stats, policy)
     if not works:
         return params
-    outcomes = _batched.compress_block(works, metrics=metrics)
+    sparsity: List[Optional[torch.Tensor]] = [None] * len(works)
+
+    def write_back(idxs, results):
+        groups: Dict[tuple, list] = {}
+        for j, res in zip(idxs, results):
+            dict_path, idx = resolve_path(works[j].path, works[j].layer)
+            groups.setdefault(tuple(dict_path), []).append((idx, res.theta))
+            sparsity[j] = (res.theta == 0).to(torch.float32).mean()
+        for dict_path, entries in groups.items():
+            _tree_set_many(params, dict_path, [i for i, _ in entries],
+                           [v for _, v in entries])
+        for res in results:
+            res.theta = None    # written back: the report must not pin a
+                                # second copy of the model on the device
+
+    outcomes = _batched.compress_block(works, metrics=metrics,
+                                       on_results=write_back)
     results = [res for res, _ in outcomes]
-    # in place, slice by slice: the reference gathers a leaf's writes into
-    # one scatter because each functional update copies the whole leaf
-    for wk, res in zip(works, results):
-        set_linear(params, wk.path, wk.layer, res.theta)
 
     # the block's one read: every metric and mask in a single transfer
     has_iters = [j for j, r in enumerate(results) if r.iters is not None]
@@ -303,8 +398,7 @@ def _compress_block_batched(model, params, block_idx: int, stats,
     dev = works[0].w.device
     host = to_host(
         [torch.stack([loss for _, loss in outcomes]),
-         torch.stack([(r.theta == 0).to(torch.float32).mean()
-                      for r in results])]
+         torch.stack(sparsity)]
         + [torch.as_tensor(results[j].iters, dtype=torch.int32, device=dev)
            for j in has_iters]
         + [results[j].mask for j in has_mask])
@@ -318,8 +412,7 @@ def _compress_block_batched(model, params, block_idx: int, stats,
         loss, sp = float(losses[j]), float(sps[j])
         if res.loss is None:
             res.loss = loss
-        res.theta = None        # written back: the report must not pin a
-        if j in masks:          # second copy of the model on the device
+        if j in masks:
             res.mask = masks[j]
         if j in its:
             res.iters = int(its[j])
@@ -368,6 +461,7 @@ def compress_model(model, params, calib_batches: List[dict],
     block_fn = (_compress_block_batched if engine == "batched"
                 else _compress_block_sequential)
     params = _clone(params)
+    num_experts = getattr(model.cfg, "num_experts", 0)
     hs = [model.embed(params, b) for b in calib_batches]
     report = CompressionReport(policy=policy)
     h_block = metrics.histogram(
@@ -379,14 +473,11 @@ def compress_model(model, params, calib_batches: List[dict],
                else contextlib.nullcontext())
         tb = time.time()
         with ctx:
-            stats: Dict[str, calib.CalibStats] = {}
+            stats: Dict[Any, calib.CalibStats] = {}
             for h in hs:
                 _, caps = model.block_apply_one(params, i, h, capture=True)
-                for key, val in caps.items():
-                    st = stats.get(key)
-                    if st is None:
-                        st = calib.init(val.shape[-1], device=val.device)
-                    stats[key] = calib.update(st, val)
+                _fold_captures(stats, caps, num_experts)
+                del caps
             params = block_fn(model, params, i, stats, policy, report,
                               verbose, metrics=metrics)
             hs = [model.block_apply_one(params, i, h)[0] for h in hs]

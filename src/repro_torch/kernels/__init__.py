@@ -1,9 +1,10 @@
-"""Hand-written CUDA kernels K1–K6 (``csrc/``), their wrappers
+"""Hand-written CUDA kernels K1–K6 and K4x (``csrc/``), their wrappers
 (:mod:`~repro_torch.kernels.ops`) and plain versions
 (:mod:`~repro_torch.kernels.ref`).
 
 The port's call sites (the PGD step and projections of ``core.awp``, the
-packed matmul of ``quant.QTensor``, the INT8 cache expansion and the decode
+packed matmuls of ``quant.QTensor`` (K4, and K4x over a stack of experts),
+the INT8 cache expansion and the decode
 attention of ``serving.kv_cache``) reach a kernel through :func:`impl`,
 and one switch decides which function that is:
 

@@ -26,6 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signature of every entry point: (argtypes, restype)
 SIGNATURES = {
     "awp_pgd_step_f32": ([_P] * 6 + [_I] * 5 + [_P], _I),
@@ -33,6 +34,8 @@ SIGNATURES = {
     "topk_row_f32": ([_P, _P] + [_I] * 5 + [_P], _I),
     "quant_project_f32": ([_P, _P, _I, _I, _I, _I, _P], _I),
     "dequant_matmul_f32": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    "dequant_matmul_experts_f32": ([_P] * 5 + [_I] * 5 + [_L] * 4
+                                   + [_I] * 2 + [_P], _I),
     "dequant_matmul_smem_bytes": ([_I, _I], _I),
     "kv_dequant_u8": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     "decode_attn": ([_P] * 10 + [_I] * 9 + [_P], _I),

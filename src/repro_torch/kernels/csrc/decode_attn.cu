@@ -890,7 +890,10 @@ Params make_params(const float* q, const void* k, const void* v,
 // otherwise); lengths (B,) int32; out (B, H, D) f32; ws the merge
 // workspace, (B·Hk·splits·(2g + g·D)) f32 when splits > 1 (else unused).
 // All contiguous on the device, k and v 16-byte aligned; D % 4 == 0,
-// H % Hk == 0, H/Hk ≤ 32, (H/Hk)·D ≤ 1024; the plan (chunk, splits) covers
+// H % Hk == 0, g = H/Hk ≤ 32, and layout()'s P·V plan within its 16
+// accumulators a lane, ⌈D/4 / nl⌉·⌈g / (32 / nl)⌉ ≤ 16 with nl =
+// min(32, pow2_ceil(D/4)) (kernels/ops.py, decode_attn_supported: g·D up
+// to 2048 at D = 64 or 128); the plan (chunk, splits) covers
 // [0, T) with (splits − 1)·chunk < max(T, 1) ≤ splits·chunk. Returns
 // cudaGetLastError().
 extern "C" int decode_attn(const float* q, const void* k, const void* v,

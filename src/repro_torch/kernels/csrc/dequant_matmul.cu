@@ -8,6 +8,19 @@
 // Replaces: src/repro/kernels/dequant_matmul.py, dequant_matmul
 // (pallas_call at :78).
 //
+// K4x, the same product over a stack of E experts (W (E, N, K/2), scale and
+// zero (E, N, K/group)), replaces that pallas_call under jax.vmap over the
+// expert axis (src/repro/models/layers.py:58-59, expert_apply): one launch
+// with the experts on the grid (the tile's y, the GEMV's z, so the GEMV's
+// cluster along y is unchanged). Every expert's x is the same (T, K)
+// activation (stride 0: the MoE up and gate projections) or its own rows
+// at any row and expert stride (the down projection's strided (E, T, f)
+// view of the (T, E, f) activations, read without a copy), and y is written
+// at any row and expert stride, so the shared form writes the reference's
+// (T, E, N) layout directly. Each expert's sums are K4's, in K4's order.
+// Its bound is K4's over the stack: at decode (M = 8) the 403 MB of codes
+// and 50 MB of scales and zeros of one qwen3-moe wg or wu.
+//
 // Bound on an H100 (67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s):
 // - the GEMV (M <= 8, the decode steps) reads N·K/2 bytes of codes and
 //   8·N·K/group of scales and zeros against 2·M·N·K operations: at N = 8192,
@@ -164,9 +177,21 @@ dequant_gemm_kernel(const float* __restrict__ x,
                     const uint8_t* __restrict__ packed,
                     const float* __restrict__ scale,
                     const float* __restrict__ zero, float* __restrict__ y,
-                    int M, int N, int K, int group) {
+                    int M, int N, int K, int group, long long ldx,
+                    long long sx, long long ldy, long long sy) {
   constexpr int BM = C::BM, BN = C::BN, TM = C::TM, TN = C::TN,
                 LDA = C::LDA, LDB = C::LDB;
+  // expert blockIdx.y of a stack: its x rows (stride 0 when shared), its
+  // weight, scales and zeros, its y rows
+  {
+    const size_t e = blockIdx.y;
+    const size_t G = (size_t)(K / group);
+    x += e * sx;
+    packed += e * (size_t)N * (size_t)(K / 2);
+    scale += e * (size_t)N * G;
+    zero += e * (size_t)N * G;
+    y += e * sy;
+  }
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* slots = smem;                               // 2 raw slots
   float* as = reinterpret_cast<float*>(smem + 2 * C::SLOT);  // 2 × (BK, LDA)
@@ -203,7 +228,7 @@ dequant_gemm_kernel(const float* __restrict__ x,
   const bool x_ok = m0 + ar < M;
   const int x_slot0 = (aq0 >> 1) * BM * 8 + ar * 8 + (aq0 & 1) * 4;
   const int x_t0 = 4 * aq0 * LDA + ar;
-  const float* gx = x + (size_t)(x_ok ? m0 + ar : 0) * K + 4 * aq0;
+  const float* gx = x + (x_ok ? m0 + ar : 0) * ldx + 4 * aq0;
   // the weight row this thread copies, dequantizes and transposes (threads
   // tid < BN): its codes, scales and zeros
   const bool w_role = tid < BN;
@@ -390,7 +415,7 @@ dequant_gemm_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int s = 0; s < TN / 4; ++s) {
       const int gn = n0 + col0 + 32 * s;
-      const size_t o = (size_t)gm * N + gn;
+      const long long o = gm * ldy + gn;
       const float* r = acc[i] + 4 * s;
       if constexpr (C::VEC) {
         if (gn < N)
@@ -433,8 +458,19 @@ dequant_gemv_kernel(const float* __restrict__ x,
                     const uint8_t* __restrict__ packed,
                     const float* __restrict__ scale,
                     const float* __restrict__ zero, float* __restrict__ y,
-                    int N, int K, int group, int split) {
+                    int N, int K, int group, int split, long long ldx,
+                    long long sx, long long ldy, long long sy) {
   using C = Gemv<MT>;
+  // expert blockIdx.z of a stack, as in the tile
+  {
+    const size_t e = blockIdx.z;
+    const size_t G = (size_t)(K / group);
+    x += e * sx;
+    packed += e * (size_t)N * (size_t)(K / 2);
+    scale += e * (size_t)N * G;
+    zero += e * (size_t)N * G;
+    y += e * sy;
+  }
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -476,8 +512,7 @@ dequant_gemv_kernel(const float* __restrict__ x,
       if (q < MT * GV_KT / 4) {
         const int m = q >> 6, c = q & 63;
         const bool ok = k0 + 4 * c < ke;
-        cp16(xs + m * GV_KT + 4 * c, ok ? x + (size_t)m * K + k0 + 4 * c : x,
-             ok);
+        cp16(xs + m * GV_KT + 4 * c, ok ? x + m * ldx + k0 + 4 * c : x, ok);
       }
     }
     int g0;
@@ -590,7 +625,7 @@ dequant_gemv_kernel(const float* __restrict__ x,
   if (split == 1) {
     for (int o = tid; o < OUTS; o += THREADS) {
       const int n = n0 + o % GV_COLS;
-      if (n < N) y[(size_t)(o / GV_COLS) * N + n] = red[o];
+      if (n < N) y[(o / GV_COLS) * ldy + n] = red[o];
     }
     return;
   }
@@ -601,7 +636,7 @@ dequant_gemv_kernel(const float* __restrict__ x,
     for (int q = 1; q < split; ++q)
       v = __fadd_rn(v, *cluster.map_shared_rank(red + o, q));
     const int n = n0 + o % GV_COLS;
-    if (n < N) y[(size_t)(o / GV_COLS) * N + n] = v;
+    if (n < N) y[(o / GV_COLS) * ldy + n] = v;
   }
   cluster.sync();                      // no block leaves while read
 }
@@ -624,29 +659,38 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, unsigned long long& ready) {
   return err;
 }
 
+// The strides of a launch over E experts: x's rows and experts (0: every
+// expert reads the same x), y's rows and experts. One expert with x
+// (M, K) and y (M, N) contiguous is K4's plain product.
+struct Strides {
+  int E;
+  long long ldx, sx, ldy, sy;
+};
+
 template <class C>
 int launch_tile(const float* x, const uint8_t* packed, const float* scale,
                 const float* zero, float* y, int M, int N, int K, int group,
-                cudaStream_t stream) {
+                Strides st, cudaStream_t stream) {
   static unsigned long long ready = 0;
   cudaError_t err = allow_smem(dequant_gemm_kernel<C>, C::SMEM, ready);
   if (err != cudaSuccess) return (int)err;
   const int tiles = ((M + C::BM - 1) / C::BM) * ((N + C::BN - 1) / C::BN);
-  dequant_gemm_kernel<C><<<tiles, C::NT, C::SMEM, stream>>>(
-      x, packed, scale, zero, y, M, N, K, group);
+  dequant_gemm_kernel<C><<<dim3(tiles, st.E), C::NT, C::SMEM, stream>>>(
+      x, packed, scale, zero, y, M, N, K, group, st.ldx, st.sx, st.ldy,
+      st.sy);
   return (int)cudaGetLastError();
 }
 
 template <int MT>
 int launch_gemv(const float* x, const uint8_t* packed, const float* scale,
                 const float* zero, float* y, int N, int K, int group,
-                int split, cudaStream_t stream) {
+                int split, Strides st, cudaStream_t stream) {
   static unsigned long long ready = 0;
   cudaError_t err = allow_smem(dequant_gemv_kernel<MT>, Gemv<MT>::SMEM, ready);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((N + GV_COLS - 1) / GV_COLS),
-                     (unsigned)split, 1);
+                     (unsigned)split, (unsigned)st.E);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = Gemv<MT>::SMEM;
   cfg.stream = stream;
@@ -658,7 +702,8 @@ int launch_gemv(const float* x, const uint8_t* packed, const float* scale,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, dequant_gemv_kernel<MT>, x, packed, scale,
-                           zero, y, N, K, group, split);
+                           zero, y, N, K, group, split, st.ldx, st.sx, st.ldy,
+                           st.sy);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -673,16 +718,17 @@ template <bool VEC> using V3 = Tile<2, 1, 1, 1, VEC>;
 template <bool VEC>
 int launch_tile_variant(int variant, const float* x, const uint8_t* packed,
                         const float* scale, const float* zero, float* y,
-                        int M, int N, int K, int group, cudaStream_t s) {
+                        int M, int N, int K, int group, Strides st,
+                        cudaStream_t s) {
   switch (variant) {
     case 0: return launch_tile<V0<VEC>>(x, packed, scale, zero, y, M, N, K,
-                                        group, s);
+                                        group, st, s);
     case 1: return launch_tile<V1<VEC>>(x, packed, scale, zero, y, M, N, K,
-                                        group, s);
+                                        group, st, s);
     case 2: return launch_tile<V2<VEC>>(x, packed, scale, zero, y, M, N, K,
-                                        group, s);
+                                        group, st, s);
     case 3: return launch_tile<V3<VEC>>(x, packed, scale, zero, y, M, N, K,
-                                        group, s);
+                                        group, st, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -716,37 +762,54 @@ extern "C" int dequant_matmul_smem_bytes(int variant, int M) {
   }
 }
 
-// x: (M, K) f32; packed: (N, K/2) uint8; scale, zero: (N, K/group) f32;
-// y: (M, N) f32. Contiguous, on the device; K even, K % group == 0.
-// variant: 0..2 a tile (kernels/ops.py, DEQUANT_TILES), 3.. the GEMV with
-// K split over a cluster of DEQUANT_SPLITS[variant − 3] blocks (M <= 8,
-// vec, K % (32 · split) == 0). vec: K % 32 == 0, group % 32 == 0, N % 4 ==
-// 0 and x and packed 16-byte aligned (else the tile's scalar-copy
-// instantiation). Returns cudaGetLastError(), or the error of a refused
-// attribute or launch.
-extern "C" int dequant_matmul_f32(const float* x, const uint8_t* packed,
-                                  const float* scale, const float* zero,
-                                  float* y, int M, int N, int K, int group,
-                                  int variant, int vec, void* stream) {
+// K4x: for each of E experts, y_e (M, N) = x_e (M, K) · dequant(W_e)ᵀ
+// with W stacked (E, N, K/2) uint8 and scale, zero (E, N, K/group) f32,
+// contiguous. x_e's row m is x + e·sx + m·ldx (sx = 0: one x for every
+// expert), y_e's row m is y + e·sy + m·ldy, rows contiguous. K even, K %
+// group == 0. variant: 0..3 a tile (kernels/ops.py, DEQUANT_TILES), 4.. the
+// GEMV with K split over a cluster of DEQUANT_SPLITS[variant − 4] blocks (M
+// <= 8, vec, K % (32 · split) == 0). vec: K % 32 == 0, group % 32 == 0, N
+// % 4 == 0, x and packed 16-byte aligned and ldx, sx, ldy, sy multiples of
+// 4 (else the tile's scalar-copy instantiation). Experts run on the grid's
+// y (tile) or z (GEMV) axis: one launch for the stack. Returns
+// cudaGetLastError(), or the error of a refused attribute or launch.
+extern "C" int dequant_matmul_experts_f32(
+    const float* x, const uint8_t* packed, const float* scale,
+    const float* zero, float* y, int E, int M, int N, int K, int group,
+    long long ldx, long long sx, long long ldy, long long sy, int variant,
+    int vec, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (E < 1 || E > 65535) return (int)cudaErrorInvalidValue;
+  const Strides st = {E, ldx, sx, ldy, sy};
   if (variant < TILE_VARIANTS)
     return vec ? launch_tile_variant<true>(variant, x, packed, scale, zero, y,
-                                           M, N, K, group, s)
+                                           M, N, K, group, st, s)
                : launch_tile_variant<false>(variant, x, packed, scale, zero,
-                                            y, M, N, K, group, s);
+                                            y, M, N, K, group, st, s);
   const int vi = variant - TILE_VARIANTS;
   if (vi >= NUM_SPLITS || !vec || M < 1 || M > 8 ||
       K % (32 * SPLITS[vi]) != 0)
     return (int)cudaErrorInvalidValue;
   const int sp = SPLITS[vi];
   switch (M) {
-    case 1: return launch_gemv<1>(x, packed, scale, zero, y, N, K, group, sp, s);
-    case 2: return launch_gemv<2>(x, packed, scale, zero, y, N, K, group, sp, s);
-    case 3: return launch_gemv<3>(x, packed, scale, zero, y, N, K, group, sp, s);
-    case 4: return launch_gemv<4>(x, packed, scale, zero, y, N, K, group, sp, s);
-    case 5: return launch_gemv<5>(x, packed, scale, zero, y, N, K, group, sp, s);
-    case 6: return launch_gemv<6>(x, packed, scale, zero, y, N, K, group, sp, s);
-    case 7: return launch_gemv<7>(x, packed, scale, zero, y, N, K, group, sp, s);
-    default: return launch_gemv<8>(x, packed, scale, zero, y, N, K, group, sp, s);
+    case 1: return launch_gemv<1>(x, packed, scale, zero, y, N, K, group, sp, st, s);
+    case 2: return launch_gemv<2>(x, packed, scale, zero, y, N, K, group, sp, st, s);
+    case 3: return launch_gemv<3>(x, packed, scale, zero, y, N, K, group, sp, st, s);
+    case 4: return launch_gemv<4>(x, packed, scale, zero, y, N, K, group, sp, st, s);
+    case 5: return launch_gemv<5>(x, packed, scale, zero, y, N, K, group, sp, st, s);
+    case 6: return launch_gemv<6>(x, packed, scale, zero, y, N, K, group, sp, st, s);
+    case 7: return launch_gemv<7>(x, packed, scale, zero, y, N, K, group, sp, st, s);
+    default: return launch_gemv<8>(x, packed, scale, zero, y, N, K, group, sp, st, s);
   }
+}
+
+// K4: x: (M, K) f32; packed: (N, K/2) uint8; scale, zero: (N, K/group)
+// f32; y: (M, N) f32. Contiguous, on the device: K4x's one expert, with
+// its variants and conditions.
+extern "C" int dequant_matmul_f32(const float* x, const uint8_t* packed,
+                                  const float* scale, const float* zero,
+                                  float* y, int M, int N, int K, int group,
+                                  int variant, int vec, void* stream) {
+  return dequant_matmul_experts_f32(x, packed, scale, zero, y, 1, M, N, K,
+                                    group, K, 0, N, 0, variant, vec, stream);
 }

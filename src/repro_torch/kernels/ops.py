@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written kernels K1–K6 and K6p (``csrc/*.cu``).
+"""Wrappers of the hand-written kernels K1–K6, K4x and K6p (``csrc/*.cu``).
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on ``torch.cuda.current_stream()``
@@ -8,7 +8,8 @@ the plain version runs); a CUDA tensor launches the kernel or raises.
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that its
 main path went through the kernels; a batched (3-D) call of
 :func:`awp_pgd_step` is K1b and counts under ``awp_pgd_step_batched``.
-``K4_CENSUS`` counts K4's launches by (M, N, K, variant), ``K2_CENSUS``
+``K4_CENSUS`` counts K4's launches by (M, N, K, variant), ``K4X_CENSUS``
+K4x's by (E, M, N, K, variant, per_expert), ``K2_CENSUS``
 K2's by (rows, d, k, variant); while :func:`arm_k6_census` is on,
 ``K6_CENSUS`` records each K6 and K6p launch's shapes with device-side
 clones of its lengths (and table), read on the host only afterwards.
@@ -28,12 +29,15 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 KERNELS = ("awp_pgd_step", "topk_row", "quant_project", "dequant_matmul",
-           "kv_dequant", "decode_attn", "decode_attn_paged")
+           "dequant_matmul_experts", "kv_dequant", "decode_attn",
+           "decode_attn_paged")
 # launches per kernel: K1b (a 3-D awp_pgd_step) has its own count
 LAUNCHES = dict.fromkeys(("awp_pgd_step", "awp_pgd_step_batched")
                          + KERNELS[1:], 0)
 # K4's card launches by (M, N, K, variant)
 K4_CENSUS: dict = {}
+# K4x's card launches by (E, M, N, K, variant, per_expert)
+K4X_CENSUS: dict = {}
 # K2's card launches by (rows, d, k, variant)
 K2_CENSUS: dict = {}
 # K6's and K6p's card launches while armed: one dict a launch (kernel,
@@ -46,6 +50,7 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     K4_CENSUS.clear()
+    K4X_CENSUS.clear()
     K2_CENSUS.clear()
     K6_CENSUS.clear()
 
@@ -304,16 +309,18 @@ def dequant_matmul_variants(m: int, k: int, vec: bool = True):
 
 
 def dequant_matmul_tiles(m: int, n: int, k: int, vec: bool = True,
-                         sms: int = H100_SMS) -> int:
+                         sms: int = H100_SMS, experts: int = 1) -> int:
     """The variant K4 runs for an (M, N, K) product on a card with ``sms``
-    SMs. M <= GEMV_MAX_M with vector copies: the GEMV, at the least split
-    that gives a block to every SM, within what K allows (whole 32-code
-    chunks, 256 codes a block or more). Otherwise the tile variant with the
-    least time on the busiest SM, which holds b = ⌈blocks / sms⌉ blocks:
-    ``TILE_COST`` × (1 + ``TILE_SHARE`` × (b − 1)); a tie keeps the larger
-    tile."""
+    SMs, and K4x for ``experts`` such products in one launch (its grid is
+    the experts times one product's). M <= GEMV_MAX_M with vector copies:
+    the GEMV, at the least split that gives a block to every SM, within
+    what K allows (whole 32-code chunks, 256 codes a block or more); so
+    K4x over qwen3-moe's 128 experts runs unsplit (3,072 blocks at N =
+    1536). Otherwise the tile variant with the least time on the busiest
+    SM, which holds b = ⌈blocks / sms⌉ blocks: ``TILE_COST`` × (1 +
+    ``TILE_SHARE`` × (b − 1)); a tie keeps the larger tile."""
     if 1 <= m <= GEMV_MAX_M and vec:
-        cols = -(-n // GEMV_COLS)
+        cols = experts * -(-n // GEMV_COLS)
         best = 0
         for i, s in enumerate(DEQUANT_SPLITS):
             if k % (32 * s) or k // s < 256:
@@ -325,7 +332,7 @@ def dequant_matmul_tiles(m: int, n: int, k: int, vec: bool = True,
 
     def busiest(v):
         bm, bn = DEQUANT_TILES[v]
-        b = -(-(-(-m // bm) * -(-n // bn)) // sms)
+        b = -(-(experts * -(-m // bm) * -(-n // bn)) // sms)
         return TILE_COST[v] * (1 + TILE_SHARE[v] * (b - 1))
     return min(range(len(DEQUANT_TILES)), key=busiest)
 
@@ -383,6 +390,65 @@ def dequant_matmul(x, packed, scale, zero, group_size: int = 128,
     return y
 
 
+def dequant_matmul_experts(x, packed, scale, zero, group_size: int = 128,
+                           per_expert: bool = False, variant=None):
+    """K4x: K4 over a stack of E experts in one launch. packed (E, N, K/2)
+    uint8, scale and zero (E, N, K/group) f32, contiguous; x (M, K) f32
+    shared by every expert, or with ``per_expert`` (E, M, K) f32 at any
+    row and expert stride (the MoE down projection's transposed view of
+    its (M, E, K) activations is read as it is, not copied); the last dim
+    of x contiguous. Returns y (M, E, N) shared and (E, M, N) per expert,
+    the reference's layouts, written by the kernel. The variant is
+    :func:`dequant_matmul_tiles`'s for E products unless ``variant`` names
+    one of :func:`dequant_matmul_variants`; a launch counts in
+    ``K4X_CENSUS``."""
+    if not _on_card("dequant_matmul_experts", x, packed, scale, zero):
+        return ref.dequant_matmul_experts(x, packed, scale, zero, group_size,
+                                          per_expert)
+    if packed.dim() != 3 or x.dim() != (3 if per_expert else 2):
+        raise ValueError("dequant_matmul_experts: packed must be (E, N, K/2),"
+                         " x (E, M, K) per expert or (M, K) shared")
+    e, n, half = packed.shape
+    k = 2 * half
+    m = x.shape[-2]
+    if k % group_size:
+        raise ValueError(f"dequant_matmul_experts: K={k} must be a multiple "
+                         f"of group {group_size}")
+    if x.dtype != torch.float32 or x.shape[-1] != k or (
+            per_expert and x.shape[0] != e):
+        raise ValueError(f"dequant_matmul_experts: x {x.dtype} "
+                         f"{tuple(x.shape)} against packed {tuple(packed.shape)}")
+    if x.stride(-1) != 1 and k > 1:
+        raise ValueError("dequant_matmul_experts: x's last dim must be "
+                         "contiguous")
+    _check("dequant_matmul_experts.packed", packed, torch.uint8, (e, n, half))
+    g = k // group_size
+    _check("dequant_matmul_experts.scale", scale, torch.float32, (e, n, g))
+    _check("dequant_matmul_experts.zero", zero, torch.float32, (e, n, g))
+    ldx, sx = x.stride(-2), (x.stride(0) if per_expert else 0)
+    if per_expert:
+        y = torch.empty((e, m, n), dtype=torch.float32, device=x.device)
+        ldy, sy = n, m * n
+    else:
+        y = torch.empty((m, e, n), dtype=torch.float32, device=x.device)
+        ldy, sy = e * n, n
+    vec = (dequant_matmul_vector_copies(k, n, group_size, x, packed)
+           and ldx % 4 == 0 and sx % 4 == 0)
+    if variant is None:
+        variant = dequant_matmul_tiles(m, n, k, vec, _sms(x.device), e)
+    elif variant not in dequant_matmul_variants(m, k, vec):
+        raise ValueError(f"dequant_matmul_experts: no variant {variant} at "
+                         f"M={m}, K={k}{'' if vec else ' with scalar copies'}")
+    if y.numel():
+        _launch("dequant_matmul_experts", "dequant_matmul_experts_f32",
+                x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                zero.data_ptr(), y.data_ptr(), e, m, n, k, group_size, ldx,
+                sx, ldy, sy, variant, int(vec))
+        key = (e, m, n, k, variant, bool(per_expert))
+        K4X_CENSUS[key] = K4X_CENSUS.get(key, 0) + 1
+    return y
+
+
 def kv_dequant(codes, scale, zero, group_size: int):
     """K5: (R, K) uint8 codes + per-group (R, K/g) f16 scale and zero →
     (R, K) f32 ``(code − zero)·scale``, bit-exact with its plain version."""
@@ -410,6 +476,20 @@ def kv_dequant(codes, scale, zero, group_size: int):
 _KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
 
+def decode_attn_supported(g: int, d: int) -> bool:
+    """True when K6/K6p take g query heads a KV head at head dim d: d % 4
+    == 0, g <= 32, and the generic form's P·V plan (csrc/decode_attn.cu,
+    ``layout``) fits its 16 accumulators a lane: with nl = min(32, d/4
+    rounded up to a power of two) dim lanes of 4 dims each, a lane holds
+    ⌈d/4 / nl⌉ dim quads of ⌈g / (32 / nl)⌉ heads. So g·D up to 2048 at D
+    = 64 or 128 (qwen3-moe: g = 16, D = 128), 1024 at D = 256."""
+    if d % 4 or d < 4 or not 1 <= g <= 32:
+        return False
+    d4 = d // 4
+    nl = 32 if d4 >= 32 else 1 << (d4 - 1).bit_length()
+    return -(-d4 // nl) * -(-g // (32 // nl)) <= 16
+
+
 def _decode_checks(name, q, k, v, lengths, planes, group_size, rows):
     """Checks shared by K6 and K6p: q (B, H, D) f32, k/v (rows, T, Hk, D)
     of one kind — f32, bf16, or uint8 with four f16 (rows, T, Hk, D/g)
@@ -422,9 +502,10 @@ def _decode_checks(name, q, k, v, lengths, planes, group_size, rows):
         raise ValueError(f"{name}: q {tuple(q.shape)} against k "
                          f"{tuple(k.shape)}")
     g = h // hk
-    if d % 4 or g > 32 or g * d > 1024:
+    if not decode_attn_supported(g, d):
         raise ValueError(f"{name}: D={d}, {g} query heads per KV head "
-                         f"not supported (D % 4 == 0, g <= 32, g*D <= 1024)")
+                         f"not supported (D % 4 == 0, g <= 32, and a lane's "
+                         f"P·V outputs within 16 (4-dim, head) quads)")
     _check(f"{name}.q", q, torch.float32, (b, h, d))
     _check(f"{name}.lengths", lengths, torch.int32, (b,))
     quant = bool(planes)
@@ -570,11 +651,12 @@ def decode_attn_paged(q, k_pool, v_pool, table, lengths, k_scale=None,
 
 __all__ = ["AWP_PGD_TILES", "DECODE_BLOCKS_PER_SM", "DECODE_MAX_SPLITS",
            "DEQUANT_SPLITS", "DEQUANT_TILES", "GEMV_COLS", "GEMV_MAX_M",
-           "K2_CENSUS", "K4_CENSUS", "K6_CENSUS", "KERNELS", "LAUNCHES",
+           "K2_CENSUS", "K4_CENSUS", "K4X_CENSUS", "K6_CENSUS", "KERNELS", "LAUNCHES",
            "TILE_COST", "TILE_SHARE", "TOPK_FORMS", "arm_k6_census",
            "awp_pgd_grid", "awp_pgd_step", "awp_pgd_tiles",
            "awp_pgd_vector_copies", "decode_attn", "decode_attn_paged",
-           "decode_attn_splits", "dequant_matmul",
+           "decode_attn_splits", "decode_attn_supported", "dequant_matmul",
+           "dequant_matmul_experts",
            "dequant_matmul_grid", "dequant_matmul_tiles",
            "dequant_matmul_variant_name", "dequant_matmul_variants",
            "dequant_matmul_vector_copies", "kv_dequant", "quant_project",

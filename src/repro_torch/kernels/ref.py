@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the hand-written kernels K1–K6 and K6p (K1b,
-the batched K1, is :func:`awp_pgd_step` on a stack).
+"""Plain PyTorch versions of the hand-written kernels K1–K6, K4x and K6p
+(K1b, the batched K1, is :func:`awp_pgd_step` on a stack).
 
 Each has the signature of its wrapper in :mod:`repro_torch.kernels.ops`, so
 the two are interchangeable: the wrappers take these on CPU tensors, the
@@ -57,6 +57,21 @@ def dequant_matmul(x, packed, scale, zero, group_size: int = 128):
     """y (M, N) = x (M, K) · dequant(W)ᵀ, W nibble-packed (N, K/2)."""
     deq = dequant(unpack_int4(packed), scale, zero, group_size)
     return (x.to(torch.float32) @ deq.T).to(x.dtype)
+
+
+def dequant_matmul_experts(x, packed, scale, zero, group_size: int = 128,
+                           per_expert: bool = False):
+    """K4x's plain version: :func:`dequant_matmul` for each expert e of a
+    stack — packed (E, N, K/2), scale and zero (E, N, K/group) — against x
+    (M, K) shared by every expert, or x[e] of (E, M, K) with
+    ``per_expert``. y is (M, E, N) shared and (E, M, N) per expert, the
+    reference's layouts (``repro/models/layers.py::expert_apply``). One 2-D
+    product an expert, K4's plain version, so under unsplit cuBLAS each
+    expert sums in the kernel's order."""
+    ys = [dequant_matmul(x[e] if per_expert else x, packed[e], scale[e],
+                         zero[e], group_size)
+          for e in range(packed.shape[0])]
+    return torch.stack(ys, dim=0 if per_expert else 1)
 
 
 def kv_dequant(codes, scale, zero, group_size: int):
@@ -145,5 +160,5 @@ def decode_attn_paged(q, k_pool, v_pool, table, lengths, k_scale=None,
 
 
 __all__ = ["awp_pgd_step", "topk_row", "quant_project", "unpack_int4",
-           "dequant", "dequant_matmul", "kv_dequant", "decode_attn",
+           "dequant", "dequant_matmul", "dequant_matmul_experts", "kv_dequant", "decode_attn",
            "decode_attn_paged", "gather_pages"]

@@ -1,4 +1,4 @@
-"""Dense-family model building blocks.
+"""Model building blocks of the dense and MoE families.
 
 Conventions (as ``repro/models/layers.py``):
 - Linear weights are stored ``(d_in, d_out)`` (activation @ weight); the
@@ -38,6 +38,26 @@ def linear_apply(w, x: torch.Tensor) -> torch.Tensor:
         y = w.matmul_dispatch(x.reshape(-1, x.shape[-1]))
         return y.reshape(*lead, y.shape[-1]).to(x.dtype)
     return x @ w
+
+
+def expert_apply(w, x: torch.Tensor, *, per_expert: bool = False
+                 ) -> torch.Tensor:
+    """Batched per-expert linear: x (T, d) → (T, E, f), or per-expert
+    inputs x (E, T, d) → (E, T, f) with ``per_expert``. ``w`` is a stacked
+    dense (E, d, f) weight or a stacked :class:`QTensor` leaf (children
+    lead with E, ``shape`` the per-expert (f, d)), whose product is one
+    K4x launch on the card (``QTensor.expert_matmul``). The reference's
+    ``repro/models/layers.py::expert_apply``. The dense shared form runs
+    one (T, d) × (d, f) product an expert into (E, T, f) storage and
+    returns its (T, E, f) view: no copy of the stack or of x is made."""
+    if isinstance(w, QTensor):
+        return w.expert_matmul(x, per_expert).to(x.dtype)
+    if per_expert:
+        return torch.bmm(x, w)
+    y = x.new_empty((w.shape[0], x.shape[0], w.shape[2]))
+    for e in range(w.shape[0]):
+        torch.mm(x, w[e], out=y[e])
+    return y.transpose(0, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -480,6 +500,6 @@ def mlp_apply(p, x, cfg, *, capture=None):
     return linear_apply(p["wd"], hdn).to(x.dtype)
 
 
-__all__ = ["linear_apply", "dense_init", "embed_init", "rmsnorm", "rope",
+__all__ = ["linear_apply", "expert_apply", "dense_init", "embed_init", "rmsnorm", "rope",
            "mlp_act", "flash_attention", "decode_attention", "paged_write",
            "attn_params", "mlp_params", "attn_apply", "mlp_apply"]

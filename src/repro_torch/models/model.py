@@ -1,10 +1,11 @@
-"""Model registry: config → model instance (dense family)."""
+"""Model registry: config → model instance (dense and MoE families)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.moe import MoEModel
 from repro_torch.models.transformer import DenseModel
 
-_FAMILY = {"dense": DenseModel}
+_FAMILY = {"dense": DenseModel, "moe": MoEModel}
 
 
 def build_model(cfg: ModelConfig):

@@ -56,6 +56,9 @@ def _layer(entry, i: int):
 
 class DenseModel(nn.Module):
     """Dense-family decoder LM; holds its config, no parameters of its own.
+    A family that swaps the block's FFN (``models/moe.py::MoEModel``)
+    subclasses it with its own ``FAMILY``, :meth:`_block_params` and
+    :meth:`_block`.
 
     ``attn_chunk`` is the query and KV chunk of the prefill's
     :func:`~repro_torch.models.layers.flash_attention` (the reference's
@@ -65,11 +68,14 @@ class DenseModel(nn.Module):
     ``EngineConfig.use_fused_decode``.
     """
 
+    FAMILY = "dense"
+
     def __init__(self, cfg: ModelConfig, *, attn_chunk: int = 1024,
                  use_fused_decode: bool = False):
         super().__init__()
-        if cfg.family != "dense" or cfg.frontend is not None:
-            raise ValueError(f"DenseModel runs the plain dense family, got "
+        if cfg.family != self.FAMILY or cfg.frontend is not None:
+            raise ValueError(f"{type(self).__name__} runs the plain "
+                             f"{self.FAMILY} family, got "
                              f"{cfg.family}/{cfg.frontend}")
         self.cfg = cfg
         self.attn_chunk = attn_chunk
@@ -84,15 +90,10 @@ class DenseModel(nn.Module):
         cfg = self.cfg
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        lead = (cfg.num_layers,)
         params = {
             "embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
                                   dtype=dtype, device=dev),
-            "blocks": {
-                "attn": L.attn_params(gen, cfg, lead=lead, dtype=dtype,
-                                      device=dev),
-                "mlp": L.mlp_params(gen, cfg, lead=lead, dtype=dtype,
-                                    device=dev)},
+            "blocks": self._block_params(gen, (cfg.num_layers,), dtype, dev),
             "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
         }
         if not cfg.tie_embeddings:
@@ -100,6 +101,15 @@ class DenseModel(nn.Module):
                                              cfg.padded_vocab, dtype=dtype,
                                              device=dev)
         return params
+
+    def _block_params(self, gen, lead, dtype, dev) -> Params:
+        kw = dict(lead=lead, dtype=dtype, device=dev)
+        return {"attn": L.attn_params(gen, self.cfg, **kw),
+                "mlp": L.mlp_params(gen, self.cfg, **kw)}
+
+    def _block(self, p, x, **kw):
+        """One block of this family (:func:`block_apply` here)."""
+        return block_apply(p, x, self.cfg, **kw)
 
     # -- forward -----------------------------------------------------------
     def embed(self, params: Params, batch: Dict[str, torch.Tensor]):
@@ -125,7 +135,7 @@ class DenseModel(nn.Module):
     def hidden_states(self, params, batch) -> torch.Tensor:
         h = self.embed(params, batch)
         for i in range(self.num_blocks()):
-            h, _ = block_apply(self.block_slice(params, i), h, self.cfg,
+            h, _ = self._block(self.block_slice(params, i), h,
                                attn_chunk=self.attn_chunk)
         return L.rmsnorm(h, params["final_norm"], self.cfg.norm_eps)
 
@@ -156,7 +166,7 @@ class DenseModel(nn.Module):
         is (the returned cache keeps it)."""
         for i in range(self.num_blocks()):
             layer_kv = tuple(_layer(cache[n], i) for n in ("k", "v"))
-            h, _ = block_apply(self.block_slice(params, i), h, self.cfg,
+            h, _ = self._block(self.block_slice(params, i), h,
                                positions=positions, kv_cache=layer_kv,
                                cache_pos=cache["pos"],
                                attend_cache=attend_cache,
@@ -231,8 +241,7 @@ class DenseModel(nn.Module):
 
     def block_apply_one(self, params, i: int, h, *, capture=False):
         cap: Optional[dict] = {} if capture else None
-        out, _ = block_apply(self.block_slice(params, i), h, self.cfg,
-                             capture=cap)
+        out, _ = self._block(self.block_slice(params, i), h, capture=cap)
         return out, (cap or {})
 
     def block_linears(self, i: int):

@@ -114,6 +114,29 @@ class QTensor(NamedTuple):
             return self.matmul(x)
         return self.kernel_matmul(x)
 
+    def expert_matmul(self, x: torch.Tensor,
+                      per_expert: bool = False) -> torch.Tensor:
+        """A stacked expert leaf (every tensor field leads with E; ``shape``
+        stays the per-expert (d_out, d_in)): x (T, d_in) shared by every
+        expert → (T, E, d_out), or x (E, T, d_in) with ``per_expert`` →
+        (E, T, d_out). Each expert's product is :meth:`matmul_dispatch`'s,
+        as the reference vmaps it over the expert axis; on the kernel path
+        one K4x launch computes the stack (a ``col_scale`` leaf pre-scales
+        x per expert, so every expert then reads its own rows)."""
+        if resolved_impl(x.device) == "reference" or not self._nibble_packed():
+            ys = [self.map(lambda t, e=e: t[e]).matmul(
+                      x[e] if per_expert else x)
+                  for e in range(self.packed.shape[0])]
+            return torch.stack(ys, dim=0 if per_expert else 1)
+        mm = impl("dequant_matmul_experts")
+        if self.col_scale is None:
+            return mm(x, self.packed, self.scale, self.zero, self.group_size,
+                      per_expert)
+        xs = ((x if per_expert else x[None]) / self.col_scale[:, None, :])
+        y = mm(xs.to(x.dtype), self.packed, self.scale, self.zero,
+               self.group_size, True)
+        return y if per_expert else y.transpose(0, 1)
+
     def nbytes(self) -> int:
         n = self.packed.numel() * self.packed.element_size()
         n += self.scale.numel() * 4 + self.zero.numel() * 4

@@ -170,9 +170,9 @@ class Engine:
     def __init__(self, model, params, cfg: EngineConfig = EngineConfig(),
                  faults=None, registry: Optional[MetricsRegistry] = None):
         mcfg = model.cfg
-        if mcfg.family != "dense" or mcfg.frontend:
-            raise ValueError(f"the port's engine serves the dense family, "
-                             f"got {mcfg.family}/{mcfg.frontend}")
+        if mcfg.family not in ("dense", "moe") or mcfg.frontend:
+            raise ValueError(f"the port's engine serves token-LM families "
+                             f"(dense/moe), got {mcfg.family}/{mcfg.frontend}")
         if cfg.kv_layout not in ("slots", "paged"):
             raise ValueError(f"kv_layout must be 'slots' or 'paged', got "
                              f"{cfg.kv_layout!r}")

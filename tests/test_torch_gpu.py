@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1–K6 and K6p against their plain PyTorch
+"""The hand-written CUDA kernels K1–K6, K4x and K6p against their plain PyTorch
 versions on the card, at small shapes and edge cases, and the engines'
 host waits and the paged engine's spill/restore round trip there.
 
@@ -450,6 +450,116 @@ def test_dequant_matmul_same_bits(cuda):
             assert torch.equal(a, b), (m, v)
 
 
+# K4x: K4 over a stack of experts in one launch, x shared or per expert
+def _k4x_operands(rng, e, m, n, k, group, dev, per_expert):
+    x = _randn(rng, (e, m, k) if per_expert else (m, k), dev)
+    packed = torch.from_numpy(rng.integers(0, 256, (e, n, k // 2), np.uint8)
+                              ).to(dev)
+    scale = torch.from_numpy(rng.uniform(0.01, 0.1, (e, n, k // group))
+                             .astype(np.float32)).to(dev)
+    zero = torch.from_numpy(rng.integers(0, 16, (e, n, k // group))
+                            .astype(np.float32)).to(dev)
+    return x, packed, scale, zero
+
+
+def _k4x_close(y, y_ref):
+    """K4x's bar, K4's: within 1e-5 of max|y|."""
+    assert y.shape == y_ref.shape
+    err = float((y - y_ref).abs().max())
+    assert err <= 1e-5 * float(y_ref.abs().max()), err
+
+
+# every variant at ragged shapes, both forms, groups 64 and 128: one
+# launch a call, each expert K4's own product, two launches the same bits
+@pytest.mark.parametrize("per_expert", [False, True],
+                         ids=["shared", "per_expert"])
+@pytest.mark.parametrize("e,m,n,k,group", [(3, 1, 68, 256, 64),
+                                           (5, 8, 132, 512, 128),
+                                           (4, 9, 200, 384, 128),
+                                           (2, 70, 132, 256, 64)])
+def test_dequant_matmul_experts_every_variant(cuda, per_expert, e, m, n, k,
+                                              group):
+    rng = np.random.default_rng(44)
+    x, packed, scale, zero = _k4x_operands(rng, e, m, n, k, group, cuda,
+                                           per_expert)
+    y_ref = ref.dequant_matmul_experts(x, packed, scale, zero, group,
+                                       per_expert)
+    for v in ops.dequant_matmul_variants(m, k):
+        y = _launched("dequant_matmul_experts",
+                      lambda: ops.dequant_matmul_experts(
+                          x, packed, scale, zero, group, per_expert,
+                          variant=v))
+        _k4x_close(y, y_ref)
+        again = ops.dequant_matmul_experts(x, packed, scale, zero, group,
+                                           per_expert, variant=v)
+        assert torch.equal(y, again), v
+        # expert 1 alone through K4 gives its slice's bits
+        one = ops.dequant_matmul(x[1] if per_expert else x, packed[1],
+                                 scale[1], zero[1], group, variant=v)
+        assert torch.equal(y[1] if per_expert else y[:, 1], one), v
+
+
+# the down projection's input: the (E, T, f) view of (T, E, f)
+# activations, read at its strides, and a view off a 16-byte boundary
+# (the tile's scalar-copy instantiation)
+@pytest.mark.parametrize("m", [4, 70])
+def test_dequant_matmul_experts_strided_and_misaligned(cuda, m):
+    rng = np.random.default_rng(45)
+    e, n, k, group = 4, 132, 256, 128
+    _, packed, scale, zero = _k4x_operands(rng, e, m, n, k, group, cuda,
+                                           True)
+    up = _randn(rng, (m, e, k), cuda)
+    view = up.transpose(0, 1)
+    y_ref = ref.dequant_matmul_experts(view.contiguous(), packed, scale, zero,
+                                       group, True)
+    ops.reset_launches()
+    y = _launched("dequant_matmul_experts", lambda: ops.dequant_matmul_experts(
+        view, packed, scale, zero, group, True))
+    _k4x_close(y, y_ref)
+    ((key, count),) = ops.K4X_CENSUS.items()
+    assert key[:4] == (e, m, n, k) and key[5] is True and count == 1
+    shifted = torch.empty(up.numel() + 1, device=cuda)[1:].view(m, e, k)
+    shifted.copy_(up)
+    for v in range(len(ops.DEQUANT_TILES)):
+        y = ops.dequant_matmul_experts(shifted.transpose(0, 1), packed, scale,
+                                       zero, group, True, variant=v)
+        _k4x_close(y, y_ref)
+    with pytest.raises(ValueError):
+        ops.dequant_matmul_experts(shifted.transpose(0, 1), packed, scale,
+                                   zero, group, True,
+                                   variant=len(ops.DEQUANT_TILES))
+
+
+# an MoE forward on the card through packed experts: K4x launches three
+# times a layer and the output is the plain path's
+def test_moe_forward_launches_k4x_three_times_a_layer(cuda):
+    from repro_torch import kernels
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import build_model
+    from repro_torch.quant import QTensor
+    cfg = get_tiny_config("qwen3-moe-235b-a22b")
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    moe_p = params["blocks"]["moe"]
+    for name in ("wg", "wu", "wd"):
+        w = moe_p[name]                              # (L, E, d_in, d_out)
+        qts = [QTensor.from_dense(w[i, j].T.contiguous(), 4, 32)
+               for i in range(w.shape[0]) for j in range(w.shape[1])]
+        moe_p[name] = QTensor(
+            *(torch.stack([getattr(q, f) for q in qts]).reshape(
+                w.shape[:2] + getattr(qts[0], f).shape)
+              for f in ("packed", "scale", "zero")),
+            bits=4, group_size=32, shape=qts[0].shape)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), device=cuda)
+    ops.reset_launches()
+    logits = model.logits(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["dequant_matmul_experts"] == 3 * cfg.num_layers
+    with kernels.use_impl("reference"):
+        want = model.logits(params, {"tokens": toks})
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+
+
 # K5 is exact: the same two roundings (subtract, multiply) per element.
 @pytest.mark.parametrize("r,k,group", [(2048, 512, 64), (37, 64, 16),
                                        (5, 96, 32)])
@@ -658,14 +768,15 @@ def _off_by_2(x):
 @pytest.mark.parametrize("kind", ["f32", "bf16", "u8"])
 @pytest.mark.parametrize("g,d", [(1, 16), (3, 32), (4, 64), (8, 128),
                                  (16, 64), (32, 32), (4, 256), (12, 64),
-                                 (2, 20)])
+                                 (2, 20), (16, 128), (32, 64)])
 def test_decode_attn_every_split_count(cuda, kind, g, d):
     """Every split count of K6_SPLIT_BLOCKS, rows ending at, beside and
     past the split boundaries: within 1e-5 of the plain version, two
     launches the same bits, the length-0 row exact zeros, and K6p the same
     bits as K6 on the same rows cut into shuffled pages of 5 positions.
     The (g, D) cover the fast form (g ≤ 4, D ≤ 128) and the generic one
-    (g > 4 or D > 128, up to g = 32 and g·D = 1024); INT8 rows also run
+    (g > 4 or D > 128, up to g = 32 and g·D = 2048: qwen3-moe's g = 16 at
+    D = 128 among them); INT8 rows also run
     with plane views 2 bytes off a 4-byte boundary, which must give the
     same bits."""
     rng = np.random.default_rng(20 + g)

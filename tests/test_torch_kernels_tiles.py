@@ -304,3 +304,16 @@ def test_decode_attn_splits_long_rows_stay_bounded():
     chunk, splits = ops.decode_attn_splits(8, 8, 131072)
     assert splits == 9 and chunk % 256 == 0
     assert ops.decode_attn_splits(128, 8, 2048) == (2048, 1)
+
+
+def test_decode_attn_supported_head_groups():
+    """K6/K6p take every (g, D) whose P·V plan fits 16 accumulators a lane:
+    qwen3-moe's 16 query heads a KV head at D = 128 and the earlier cases
+    (g·D up to 1024), not a group past 32, D not a multiple of 4, or a
+    plan that needs more accumulators (g = 30 at D = 68, g = 8 at D =
+    512)."""
+    for g, d in ((16, 128), (32, 64), (8, 128), (4, 256), (32, 32), (1, 16),
+                 (2, 20), (12, 64)):
+        assert ops.decode_attn_supported(g, d), (g, d)
+    for g, d in ((33, 32), (4, 30), (30, 68), (8, 512), (32, 128)):
+        assert not ops.decode_attn_supported(g, d), (g, d)
