@@ -23,7 +23,24 @@ kernels and through the plain versions, the two held to the parity bars,
 then served by the slot engine of 3 below on the kernels' packed model
 (kernels, sync-debug, plain): only K4, K4x, K5 and K6 may launch, K4x
 three times a layer in every forward, and K4x's census is timed key by
-key. Then it drives the port at the full width of llama32-1b (16 layers,
+key. Then the evaluation phase (:func:`phase_methods`): llama2-7b at its
+published widths cut to 2 of its 32 layers (d_model 4096, 32 MHA heads of
+128, d_ff 11008, vocab 32000 padded to 32768, untied; 0.67e9 f32
+parameters from the seed). The params go through the port's
+``CheckpointManager`` and back bit for bit, and ``restore_checkpoint``
+must refuse a packed checkpoint; perplexity on the compress CLI's four
+held-out batches; then RTN, AWQ, Wanda+AWQ, AWQ+Wanda, AWP-S, SparseGPT,
+GPTQ and AWP prune (ratio 0.5, 4 bits, group 128) each compress the model
+through the batched engine on the kernels, with the host's waits counted a
+block in sync-debug mode (only the method's kernels may launch), and
+through the plain versions, the two held to the repo's bars, each with its
+perplexity after; the four with packed artifacts are packed and their
+perplexity through K4 held to the dense Θ's within 1e-4. SparseGPT and
+GPTQ on block 0's wq run on the card and, the same f64 function, on the
+CPU, held to each other; Fig. 1's loss trace of block 0's wo runs on the
+kernels and plain; and K1, K1b and K3 are held and timed at llama2-7b's
+linears (K2's and K4's new shapes join their censuses below, as the path
+``methods``). Then it drives the port at the full width of llama32-1b (16 layers,
 d_model 2048, d_ff 8192, padded vocab 129024, random weights from a
 seed):
 
@@ -241,6 +258,29 @@ PROFILE_BLOCK = 1
 # the engines' parity bars (tests/test_torch_compress.py,
 # tests/test_torch_batched.py): per-layer loss, share of equal entries
 LOSS_BAR, AGREE_BAR = 1e-5, 0.999
+# the evaluation phase: llama2-7b at its published widths, 2 of its 32
+# layers; the compress CLI's defaults (4 calibration and 4 held-out batches
+# of 8 x 64 tokens); the methods the port added and AWP prune, each at
+# ratio 0.5, 4 bits, group 128, with the kernels it launches in
+# compression (the four with packed artifacts add K4 in their packed
+# perplexity pass)
+METHODS_ARCH, METHODS_LAYERS = "llama2-7b", 2
+EVAL_BATCH, EVAL_SEQ, EVAL_BATCHES = 8, 64, 4
+METHODS = {"rtn": (), "awq": ("quant_project",),
+           "wanda_awq": ("quant_project",), "awq_wanda": ("quant_project",),
+           "awp_quant_scaled": ("awp_pgd_step", "quant_project"),
+           "sparsegpt": (), "gptq": (),
+           "awp_prune": ("awp_pgd_step", "awp_pgd_step_batched", "topk_row")}
+PACKED_METHODS = ("rtn", "awq", "awp_quant_scaled", "gptq")
+METHODS_PATH = ("awp_pgd_step", "awp_pgd_step_batched", "topk_row",
+                "quant_project", "dequant_matmul")
+# K1, K1b and K3 at llama2-7b's linears: {wq, wk, wv, wo}, {wg, wu}, wd
+LLAMA2_K1 = ((4096, 4096), (11008, 4096), (4096, 11008))
+LLAMA2_K1B = ((4, 4096, 4096), (2, 11008, 4096))
+# the packed model's perplexity against the dense Θ's, relative; the Fig.-1
+# loss traces, kernels against plain, and their largest rise a step
+# (tests/test_awp.py:74-80)
+PPL_BAR, TRACE_BAR, TRACE_RISE = 1e-4, 2e-4, 1e-4
 
 
 def k1_variant(torch, b: int, m: int, k: int) -> int:
@@ -559,54 +599,11 @@ def phase_kernels(torch, dev):
     rows = {}   # kernel -> representative (main-path) measurement
 
     # -- K1: Z = Θ + η(W−Θ)C at the four linear shapes --
-    # cuBLAS (the plain version) may split K into partial sums, another
-    # order than the kernel's one FMA chain an output; the tolerance, 1e-5
-    # of max|Z|, admits that. Every tile variant is held to it; the one the
-    # wrapper picks is timed beside the others
-    k1_err, k1_shapes = 0.0, []
-    for m, k in K1_SHAPES:
-        w, theta = randn(m, k), randn(m, k)
-        c = randn(k, k) / math.sqrt(k)
-        # the prune recipe's η = 2/‖C‖_F: not a power of two, so a fused
-        # multiply-add in the epilogue would show
-        eta = 2.0 / torch.linalg.matrix_norm(c)
-        z_ref, nrm_ref = ref.awp_pgd_step(w, theta, c, eta)
-        scale = float(z_ref.abs().max())
-        chosen = k1_variant(torch, 1, m, k)
-        times, err = {}, 0.0
-        for v in range(len(ops.AWP_PGD_TILES)):
-            z, nrm = ops.awp_pgd_step(w, theta, c, eta, variant=v)
-            err_v = float((z - z_ref).abs().max())
-            nerr = float((nrm - nrm_ref).abs() / nrm_ref)
-            check(err_v <= 1e-5 * scale and nerr <= 1e-5,
-                  f"K1 {(m, k)} variant {v}: max|dZ| {err_v:.3e} "
-                  f"(|Z| {scale:.3e}), norm rel err {nerr:.3e}")
-            err = max(err, err_v)
-            times[v] = time_ms(torch, lambda i: ops.awp_pgd_step(
-                w, theta, c, eta, variant=v), 5)
-        ms = times[chosen]
-        plain = time_ms(torch, lambda i: ref.awp_pgd_step(w, theta, c, eta),
-                        5)
-        flops = 2.0 * m * k * k
-        bnd, by = bound_ms(flops, 4.0 * (3 * m * k + k * k))
-        eta_f = float(eta)
-        lib_ms = time_ms(torch, lambda i: torch.addmm(
-            theta, w - theta, c, alpha=eta_f), 5)
-        log(f"[K1] awp_pgd_step {(m, k)}: variant {chosen} "
-            f"{ops.AWP_PGD_TILES[chosen]}, max|dZ| {err:.2e} "
-            f"(|Z|max {scale:.2f}), kernel {ms:.3f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s, {bnd / ms:.0%} of the bound), "
-            f"addmm {lib_ms:.3f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s), "
-            f"plain {plain:.3f} ms, bound {bnd:.3f} ms ({by}); variants "
-            + ", ".join(f"{v}: {t:.3f} ms" for v, t in times.items()))
-        entry = dict(shape=f"M={m},K={k}", variant=chosen, ms=ms,
-                     plain_ms=plain, bound_ms=bnd, bound_by=by,
-                     library_ms=lib_ms, max_abs_err=err, variant_ms=times)
-        k1_err = max(k1_err, err)
-        k1_shapes.append(entry)
-        if (m, k) == (2048, 8192):
-            rows["awp_pgd_step"] = dict(entry)
-    rows["awp_pgd_step"]["max_abs_err"] = k1_err
+    k1_shapes = [check_k1(torch, randn, m, k) for m, k in K1_SHAPES]
+    rows["awp_pgd_step"] = dict(next(e for e in k1_shapes
+                                     if e["shape"] == "M=2048,K=8192"))
+    rows["awp_pgd_step"]["max_abs_err"] = max(e["max_abs_err"]
+                                              for e in k1_shapes)
     rows["awp_pgd_step"]["by_shape"] = k1_shapes
     rows["awp_pgd_step_batched"] = check_k1b(torch, randn)
 
@@ -615,30 +612,82 @@ def phase_kernels(torch, dev):
     # -- K3: exact quantize-dequantize at the four shapes, bits 4 and 8 --
     for r, d, bits in ((8192, 2048, 4), (8192, 2048, 8), (2048, 8192, 4),
                        (2048, 8192, 8), (2048, 2048, 4), (512, 2048, 4)):
-        z = randn(r, d)
-        exact = torch.equal(ops.quant_project(z, bits, 128),
-                            ref.quant_project(z, bits, 128))
-        check(exact, f"K3 ({r}, {d}) bits={bits}: kernel differs from the "
-                     f"plain version")
-        zs = [z.clone() for _ in range(copies_for(8 * z.numel()))]
-        ms = time_ms(torch, lambda i: ops.quant_project(
-            zs[i % len(zs)], bits, 128), 20)
-        plain = time_ms(torch, lambda i: ref.quant_project(
-            zs[i % len(zs)], bits, 128), 20)
-        bnd, by = bound_ms(0.0, 8.0 * z.numel())
-        log(f"[K3] quant_project ({r}, {d}) bits={bits}: exact, kernel "
-            f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})")
+        entry = check_k3(torch, randn, r, d, bits)
         if (r, d, bits) == (8192, 2048, 4):
-            rows["quant_project"] = dict(shape="rows=8192,d=2048,bits=4",
-                                         ms=ms, plain_ms=plain, bound_ms=bnd,
-                                         bound_by=by, library_ms=None,
-                                         max_abs_err=0.0)
+            rows["quant_project"] = entry
 
     rows["dequant_matmul"] = check_k4(torch, dev, gen, randn)
     rows["kv_dequant"] = check_k5(torch, dev, gen)
     rows["decode_attn"] = check_k6(torch, dev, gen)
     rows["decode_attn_paged"] = check_k6p(torch, dev, gen)
     return rows
+
+
+def check_k1(torch, randn, m, k):
+    """K1 at one (M, K): every tile variant within 1e-5 of max|Z| of the
+    plain version (cuBLAS may split K into partial sums, another order
+    than the kernel's one FMA chain an output) and its norm within 1e-5
+    relative; the variant the wrapper picks timed beside the others, the
+    plain version and ``torch.addmm`` (a yardstick the port never calls).
+    Returns the JSON entry."""
+    from repro_torch.kernels import ops, ref
+    w, theta = randn(m, k), randn(m, k)
+    c = randn(k, k) / math.sqrt(k)
+    # the prune recipe's η = 2/‖C‖_F: not a power of two, so a fused
+    # multiply-add in the epilogue would show
+    eta = 2.0 / torch.linalg.matrix_norm(c)
+    z_ref, nrm_ref = ref.awp_pgd_step(w, theta, c, eta)
+    scale = float(z_ref.abs().max())
+    chosen = k1_variant(torch, 1, m, k)
+    times, err = {}, 0.0
+    for v in range(len(ops.AWP_PGD_TILES)):
+        z, nrm = ops.awp_pgd_step(w, theta, c, eta, variant=v)
+        err_v = float((z - z_ref).abs().max())
+        nerr = float((nrm - nrm_ref).abs() / nrm_ref)
+        check(err_v <= 1e-5 * scale and nerr <= 1e-5,
+              f"K1 {(m, k)} variant {v}: max|dZ| {err_v:.3e} "
+              f"(|Z| {scale:.3e}), norm rel err {nerr:.3e}")
+        err = max(err, err_v)
+        times[v] = time_ms(torch, lambda i: ops.awp_pgd_step(
+            w, theta, c, eta, variant=v), 5)
+    ms = times[chosen]
+    plain = time_ms(torch, lambda i: ref.awp_pgd_step(w, theta, c, eta), 5)
+    flops = 2.0 * m * k * k
+    bnd, by = bound_ms(flops, 4.0 * (3 * m * k + k * k))
+    eta_f = float(eta)
+    lib_ms = time_ms(torch, lambda i: torch.addmm(
+        theta, w - theta, c, alpha=eta_f), 5)
+    log(f"[K1] awp_pgd_step {(m, k)}: variant {chosen} "
+        f"{ops.AWP_PGD_TILES[chosen]}, max|dZ| {err:.2e} "
+        f"(|Z|max {scale:.2f}), kernel {ms:.3f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s, {bnd / ms:.0%} of the bound), "
+        f"addmm {lib_ms:.3f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s), "
+        f"plain {plain:.3f} ms, bound {bnd:.3f} ms ({by}); variants "
+        + ", ".join(f"{v}: {t:.3f} ms" for v, t in times.items()))
+    return dict(shape=f"M={m},K={k}", variant=chosen, ms=ms, plain_ms=plain,
+                bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                max_abs_err=err, variant_ms=times)
+
+
+def check_k3(torch, randn, r, d, bits):
+    """K3 at one (rows, d, bits), group 128: the same bits as the plain
+    version; timed beside it. Returns the JSON entry."""
+    from repro_torch.kernels import ops, ref
+    z = randn(r, d)
+    exact = torch.equal(ops.quant_project(z, bits, 128),
+                        ref.quant_project(z, bits, 128))
+    check(exact, f"K3 ({r}, {d}) bits={bits}: kernel differs from the "
+                 f"plain version")
+    zs = [z.clone() for _ in range(copies_for(8 * z.numel()))]
+    ms = time_ms(torch, lambda i: ops.quant_project(
+        zs[i % len(zs)], bits, 128), 20)
+    plain = time_ms(torch, lambda i: ref.quant_project(
+        zs[i % len(zs)], bits, 128), 20)
+    bnd, by = bound_ms(0.0, 8.0 * z.numel())
+    log(f"[K3] quant_project ({r}, {d}) bits={bits}: exact, kernel "
+        f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})")
+    return dict(shape=f"rows={r},d={d},bits={bits}", ms=ms, plain_ms=plain,
+                bound_ms=bnd, bound_by=by, library_ms=None, max_abs_err=0.0)
 
 
 def k2_nan_matrix(torch, dev, gen, rows, d):
@@ -1051,48 +1100,48 @@ def check_k1b(torch, randn):
     so an item that read another's η or C would show): Z within 1e-5 of
     max|Z| and each norm within 1e-5 relative of the plain version's.
     Timed beside its plain version and ``torch.baddbmm`` with one shared η
-    (the same work; a yardstick the port never calls)."""
-    from repro_torch.kernels import ops, ref
-    err_all, by_shape, row = 0.0, [], None
-    for b, m, k in K1B_SHAPES:
-        w, theta = randn(b, m, k), randn(b, m, k)
-        c = randn(b, k, k) / math.sqrt(k)
-        c[1] *= 1.7
-        eta = 2.0 / torch.linalg.matrix_norm(c)                   # (B,)
-        check(len(set(eta.tolist())) == b, f"K1b {(b, m, k)}: η not distinct")
-        z, nrm = ops.awp_pgd_step(w, theta, c, eta)            # K1b: 3-D
-        z_ref, nrm_ref = ref.awp_pgd_step(w, theta, c, eta)
-        err = float((z - z_ref).abs().max())
-        scale = float(z_ref.abs().max())
-        nerr = float(((nrm - nrm_ref).abs() / nrm_ref).max())
-        check(err <= 1e-5 * scale and nerr <= 1e-5,
-              f"K1b {(b, m, k)}: max|dZ| {err:.3e} (|Z| {scale:.3e}), "
-              f"norm rel err {nerr:.3e}")
-        err_all = max(err_all, err)
-        ms = time_ms(torch, lambda i: ops.awp_pgd_step(w, theta, c, eta), 5)
-        plain = time_ms(torch, lambda i: ref.awp_pgd_step(w, theta, c, eta),
-                        5)
-        eta_f = float(eta[0])
-        lib = time_ms(torch, lambda i: torch.baddbmm(
-            theta, w - theta, c, alpha=eta_f), 5)
-        flops = 2.0 * b * m * k * k
-        bnd, by = bound_ms(flops, 4.0 * b * (3 * m * k + k * k))
-        chosen = k1_variant(torch, b, m, k)
-        log(f"[K1b] awp_pgd_step {(b, m, k)}, η {eta.tolist()}: variant "
-            f"{chosen} {ops.AWP_PGD_TILES[chosen]}, max|dZ| {err:.2e} "
-            f"(|Z|max {scale:.2f}), norm rel err {nerr:.1e}, kernel "
-            f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {bnd / ms:.0%} of "
-            f"the bound), baddbmm {lib:.3f} ms ({flops / lib / 1e9:.1f} "
-            f"TFLOP/s), plain {plain:.3f} ms, bound {bnd:.3f} ms ({by})")
-        entry = dict(shape=f"B={b},M={m},K={k}", variant=chosen, ms=ms,
-                     plain_ms=plain, bound_ms=bnd, bound_by=by,
-                     library_ms=lib, max_abs_err=err)
-        by_shape.append(entry)
-        if (b, m, k) == (2, 8192, 2048):
-            row = dict(entry)
-    row["max_abs_err"] = err_all
+    (the same work; a yardstick the port never calls). Returns the row of
+    (2, 8192, 2048) with every shape's entry under ``by_shape``."""
+    by_shape = [k1b_entry(torch, randn, *shape) for shape in K1B_SHAPES]
+    row = dict(next(e for e in by_shape if e["shape"] == "B=2,M=8192,K=2048"))
+    row["max_abs_err"] = max(e["max_abs_err"] for e in by_shape)
     row["by_shape"] = by_shape
     return row
+
+
+def k1b_entry(torch, randn, b, m, k):
+    """K1b at one (B, M, K) (see :func:`check_k1b`); its JSON entry."""
+    from repro_torch.kernels import ops, ref
+    w, theta = randn(b, m, k), randn(b, m, k)
+    c = randn(b, k, k) / math.sqrt(k)
+    c[1] *= 1.7
+    eta = 2.0 / torch.linalg.matrix_norm(c)                   # (B,)
+    check(len(set(eta.tolist())) == b, f"K1b {(b, m, k)}: η not distinct")
+    z, nrm = ops.awp_pgd_step(w, theta, c, eta)            # K1b: 3-D
+    z_ref, nrm_ref = ref.awp_pgd_step(w, theta, c, eta)
+    err = float((z - z_ref).abs().max())
+    scale = float(z_ref.abs().max())
+    nerr = float(((nrm - nrm_ref).abs() / nrm_ref).max())
+    check(err <= 1e-5 * scale and nerr <= 1e-5,
+          f"K1b {(b, m, k)}: max|dZ| {err:.3e} (|Z| {scale:.3e}), "
+          f"norm rel err {nerr:.3e}")
+    ms = time_ms(torch, lambda i: ops.awp_pgd_step(w, theta, c, eta), 5)
+    plain = time_ms(torch, lambda i: ref.awp_pgd_step(w, theta, c, eta), 5)
+    eta_f = float(eta[0])
+    lib = time_ms(torch, lambda i: torch.baddbmm(
+        theta, w - theta, c, alpha=eta_f), 5)
+    flops = 2.0 * b * m * k * k
+    bnd, by = bound_ms(flops, 4.0 * b * (3 * m * k + k * k))
+    chosen = k1_variant(torch, b, m, k)
+    log(f"[K1b] awp_pgd_step {(b, m, k)}, η {eta.tolist()}: variant "
+        f"{chosen} {ops.AWP_PGD_TILES[chosen]}, max|dZ| {err:.2e} "
+        f"(|Z|max {scale:.2f}), norm rel err {nerr:.1e}, kernel "
+        f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {bnd / ms:.0%} of "
+        f"the bound), baddbmm {lib:.3f} ms ({flops / lib / 1e9:.1f} "
+        f"TFLOP/s), plain {plain:.3f} ms, bound {bnd:.3f} ms ({by})")
+    return dict(shape=f"B={b},M={m},K={k}", variant=chosen, ms=ms,
+                plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+                max_abs_err=err)
 
 
 def check_k5(torch, dev, gen):
@@ -1910,6 +1959,344 @@ def parity_moe(torch, dev):
     torch.cuda.empty_cache()
 
 
+def methods_config():
+    """llama2-7b at its published widths, cut to METHODS_LAYERS layers
+    (the one cut: 32 blocks of PGD for eight methods would take hours)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(METHODS_ARCH),
+                               num_layers=METHODS_LAYERS)
+
+
+def method_policy(method: str):
+    """Every linear compressed with ``method`` at ratio 0.5, 4 bits, group
+    128 (the fields its spec class has)."""
+    from repro_torch.core import registry
+    from repro_torch.core.specs import Policy
+    cls = registry.spec_cls_for(method)
+    kw = {f: v for f, v in dict(ratio=0.5, bits=4, group_size=128).items()
+          if hasattr(cls, f)}
+    return Policy(default=cls(method=method, **kw))
+
+
+def check_checkpoint(torch, dev, params):
+    """The port's ``CheckpointManager`` on the full-width params: save,
+    then ``restore_latest`` onto the card, every leaf bit-equal; and
+    ``restore_checkpoint`` refusing a packed checkpoint (a tiny llama2
+    compressed with RTN, made here), which ``restore_latest_packed``
+    loads. Returns the seconds."""
+    from repro_torch.checkpoint import (CheckpointManager,
+                                        restore_checkpoint,
+                                        save_packed_checkpoint)
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.core.compress import compress_model
+    from repro_torch.models import build_model
+    from repro_torch.quant import QTensor
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        mgr = CheckpointManager(os.path.join(tmp, "dense"))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        mgr.save(0, {"params": params})
+        t_save = time.time() - t0
+        t0 = time.time()
+        restored, step = mgr.restore_latest({"params": params})
+        torch.cuda.synchronize()
+        t_restore = time.time() - t0
+        check(step == 0, f"restore_latest gave step {step}")
+        got = list(_leaves(restored["params"]))
+        want = list(_leaves(params))
+        check(len(got) == len(want) and all(
+            a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(got, want)),
+            "the restored checkpoint differs from the saved params")
+        nbytes = sum(t.numel() * t.element_size() for t in want)
+        del restored, got
+        tiny = get_tiny_config(METHODS_ARCH)
+        model_t = build_model(tiny)
+        params_t = model_t.init(SEED, device=dev)
+        cal = [{"tokens": torch.randint(0, tiny.vocab_size, (2, 16),
+                                        device=dev)}]
+        cp_t, rep_t = compress_model(model_t, params_t, cal,
+                                     method_policy("rtn"))
+        save_packed_checkpoint(os.path.join(tmp, "packed"), 0, cp_t, rep_t)
+        path = CheckpointManager(os.path.join(tmp, "packed")).latest_path()
+        try:
+            restore_checkpoint(path, {"params": params_t})
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, "restore_checkpoint loaded a packed checkpoint")
+        loaded, qts, _ = CheckpointManager(os.path.join(
+            tmp, "packed")).restore_latest_packed(params_t, device=dev)
+        check(isinstance(loaded["blocks"]["mlp"]["wd"], QTensor)
+              and len(qts) == 7 * tiny.num_layers,
+              "restore_latest_packed did not give packed leaves")
+    log(f"[methods checkpoint] {nbytes / 1e9:.2f} GB of f32 params: save "
+        f"{t_save:.2f}s, restore_latest onto the card {t_restore:.2f}s, "
+        f"every leaf bit-equal; restore_checkpoint refused a packed "
+        f"checkpoint, restore_latest_packed loaded it")
+    return dict(save_s=t_save, restore_s=t_restore, gigabytes=nbytes / 1e9)
+
+
+def block0_stats(model, params, calib):
+    """Block 0's calibration statistics by capture key, as
+    ``compress_model`` folds them (block 0's input is the embedding)."""
+    from repro_torch.core.compress import _fold_captures
+    stats = {}
+    for b in calib:
+        _, caps = model.block_apply_one(params, 0, model.embed(params, b),
+                                        capture=True)
+        _fold_captures(stats, caps, 0)
+    return stats
+
+
+def check_obs_on_host(torch, model, params, calib):
+    """SparseGPT and GPTQ on block 0's wq (4096 x 4096) on the card and,
+    the same f64 function, on the CPU: masks equal and Θ within 1e-5,
+    GPTQ's codes equal on >= 99.99% of entries with each differing code
+    one step off, its grids within 1e-6, each loss within 1e-5 relative
+    (cuSOLVER's inverse and Cholesky differ from LAPACK's in the last
+    bits). Returns the seconds and counts."""
+    from repro_torch.core import awp, calibration as cal
+    from repro_torch.core.baselines import gptq, sparsegpt
+    from repro_torch.core.compress import get_linear
+    stats = block0_stats(model, params, calib)
+    w = get_linear(params, ("blocks", "attn", "wq"), 0)
+    c32 = cal.covariance(stats["attn_in"], damp=0.01)
+    c = c32.double()
+    w_h, c_h, c32_h = w.cpu(), c.cpu(), c32.cpu()
+    k = w.shape[1] // 2
+    out = {}
+    for name, fn in (("sparsegpt", lambda w_, c_: sparsegpt.prune_weight(
+                         w_, c_, k)),
+                     ("gptq", lambda w_, c_: gptq.quantize_weight(
+                         w_, c_, 4, 128, return_qparams=True))):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        card = fn(w, c)
+        torch.cuda.synchronize()
+        t_card = time.time() - t0
+        t0 = time.time()
+        host = fn(w_h, c_h)
+        t_host = time.time() - t0
+        th, th_h = (card[0] if name == "gptq" else card).cpu(), \
+            host[0] if name == "gptq" else host
+        mask_diff = int(((th != 0) != (th_h != 0)).sum())
+        dtheta = float((th - th_h).abs().max())
+        l_card = float(awp.activation_loss(w_h, th, c32_h))
+        l_host = float(awp.activation_loss(w_h, th_h, c32_h))
+        row = dict(card_s=t_card, host_s=t_host, mask_diff=mask_diff,
+                   max_dtheta=dtheta, loss_card=l_card, loss_host=l_host)
+        msg = ""
+        if name == "gptq":
+            codes, codes_h = card[1].cpu(), host[1]
+            row["codes_agree"] = float((codes == codes_h).double().mean())
+            row["codes_max_step"] = float((codes - codes_h).abs().max())
+            row["grid_rel"] = float(((card[2].cpu() - host[2]).abs()
+                                     / host[2]).max())
+            msg = (f", codes equal on {row['codes_agree']:.6f} (largest "
+                   f"step {row['codes_max_step']:.0f}), grids within "
+                   f"{row['grid_rel']:.1e}")
+            check(row["codes_agree"] >= 0.9999 and row["codes_max_step"] <= 1
+                  and row["grid_rel"] <= 1e-6,
+                  f"GPTQ on the card against the CPU: {row}")
+        else:
+            check(mask_diff == 0 and dtheta <= 1e-5 * float(
+                th_h.abs().max()), f"SparseGPT on the card against the CPU: "
+                                   f"{row}")
+        check(abs(l_card - l_host) <= 1e-5 * l_host,
+              f"{name} on the card against the CPU: loss {l_card} / "
+              f"{l_host}")
+        log(f"[methods host] {name} block 0 wq {tuple(w.shape)}: card "
+            f"{t_card:.2f}s, CPU {t_host:.2f}s (f64 on both); mask entries "
+            f"differ {mask_diff}, max|dΘ| {dtheta:.2e}, loss {l_card:.6f} / "
+            f"{l_host:.6f}" + msg)
+        out[name] = row
+    return out
+
+
+def check_trace_loss(torch, model, params, calib):
+    """Fig. 1's mode on block 0's wo: ``awp.prune(..., trace_loss=True,
+    max_iters=60)`` on the kernels and plain, the traces within
+    ``TRACE_BAR`` and neither rising more than ``TRACE_RISE`` a step.
+    Returns the traces' ends and the kernels' launches."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.core import awp, calibration as cal
+    from repro_torch.core.compress import get_linear
+    from repro_torch.kernels import ops
+    w = get_linear(params, ("blocks", "attn", "wo"), 0)
+    c = cal.covariance(block0_stats(model, params, calib)["attn_out_in"],
+                       damp=0.01)
+    k = w.shape[1] // 2
+    ops.reset_launches()
+    res_k = awp.prune(w, c, k, trace_loss=True, max_iters=60)
+    tr_k = res_k.loss_trace.cpu().numpy()
+    launches = {n: c_ for n, c_ in ops.LAUNCHES.items() if c_}
+    with kernels.use_impl("reference"):
+        tr_p = awp.prune(w, c, k, trace_loss=True,
+                         max_iters=60).loss_trace.cpu().numpy()
+    dmax = float(np.abs(tr_k - tr_p).max())
+    rise = float(max(np.diff(tr_k).max(), np.diff(tr_p).max()))
+    log(f"[methods trace] awp.prune block 0 wo, 60 steps: loss "
+        f"{tr_k[0]:.6f} -> {tr_k[-1]:.6f} (plain {tr_p[0]:.6f} -> "
+        f"{tr_p[-1]:.6f}); max|kernels - plain| {dmax:.2e}, largest rise "
+        f"a step {rise:.2e}; launches {launches}")
+    check(int(res_k.iters) == 60 and tr_k.shape == (60,), "trace length")
+    check(dmax <= TRACE_BAR and rise <= TRACE_RISE and tr_k[-1] <= tr_k[0],
+          f"loss traces: max|dtrace| {dmax:.2e}, largest rise {rise:.2e}")
+    check(launches == {"awp_pgd_step": 60, "topk_row": 60},
+          f"the traced prune's launches {launches}")
+    return dict(first=float(tr_k[0]), last=float(tr_k[-1]), max_diff=dmax,
+                max_rise=rise, launches=launches)
+
+
+def check_methods_shapes(torch, dev):
+    """K1 (every tile variant), K1b and K3 (bits 4) at llama2-7b's linears,
+    each held to its plain version and timed beside it and its bound (K1
+    and K1b also beside ``addmm``/``baddbmm``). Returns the JSON entries
+    by kernel."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    out = {"awp_pgd_step": [check_k1(torch, randn, m, k)
+                            for m, k in LLAMA2_K1],
+           "awp_pgd_step_batched": [k1b_entry(torch, randn, *shape)
+                                    for shape in LLAMA2_K1B],
+           "quant_project": [check_k3(torch, randn, r, d, 4)
+                             for r, d in LLAMA2_K1]}
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_methods(torch, dev):
+    """The paper's evaluation path on llama2-7b at its published widths
+    (two layers): the checkpoint round trip, perplexity before, then each
+    method of ``METHODS`` through the batched engine on the kernels (its
+    host waits counted a block in sync-debug mode, which is also the run
+    timed; only its kernels may launch) and through the plain versions,
+    held to each other at the repo's bars, with its perplexity after; for
+    the methods with packed artifacts the packed model's perplexity
+    through K4, held to the dense Θ's. Then SparseGPT and GPTQ on the card
+    against the CPU, Fig. 1's trace, and K1, K1b and K3 at llama2-7b's
+    shapes. Returns the kernels' new JSON entries, the launches, K4's and
+    K2's census and the numbers."""
+    from repro_torch import kernels
+    from repro_torch.checkpoint import pack_params
+    from repro_torch.core.compress import compress_model
+    from repro_torch.data import DataConfig, ZipfMarkov, calibration_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.compress import perplexity
+    from repro_torch.models import build_model
+    from repro_torch.quant import QTensor
+    t_phase = time.time()
+    cfg = methods_config()
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev)
+    log(f"[methods] {cfg.name}: {cfg.num_layers} of 32 layers (the one "
+        f"cut), d_model {cfg.d_model}, {cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads} KV heads of {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
+        f"untied, {sum(t.numel() for t in _leaves(params)) / 1e9:.3f}e9 f32 "
+        f"parameters from seed {SEED}")
+    summary = dict(checkpoint=check_checkpoint(torch, dev, params))
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=EVAL_SEQ,
+                    global_batch=EVAL_BATCH)
+    calib = [{"tokens": torch.as_tensor(t, device=dev)}
+             for t, _ in calibration_batches(dc, EVAL_BATCHES)]
+    evals = [tuple(torch.as_tensor(a, device=dev)
+                   for a in ZipfMarkov(dc).batch(9000 + i))
+             for i in range(EVAL_BATCHES)]
+    before = perplexity(model, params, evals)
+    log(f"[methods] perplexity before {before:.3f} ({EVAL_BATCHES} held-out "
+        f"batches of {EVAL_BATCH} x {EVAL_SEQ}; random weights)")
+    check(math.isfinite(before), f"perplexity before {before}")
+    summary["perplexity_before"] = before
+    data = (model, params, calib, None)
+    n_layers = 7 * cfg.num_layers
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    k4_census, k2_census, runs = {}, {}, {}
+    for method, kernels_used in METHODS.items():
+        policy = method_policy(method)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        waits, rep_k, cp = count_waits(torch, data, policy,
+                                       f"methods {method} ", keep=True)
+        torch.cuda.synchronize()
+        t_k = time.time() - t0
+        comp = dict(ops.LAUNCHES)
+        check_path(comp, kernels_used, f"{method}'s compression")
+        for key, n in ops.K2_CENSUS.items():
+            k2_census[key] = k2_census.get(key, 0) + n
+        after = perplexity(model, cp, evals)
+        row = dict(kernels_s=t_k, waits_per_block=waits, perplexity=after,
+                   sparsity=rep_k.mean_sparsity(),
+                   mean_loss=rep_k.mean_loss(), compress_launches=comp)
+        if method in PACKED_METHODS:
+            packed = pack_params(cp, rep_k)
+            leaves = [(g, n) for g, n in (("attn", "wq"), ("attn", "wk"),
+                                          ("attn", "wv"), ("attn", "wo"),
+                                          ("mlp", "wg"), ("mlp", "wu"),
+                                          ("mlp", "wd"))
+                      if isinstance(packed["blocks"][g][n], QTensor)]
+            check(len(leaves) == 7, f"{method}: packed leaves {leaves}")
+            row["perplexity_packed"] = perplexity(model, packed, evals)
+            k4 = ops.LAUNCHES["dequant_matmul"]
+            check(k4 == n_layers * EVAL_BATCHES,
+                  f"{method}: K4 launched {k4} times in the packed pass, "
+                  f"expected {n_layers * EVAL_BATCHES}")
+            rel = abs(row["perplexity_packed"] - after) / after
+            check(rel <= PPL_BAR, f"{method}: packed perplexity "
+                                  f"{row['perplexity_packed']} against the "
+                                  f"dense Θ's {after} ({rel:.1e})")
+            for key, n in ops.K4_CENSUS.items():
+                k4_census[key] = k4_census.get(key, 0) + n
+            del packed
+        for name, n in ops.LAUNCHES.items():
+            launches[name] += n
+        del cp
+        torch.cuda.empty_cache()
+        ops.reset_launches()
+        with kernels.use_impl("reference"):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            cp_p, rep_p = compress_model(model, params, calib, policy)
+            torch.cuda.synchronize()
+            row["plain_s"] = time.time() - t0
+            row["perplexity_plain"] = perplexity(model, cp_p, evals)
+        check(not any(ops.LAUNCHES.values()), f"{method}'s plain run "
+                                              f"launched a kernel")
+        del cp_p
+        torch.cuda.empty_cache()
+        row["kernels_vs_plain"] = hold_reports(
+            torch, rep_k, rep_p, f"methods {method}", n_layers,
+            iters_equal=False, show_all=True)
+        check(math.isfinite(after) and math.isfinite(row["perplexity_plain"]),
+              f"{method}: perplexity {after} / {row['perplexity_plain']}")
+        log(f"[methods] {method}: compression on the kernels {t_k:.2f}s "
+            f"(sync-debug mode), plain {row['plain_s']:.2f}s; sparsity "
+            f"{row['sparsity']:.4f}, mean loss {row['mean_loss']:.6f}; "
+            f"perplexity {before:.3f} -> {after:.3f} (plain "
+            f"{row['perplexity_plain']:.3f}"
+            + (f", packed through K4 {row['perplexity_packed']:.3f}"
+               if "perplexity_packed" in row else "")
+            + f"); host waits a block {waits}; launches {comp}")
+        runs[method] = row
+    check_path(launches, METHODS_PATH, "the methods path")
+    summary["methods"] = runs
+    summary["obs_on_host"] = check_obs_on_host(torch, model, params, calib)
+    summary["trace"] = check_trace_loss(torch, model, params, calib)
+    del data, params, calib, evals
+    torch.cuda.empty_cache()
+    shapes = check_methods_shapes(torch, dev)
+    summary["seconds"] = time.time() - t_phase
+    log(f"[methods] phase {summary['seconds']:.1f}s; launches {launches}")
+    return shapes, launches, k4_census, k2_census, summary
+
+
 def policy_for(name: str):
     """The main path's policy ("mixed": every attn.wo AWP-pruned to 50%,
     every other linear AWP-int4, group 128) or the paper's Table-1 prune
@@ -2149,7 +2536,6 @@ def count_waits(torch, data, policy, tag, keep=False):
     line of the call that waited). Returns the waits a block and the
     report, and with ``keep`` the compressed params too."""
     from collections import Counter
-    from repro_torch.core import awp
     from repro_torch.core.compress import compress_model
     model, params, calib, _ = data
     torch.cuda.synchronize()
@@ -2175,21 +2561,36 @@ def count_waits(torch, data, policy, tag, keep=False):
     log(f"[{tag}waits] {len(syncs)} host waits in one batched compression "
         f"({starts[0]} before block 0); per block {per_block}; "
         f"{waits['other']} other warnings")
-    # expected: the block's token counts and its end-of-block transfer,
-    # plus one read after each chunk of a prune that runs alone (the
-    # sequential loop; none after the chunk that ends at the cap)
-    chunk, cap = awp.PGD_CHUNK_ITERS, awp.PRUNE_CONFIG.max_iters
-    expect = [2] * model.num_blocks()
-    buckets = {}
-    for r in report:
-        buckets.setdefault((r.block, r.method), []).append(r)
-    for (block, method), layers in buckets.items():
-        if method == "awp_prune" and len(layers) == 1:
-            its = report.artifacts[layers[0].qualname].result.iters
-            expect[block] += min(-(-its // chunk), -(-cap // chunk) - 1)
+    expect = expected_waits(params, report, model.num_blocks())
     check(per_block == expect, f"host waits per block {per_block}, "
                                f"expected {expect}")
     return (per_block, report, cp) if keep else (per_block, report)
+
+
+def expected_waits(params, report, n_blocks):
+    """The host's waits a block of one batched compression: the block's
+    token counts and its end-of-block transfer, plus for an AWP prune one
+    read after each chunk of ``awp.PGD_CHUNK_ITERS`` steps — of ``pgd``'s
+    loop when the layer runs alone (none after the chunk that ends at the
+    cap), of ``prune_batched_compacted``'s when a bucket (same block,
+    method and shape) holds several, until its last item stops. Every
+    other method reads nothing on the host."""
+    from repro_torch.core import awp
+    from repro_torch.core.compress import _linear_view
+    chunk, cap = awp.PGD_CHUNK_ITERS, awp.PRUNE_CONFIG.max_iters
+    expect = [2] * n_blocks
+    buckets = {}
+    for r in report:
+        art = report.artifacts[r.qualname]
+        shape = tuple(_linear_view(params, art.path, art.layer).shape)
+        buckets.setdefault((r.block, r.method, shape), []).append(
+            art.result.iters)
+    for (block, method, _), its in buckets.items():
+        if method == "awp_prune":
+            alone = len(its) == 1
+            expect[block] += min(-(-max(its) // chunk),
+                                 -(-cap // chunk) - alone)
+    return expect
 
 
 def profile_compression(torch, data, report, n_layers):
@@ -3046,6 +3447,12 @@ def main() -> None:
     rows = phase_kernels(torch, dev)
     rows["dequant_matmul_experts"], moe_launches, moe = phase_moe(torch, dev)
     torch.cuda.empty_cache()
+    shapes, methods_launches, methods_k4, methods_k2, methods = \
+        phase_methods(torch, dev)
+    for name, entries in shapes.items():
+        rows[name].setdefault("by_shape", [dict(rows[name])])
+        rows[name]["by_shape"] += entries
+    torch.cuda.empty_cache()
     data = setup(torch, dev, cfg)
     launches, packed, census, k2_main, comp, report = phase_main_path(
         torch, dev, cfg, data)
@@ -3061,11 +3468,12 @@ def main() -> None:
                                 cfg.num_layers)
     rows["decode_attn"]["census"] = k6_census["slot"]
     rows["decode_attn_paged"]["census"] = k6_census["paged"]
-    k4_census = phase_k4_census(torch, dev, dict(zip(
-        K4_PATHS, (census, slot_census, paged_census))))
+    k4_census = phase_k4_census(torch, dev, {
+        **dict(zip(K4_PATHS, (census, slot_census, paged_census))),
+        "methods": methods_k4})
     rows["dequant_matmul"]["census"] = k4_census
-    rows["topk_row"]["census"] = phase_k2_census(torch, dev,
-                                                 {**k2_main, **k2_prune})
+    rows["topk_row"]["census"] = phase_k2_census(
+        torch, dev, {**k2_main, **k2_prune, "methods": methods_k2})
     eng["profile"], paged["profile"], comp["profile"] = phase_profile(
         torch, cfg, data, report, packed,
         {"slot": (slot_tokens, eng["kernels"]),
@@ -3082,7 +3490,8 @@ def main() -> None:
                    "prune": prune_launches[name],
                    "engine": eng_launches[name],
                    "paged_engine": paged_launches[name],
-                   **{path: n[name] for path, n in moe_launches.items()}}
+                   **{path: n[name] for path, n in moe_launches.items()},
+                   "methods": methods_launches[name]}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -3099,6 +3508,7 @@ def main() -> None:
     log(f"[engine] summary: {json.dumps(eng)}")
     log(f"[paged] summary: {json.dumps(paged)}")
     log(f"[moe] summary: {json.dumps(moe)}")
+    log(f"[methods] summary: {json.dumps(methods)}")
     log(f"[done] {time.time() - t_start:.1f}s; card {card}")
     log(json.dumps({"kernels": out}))
     log(card)

@@ -1,4 +1,6 @@
-"""Packed checkpoints in the format of ``repro/checkpoint/checkpoint.py``.
+"""Checkpoints in the format of ``repro/checkpoint/checkpoint.py``: dense
+(:func:`save_checkpoint`, :func:`restore_checkpoint`,
+:class:`CheckpointManager`) and packed.
 
 Layout:  <dir>/step_<N>/
            manifest.json     — keys, step, packed-layer metadata, policy
@@ -7,11 +9,14 @@ Layout:  <dir>/step_<N>/
            packed.npz        — per packed layer: ``<name>#packed``, ``#scale``,
                                ``#zero`` (and ``#col_scale``, ``#mask``)
 
-Quantized layers' dense slices are zeroed in arrays.npz (compressed, so the
-holes cost nothing); loading rebuilds the QTensors. A leaf stays a stacked
-packed QTensor only when every slice of it is uniformly quantized and
-unmasked (:func:`_packable_groups`); other packed layers are materialized
-densely. Writes are atomic (``step_<N>.tmp`` then ``os.rename``).
+A dense checkpoint has no packed.npz and no ``packed`` manifest entry; a
+checkpoint written by either package restores in the other. In a packed
+one, quantized layers' dense slices are zeroed in arrays.npz (compressed, so
+the holes cost nothing); loading rebuilds the QTensors. A leaf stays a
+stacked packed QTensor only when every slice of it is uniformly quantized
+and unmasked (:func:`_packable_groups`); other packed layers are
+materialized densely. Writes are atomic (``step_<N>.tmp`` then
+``os.rename``); :class:`CheckpointManager` keeps the newest ``keep_n``.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import itertools
 import json
 import os
 import shutil
+import threading
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -27,6 +33,17 @@ import torch
 from repro_torch.core.compress import resolve_path, set_linear
 from repro_torch.device import resolve_device
 from repro_torch.quant import QTensor
+
+
+def _np(t) -> np.ndarray:
+    """Host numpy copy of a leaf; bf16 widens to f32 (npz has no bf16; the
+    widening is exact), as the reference stores it."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return t.cpu().numpy()
+    return np.asarray(t)
 
 
 def _keystr(path) -> str:
@@ -56,9 +73,7 @@ def _write_step_dir(directory: str, step: int, tree: Any, *,
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    arrays = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                  else np.asarray(v))
-              for k, v in _flatten(tree).items()}
+    arrays = {k: _np(v) for k, v in _flatten(tree).items()}
     savez = np.savez_compressed if compress else np.savez
     savez(os.path.join(tmp, "arrays.npz"), **arrays)
     if extra_arrays:
@@ -78,6 +93,49 @@ def save_checkpoint(directory: str, step: int, tree: Any) -> str:
     return _write_step_dir(directory, step, tree)
 
 
+def restore_checkpoint(path: str, target: Any,
+                       shardings: Optional[Any] = None, *,
+                       _allow_packed: bool = False,
+                       _skip_keys: frozenset = frozenset(),
+                       _device: Optional[torch.device] = None) -> Any:
+    """Restore into the structure of ``target`` (nested dicts of tensors):
+    every leaf comes back with the target leaf's dtype, on its device.
+
+    ``shardings`` places leaves on a device mesh in the reference; one
+    card has no mesh, so only None is taken. A packed checkpoint is
+    refused (its dense arrays hold zeroed holes where the codes live):
+    load it with :func:`load_packed_checkpoint`. ``_skip_keys`` (for the
+    packed loader) names leaves whose stored arrays are not read; the
+    target's own leaf stands in for the caller to replace; ``_device``
+    places every leaf there instead of on its target leaf's device."""
+    if shardings is not None:
+        raise ValueError("restore_checkpoint: shardings need a device mesh; "
+                         "the port restores onto one device (pass None)")
+    if not _allow_packed:
+        man_path = os.path.join(path, "manifest.json")
+        if os.path.exists(man_path):
+            with open(man_path) as f:
+                if "packed" in json.load(f):
+                    raise ValueError(
+                        f"{path} is a packed checkpoint — load it with "
+                        f"load_packed_checkpoint (serve with --packed)")
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        # skipped leaves' (zeroed-hole) entries are never decompressed
+        data = {k: z[k] for k in z.files if k not in _skip_keys}
+    out = _copy_dicts(target)
+    for key_path, leaf in _paths(target):
+        key = _keystr(key_path)
+        if key in _skip_keys:
+            continue                      # placeholder; caller replaces it
+        if key not in data:
+            raise KeyError(f"checkpoint missing leaf {key}")
+        arr = torch.from_numpy(data[key])
+        if isinstance(leaf, torch.Tensor):
+            arr = arr.to(device=_device or leaf.device, dtype=leaf.dtype)
+        _set_leaf(out, key_path, arr)
+    return out
+
+
 def _packed_key(name: str, field: str) -> str:
     return f"{name}#{field}"
 
@@ -88,10 +146,6 @@ def _layer_meta(art) -> dict:
             "shape": list(qt.shape), "path": list(art.path),
             "layer": art.layer, "has_mask": art.result.mask is not None,
             "has_col_scale": qt.col_scale is not None}
-
-
-def _np(t) -> np.ndarray:
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
 def save_packed_checkpoint(directory: str, step: int, params: Any,
@@ -263,17 +317,8 @@ def load_packed_checkpoint(path: str, target: Any, *,
         packable, dense_names = _packable_groups(packed_meta, target)
     skip = {_keystr(dict_path) for dict_path in packable}
 
-    with np.load(os.path.join(path, "arrays.npz")) as z:
-        stored = {k: z[k] for k in z.files if k not in skip}
-    params = _copy_dicts(target)
-    for path, leaf in _paths(target):
-        key = _keystr(path)
-        if key in skip:
-            continue
-        if key not in stored:
-            raise KeyError(f"checkpoint missing leaf {key}")
-        arr = torch.from_numpy(stored[key]).to(device=dev, dtype=leaf.dtype)
-        _set_leaf(params, path, arr)
+    params = restore_checkpoint(path, target, _allow_packed=True,
+                                _skip_keys=frozenset(skip), _device=dev)
 
     def field_of(name, field):
         return getattr(qtensors[name], field).to(dev)
@@ -308,6 +353,76 @@ def latest_path(directory: str) -> Optional[str]:
     return None if step is None else os.path.join(directory, f"step_{step:08d}")
 
 
-__all__ = ["save_checkpoint", "save_packed_checkpoint",
-           "load_packed_checkpoint", "pack_params", "latest_step",
-           "latest_path"]
+def _host_copy(tree):
+    """A host snapshot of a dense tree: every tensor copied to the CPU (a
+    copy even when it is there already, so later in-place updates of the
+    caller's tensors do not reach the save)."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return np.array(tree, copy=True)
+
+
+class CheckpointManager:
+    """Step directories under ``directory``, the newest ``keep_n`` kept."""
+
+    def __init__(self, directory: str, keep_n: int = 3):
+        self.directory = directory
+        self.keep_n = keep_n
+        self._thread: Optional[threading.Thread] = None
+
+    def save(self, step: int, tree: Any):
+        save_checkpoint(self.directory, step, tree)
+        self._rotate()
+
+    def save_async(self, step: int, tree: Any):
+        """Non-blocking save: a host snapshot now, written on a worker
+        thread (one save in flight; an earlier one is waited for)."""
+        self.wait()
+        host_tree = _host_copy(tree)
+        self._thread = threading.Thread(
+            target=lambda: (save_checkpoint(self.directory, step, host_tree),
+                            self._rotate()))
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def latest_step(self) -> Optional[int]:
+        return latest_step(self.directory)
+
+    def latest_path(self) -> Optional[str]:
+        return latest_path(self.directory)
+
+    def restore_latest(self, target, shardings=None):
+        """``(tree, step)`` from the newest checkpoint, or ``(None, None)``
+        when the directory holds none."""
+        path = self.latest_path()
+        if path is None:
+            return None, None
+        step = int(os.path.basename(path).split("_")[1])
+        return restore_checkpoint(path, target, shardings), step
+
+    def restore_latest_packed(self, target, *, materialize: bool = False,
+                              device="cuda"):
+        """``(params, {name: QTensor}, manifest)`` from the newest packed
+        checkpoint, or ``(None, None, None)`` when there is none."""
+        path = self.latest_path()
+        if path is None:
+            return None, None, None
+        return load_packed_checkpoint(path, target, materialize=materialize,
+                                      device=device)
+
+    def _rotate(self):
+        steps = sorted(int(d.split("_")[1]) for d in os.listdir(self.directory)
+                       if d.startswith("step_") and not d.endswith(".tmp"))
+        for s in steps[:-self.keep_n]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"))
+
+
+__all__ = ["CheckpointManager", "save_checkpoint", "restore_checkpoint",
+           "save_packed_checkpoint", "load_packed_checkpoint", "pack_params",
+           "latest_step", "latest_path"]

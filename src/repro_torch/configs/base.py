@@ -1,5 +1,6 @@
 """Model configuration (the port's copy of ``repro/configs/base.py``, for
-the families the port runs: dense ``llama32-1b`` and MoE
+the families the port runs: dense ``llama32-1b``, ``llama2-7b``,
+``llama2-13b``, ``llama31-8b`` and ``granite-8b``, and MoE
 ``qwen3-moe-235b-a22b``)."""
 from __future__ import annotations
 
@@ -7,7 +8,8 @@ import dataclasses
 import importlib
 from typing import Optional
 
-_ARCH_IDS = ["llama32-1b", "qwen3-moe-235b-a22b"]
+_ARCH_IDS = ["llama32-1b", "llama2-7b", "llama2-13b", "llama31-8b",
+             "granite-8b", "qwen3-moe-235b-a22b"]
 
 
 @dataclasses.dataclass(frozen=True)

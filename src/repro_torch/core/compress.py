@@ -393,14 +393,14 @@ def _compress_block_batched(model, params, block_idx: int, stats,
     results = [res for res, _ in outcomes]
 
     # the block's one read: every metric and mask in a single transfer
-    has_iters = [j for j, r in enumerate(results) if r.iters is not None]
+    # iteration counts on the device ride along; a method that reports a
+    # host int (AWP-S's fixed 10) keeps it, since uploading it would wait
+    has_iters = [j for j, r in enumerate(results) if torch.is_tensor(r.iters)]
     has_mask = [j for j, r in enumerate(results) if r.mask is not None]
-    dev = works[0].w.device
     host = to_host(
         [torch.stack([loss for _, loss in outcomes]),
          torch.stack(sparsity)]
-        + [torch.as_tensor(results[j].iters, dtype=torch.int32, device=dev)
-           for j in has_iters]
+        + [results[j].iters.to(torch.int32) for j in has_iters]
         + [results[j].mask for j in has_mask])
     losses, sps = host[:2]
     its = dict(zip(has_iters, host[2:2 + len(has_iters)]))

@@ -7,10 +7,14 @@ A *method* is any callable
 where ``w_paper`` is the weight in paper orientation (d_out, d_in),
 ``stats`` the layer's :class:`repro_torch.core.calibration.CalibStats`, and
 ``spec`` a :class:`repro_torch.core.specs.CompressSpec`. ``compress_model``
-dispatches to it through any policy naming it. The port registers
-``awp_prune``, ``awp_prune_nm``, ``awp_quant``, ``awp_joint``, ``wanda`` and
-``magnitude``; each also has a batched form (:func:`register_batched`) that
-the batched engine (``core/batched.py``) runs over a whole shape bucket.
+dispatches to it through any policy naming it. The port registers the
+reference's 13 methods: ``awp_prune``, ``awp_prune_nm``, ``awp_quant``,
+``awp_quant_scaled``, ``awp_joint``, ``wanda``, ``magnitude``,
+``sparsegpt``, ``rtn``, ``awq``, ``gptq``, ``wanda_awq`` and
+``awq_wanda``. The first four AWP recipes (all but ``awp_quant_scaled``),
+``wanda`` and ``magnitude`` also have a batched form
+(:func:`register_batched`) that the batched engine (``core/batched.py``)
+runs over a whole shape bucket; the others run there per layer.
 """
 from __future__ import annotations
 
@@ -82,7 +86,7 @@ def _load_builtins() -> None:
     if _BUILTINS_LOADED:
         return
     import repro_torch.core.awp        # noqa: F401  (awp_*)
-    import repro_torch.core.baselines  # noqa: F401  (wanda, magnitude)
+    import repro_torch.core.baselines  # noqa: F401  (the baselines)
     import repro_torch.core.batched    # noqa: F401  (the batched forms)
     _BUILTINS_LOADED = True            # only after every import succeeded
 

@@ -9,13 +9,14 @@ JSON of ``Policy.to_dict`` that both packages read, e.g.
   --policy '{"rules": [["*.attn.wo", {"kind": "PruneSpec", "ratio": 0.5}]],
              "default": {"kind": "QuantSpec", "bits": 4}}'
 
-Compresses the random init of ``--seed`` (loading a trained checkpoint is
-not ported) with the batched engine (``--engine sequential`` for the
-layer-at-a-time reference driver), prints the per-layer losses and
-saves the compressed params: packed QTensor codes included with
-``--save-packed``, in the checkpoint format of the JAX package.
-Perplexity before and after is not printed: the model's loss is not
-ported.
+Restores the newest checkpoint under ``--ckpt`` (one written by either
+package: ``{"params": ...}``; without one it compresses the random init of
+``--seed``), measures perplexity on four held-out Zipf-Markov batches,
+compresses with the batched engine (``--engine sequential`` for the
+layer-at-a-time reference driver), prints the per-layer losses and the
+perplexity before and after, and saves the compressed params: packed
+QTensor codes included with ``--save-packed``, in the checkpoint format of
+the JAX package.
 
 ``--metrics-json PATH`` writes the compression telemetry
 (``repro_torch.obs``: per-layer iterations, residuals and seconds, per-bucket
@@ -30,12 +31,13 @@ import json
 
 import torch
 
-from repro_torch.checkpoint import save_checkpoint, save_packed_checkpoint
+from repro_torch.checkpoint import (CheckpointManager, save_checkpoint,
+                                    save_packed_checkpoint)
 from repro_torch.configs import get_config, get_tiny_config, list_archs
-from repro_torch.core import registry
+from repro_torch.core import metrics, registry
 from repro_torch.core.compress import compress_model
 from repro_torch.core.specs import Policy
-from repro_torch.data import DataConfig, calibration_batches
+from repro_torch.data import DataConfig, ZipfMarkov, calibration_batches
 from repro_torch.models import build_model
 from repro_torch.obs import MetricsRegistry
 
@@ -54,6 +56,14 @@ def build_policy(args) -> Policy:
                               **{f: getattr(args, f) for f in fields}))
 
 
+def perplexity(model, params, batches) -> float:
+    """exp(mean token NLL) of ``model.loss`` over (tokens, labels) pairs."""
+    def loss_fn(p, tokens, labels):
+        _, m = model.loss(p, {"tokens": tokens, "labels": labels})
+        return m["sum_nll"], m["tokens"]
+    return metrics.perplexity(loss_fn, params, batches)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama32-1b", choices=list_archs())
@@ -68,6 +78,9 @@ def main(argv=None):
                          "overrides --method/--ratio/--bits")
     ap.add_argument("--calib-batches", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--ckpt", default="results/train_ckpt",
+                    help="restore the newest checkpoint here (none: the "
+                         "random init of --seed)")
     ap.add_argument("--out", default="results/compressed_ckpt_torch")
     ap.add_argument("--save-packed", action="store_true",
                     help="store quantized layers as packed QTensor codes")
@@ -92,16 +105,29 @@ def main(argv=None):
     model = build_model(cfg)
     params = model.init(args.seed, device=args.device)
     dev = params["embed"].device
+    restored, step = CheckpointManager(args.ckpt).restore_latest(
+        {"params": params})
+    if restored is not None:
+        params = restored["params"]
+        print(f"[compress] loaded checkpoint step {step}")
+    else:
+        print("[compress] no checkpoint found — compressing random init "
+              "(train first with repro.launch.train for meaningful numbers)")
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                     global_batch=8)
     calib = [{"tokens": torch.as_tensor(t, device=dev)}
              for t, _ in calibration_batches(dc, args.calib_batches)]
+    eval_batches = [
+        tuple(torch.as_tensor(a, device=dev) for a in
+              ZipfMarkov(dc).batch(9000 + i)) for i in range(4)]
+    before = perplexity(model, params, eval_batches)
     policy = build_policy(args)
     reg = MetricsRegistry()
     cp, report = compress_model(model, params, calib, policy, verbose=True,
                                 engine=args.engine, metrics=reg,
                                 profile_dir=args.profile_dir,
                                 profile_block=args.profile_block)
+    after = perplexity(model, cp, eval_batches)
     print("[compress] " + report.summary().replace("\n", "\n[compress] "))
     if args.metrics_json:
         reg.dump_json(args.metrics_json, meta={
@@ -111,6 +137,7 @@ def main(argv=None):
             f.write(reg.to_prometheus())
         print(f"[compress] metrics snapshot -> {args.metrics_json} "
               f"(+ {args.metrics_json}.prom)")
+    print(f"[compress] perplexity {before:.3f} -> {after:.3f}")
     if args.save_packed and report.packed_layers():
         path = save_packed_checkpoint(args.out, 0, cp, report)
         print(f"[compress] wrote packed checkpoint {path} "

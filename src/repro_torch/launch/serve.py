@@ -1,10 +1,10 @@
 """Serving launcher: a static batch, or the continuous-batching engine,
-optionally from a packed checkpoint.
+optionally from a dense or a packed checkpoint.
 
 Static path (one prefill and a fixed-length greedy decode, uniform batch):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --tiny --arch llama32-1b \
-      --batch 4 --prompt-len 16 --gen 8 [--ckpt DIR --packed] [--device cpu]
+      --batch 4 --prompt-len 16 --gen 8 [--ckpt DIR [--packed]] [--device cpu]
 
 Engine path (continuous batching over a mixed-length trace, batched
 same-bucket admissions, chunked prefill beyond the largest bucket,
@@ -28,7 +28,10 @@ engine steps in a ``torch.profiler`` window written to
 span a step); with ``--verify`` each request's queue, TTFT and TPOT are
 printed.
 
-With ``--packed`` the checkpoint is a packed QTensor checkpoint (written by
+``--ckpt DIR`` serves the newest checkpoint there: a dense one (written by
+either package's compress CLI without ``--save-packed``, or by the JAX
+package's trainer: ``{"params": ...}``) as it is, or with ``--packed`` a
+packed QTensor checkpoint (written by
 ``repro_torch.launch.compress --save-packed`` or by the JAX package's
 ``repro.launch.compress --save-packed``; the format is shared). Quantized
 leaves stay packed ``QTensor`` leaves of the params, and every packed
@@ -44,7 +47,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import latest_path, load_packed_checkpoint
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_tiny_config, list_archs
 from repro_torch.data import DataConfig, ZipfMarkov
 from repro_torch.models import build_model
@@ -278,14 +281,20 @@ def _serve_engine(args, cfg, model, params):
 
 
 def _load_params(args, model):
+    params = model.init(args.seed, device=args.device)
+    if not args.ckpt:
+        return params
+    mgr = CheckpointManager(args.ckpt)
     if not args.packed:
-        return model.init(args.seed, device=args.device)
-    path = latest_path(args.ckpt)
-    if path is None:
+        restored, step = mgr.restore_latest({"params": params})
+        if restored is not None:
+            params = restored["params"]
+            print(f"[serve] loaded checkpoint step {step}")
+        return params
+    params, qts, manifest = mgr.restore_latest_packed(params,
+                                                      device=args.device)
+    if params is None:
         raise SystemExit(f"[serve] no checkpoint under {args.ckpt}")
-    target = model.init(args.seed, device=args.device)
-    params, qts, manifest = load_packed_checkpoint(path, target,
-                                                   device=args.device)
     packed_b = sum(qt.nbytes() for qt in qts.values())
     dense_b = sum(int(np.prod(qt.shape)) * 4 for qt in qts.values())
     print(f"[serve] loaded packed checkpoint step {manifest['step']}: "
@@ -384,9 +393,8 @@ def main(argv=None):
                     help="engine: check greedy outputs against the static "
                          "path per request")
     args = ap.parse_args(argv)
-    if args.packed != bool(args.ckpt):
-        ap.error("--ckpt takes a packed checkpoint and needs --packed "
-                 "(dense checkpoints are not ported)")
+    if args.packed and not args.ckpt:
+        ap.error("--packed needs --ckpt")
 
     cfg = get_tiny_config(args.arch) if args.tiny else get_config(args.arch)
     model = build_model(cfg)

@@ -5,6 +5,8 @@ stacked on a leading layer dim, weights stored ``(d_in, d_out)``, packed
 layers as stacked :class:`~repro_torch.quant.QTensor` leaves — so
 compression paths, policy names and checkpoint keys carry over unchanged.
 The model object holds only its config; every method takes the params.
+:meth:`DenseModel.loss` is the reference's chunked softmax cross-entropy
+(:func:`chunked_xent`): the (B, S, V) logits are never built whole.
 """
 from __future__ import annotations
 
@@ -62,13 +64,16 @@ class DenseModel(nn.Module):
 
     ``attn_chunk`` is the query and KV chunk of the prefill's
     :func:`~repro_torch.models.layers.flash_attention` (the reference's
-    ``DenseModel.attn_chunk``). ``use_fused_decode`` routes the s == 1
-    cache read through K6 instead of the expand-then-attend reference; off
-    by default, as in the reference, and the serving engine sets it per
+    ``DenseModel.attn_chunk``); ``LOGIT_CHUNK`` the sequence chunk of
+    :meth:`loss` (the reference's ``DenseModel.logit_chunk``).
+    ``use_fused_decode`` routes the s == 1 cache read through K6 instead
+    of the expand-then-attend reference; off by default, as in the
+    reference, and the serving engine sets it per
     ``EngineConfig.use_fused_decode``.
     """
 
     FAMILY = "dense"
+    LOGIT_CHUNK = 512
 
     def __init__(self, cfg: ModelConfig, *, attn_chunk: int = 1024,
                  use_fused_decode: bool = False):
@@ -142,6 +147,18 @@ class DenseModel(nn.Module):
     def logits(self, params, batch) -> torch.Tensor:
         return self._mask_pad(L.linear_apply(self._head_w(params),
                                              self.hidden_states(params, batch)))
+
+    # -- loss (chunked xent, full logits never built) -----------------------
+    def loss(self, params, batch) -> tuple:
+        """Mean token NLL of ``batch["labels"]`` (−1 = padding, ignored)
+        and ``{"sum_nll", "tokens"}``; the inference half of the
+        reference's ``DenseModel.loss`` (no recompute, no backward)."""
+        h = self.hidden_states(params, batch)
+        nll, cnt = chunked_xent(h, self._head_w(params), batch["labels"],
+                                chunk=self.LOGIT_CHUNK,
+                                vocab=self.cfg.vocab_size)
+        return (nll / torch.clamp(cnt.to(torch.float32), min=1.0),
+                {"sum_nll": nll, "tokens": cnt})
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=torch.float32, *,
@@ -259,4 +276,38 @@ class DenseModel(nn.Module):
         return specs
 
 
-__all__ = ["DenseModel", "block_apply", "tree_map"]
+def chunked_xent(h: torch.Tensor, w_head, labels: torch.Tensor, *,
+                 chunk: int = 512, vocab: int = 0):
+    """(Σ NLL, token count) over (B, S) without building (B, S, V) logits,
+    in the reference's order: the sequence in chunks of ``chunk``, each
+    chunk's NLL summed and added to an f32 running sum. ``labels == -1``
+    are padding and ignored; with ``vocab`` the padded head columns get
+    −1e30 inside the logsumexp. The head goes through
+    :func:`~repro_torch.models.layers.linear_apply` (K4 for a packed head);
+    the gold logit is an iota-compare sum, as in the reference."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    w32 = w_head if isinstance(w_head, QTensor) else w_head.to(torch.float32)
+    nll_acc = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt_acc = torch.zeros((), dtype=torch.int32, device=h.device)
+    for i in range(0, h.shape[1], chunk):
+        lx = labels[:, i:i + chunk].to(torch.int64)
+        logits = L.linear_apply(w32, h[:, i:i + chunk].to(torch.float32))
+        iota = torch.arange(logits.shape[-1], device=logits.device)
+        if vocab and logits.shape[-1] != vocab:
+            logits = logits.masked_fill(iota >= vocab, -1e30)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.where(iota == torch.clamp(lx, min=0)[..., None],
+                           logits, 0.0).sum(dim=-1)
+        valid = lx >= 0
+        nll = torch.where(valid, lse - gold, 0.0)
+        nll_acc = nll_acc + nll.sum()
+        cnt_acc = cnt_acc + valid.sum(dtype=torch.int32)
+    return nll_acc, cnt_acc
+
+
+__all__ = ["DenseModel", "block_apply", "chunked_xent", "tree_map"]

@@ -1146,3 +1146,94 @@ def test_engine_with_registry_waits_once_a_step(cuda, layout):
                            )["count"] == len(reqs)
     if layout == "paged":
         assert eng.preemptions >= 1 and eng.prefix_hits >= 1
+
+
+# ---- the evaluation slice: the OBS baselines in f64 on the card, the
+# ---- scale searches on the kernels, llama2-7b's new kernel shapes
+
+def _obs_problem(rng, d_out, d_in):
+    x = rng.standard_normal((2 * d_in, d_in)) * np.exp(
+        rng.normal(0, 0.7, d_in))
+    w = torch.from_numpy(rng.standard_normal((d_out, d_in)).astype(
+        np.float32))
+    c = torch.from_numpy((x.T @ x / x.shape[0]).astype(np.float32))
+    return w, c
+
+
+@pytest.mark.parametrize("d_in", [384, 600])
+def test_sparsegpt_on_the_card_matches_the_cpu(cuda, d_in):
+    """The same f64 algorithm on CUDA and on the CPU: masks equal, θ
+    within 1e-5 (cuSOLVER's inverse and Cholesky differ from LAPACK's in
+    the last bits)."""
+    from repro_torch.core.baselines import sparsegpt
+    w, c = _obs_problem(np.random.default_rng(60), 96, d_in)
+    k = d_in // 2
+    got = sparsegpt.prune_weight(w.to(cuda), c.double().to(cuda), k).cpu()
+    want = sparsegpt.prune_weight(w, c.double(), k)
+    assert torch.equal(got != 0, want != 0)
+    assert int((got != 0).sum(1).max()) <= k
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d_in,group", [(384, 128), (600, 40)])
+def test_gptq_on_the_card_matches_the_cpu(cuda, d_in, group):
+    """Codes on ≥ 99.99% of entries, each differing code one step; grids
+    within 1e-6 relative."""
+    from repro_torch.core.baselines import gptq
+    w, c = _obs_problem(np.random.default_rng(61), 96, d_in)
+    got = gptq.quantize_weight(w.to(cuda), c.double().to(cuda), 4, group,
+                               return_qparams=True)
+    want = gptq.quantize_weight(w, c.double(), 4, group, return_qparams=True)
+    codes, wcodes = got[1].cpu(), want[1]
+    assert float((codes == wcodes).double().mean()) >= 0.9999
+    assert float((codes - wcodes).abs().max()) <= 1
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=1e-6, atol=0)
+
+
+def test_scale_searches_on_the_kernels_match_plain(cuda):
+    """AWQ (K3 for each α) and AWP-S (K1 and K3 inside each α's PGD) on
+    the kernels against the same calls through the plain versions: AWQ's
+    output and scale the same bits (K3 is exact), AWP-S's loss within
+    1e-5 and θ within 2e-4 (K1 sums in its own order)."""
+    from repro_torch import kernels
+    from repro_torch.core import awp
+    from repro_torch.core.baselines import awq
+    rng = np.random.default_rng(62)
+    w, c = (t.to(cuda) for t in _obs_problem(rng, 256, 512))
+    am = torch.diagonal(c).sqrt()
+    ops.reset_launches()
+    wq, s = awq.quantize_weight_with_scale(w, c, am, 4, 128)
+    res = awp.quantize_scaled(w, c, am, 4, group_size=128)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["quant_project"] == 21 + 21 * 11
+    assert ops.LAUNCHES["awp_pgd_step"] == 21 * 10
+    with kernels.use_impl("reference"):
+        wq_p, s_p = awq.quantize_weight_with_scale(w, c, am, 4, 128)
+        res_p = awp.quantize_scaled(w, c, am, 4, group_size=128)
+    assert torch.equal(wq, wq_p) and torch.equal(s, s_p)
+    assert abs(float(res.grad_norm) - float(res_p.grad_norm)) <= \
+        1e-5 * float(res_p.grad_norm)
+    torch.testing.assert_close(res.theta, res_p.theta, rtol=2e-4, atol=2e-4)
+
+
+def test_topk_row_at_llama2_d_ff(cuda):
+    """K2 on rows of 11,008 (llama2-7b's wd, 86 groups of 128): the
+    streaming form, every form, against the plain version."""
+    rng = np.random.default_rng(63)
+    z = _randn(rng, (64, 11008), cuda)
+    for k in (1, 5504, 11007):
+        _k2_variants(z, k, ref.topk_row(z, k))
+
+
+@pytest.mark.parametrize("n,k", [(11008, 4096), (4096, 11008)])
+@pytest.mark.parametrize("m", [8, 512])
+def test_dequant_matmul_at_llama2_shapes(cuda, m, n, k):
+    """K4 at llama2-7b's {wg, wu} and wd: N or K = 11008 = 86 × 128, not
+    a multiple of 256; every variant against the plain version."""
+    rng = np.random.default_rng(64)
+    x, packed, scale, zero = _k4_operands(rng, m, n, k, 128, cuda)
+    y_ref = ref.dequant_matmul(x, packed, scale, zero, 128)
+    for v in ops.dequant_matmul_variants(m, k):
+        y = _launched("dequant_matmul", lambda: ops.dequant_matmul(
+            x, packed, scale, zero, 128, variant=v))
+        _k4_close(y, y_ref)

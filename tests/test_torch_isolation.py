@@ -30,7 +30,12 @@ def _port_modules():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     mods = _port_modules()
-    assert "repro_torch.kernels.ops" in mods and len(mods) >= 39
+    assert "repro_torch.kernels.ops" in mods and len(mods) >= 57
+    assert {"repro_torch.core.metrics", "repro_torch.configs.llama2_7b",
+            "repro_torch.configs.llama2_13b", "repro_torch.configs.llama31_8b",
+            "repro_torch.configs.granite_8b"} | {
+        f"repro_torch.core.baselines.{m}" for m in (
+            "rtn", "awq", "sequential", "sparsegpt", "gptq")} <= set(mods)
     assert {f"repro_torch.serving.{m}" for m in (
         "engine", "faults", "kv_cache", "paging", "prefix_cache", "sampling",
         "scheduler")} <= set(mods)
