@@ -40,7 +40,19 @@ GPTQ on block 0's wq run on the card and, the same f64 function, on the
 CPU, held to each other; Fig. 1's loss trace of block 0's wo runs on the
 kernels and plain; and K1, K1b and K3 are held and timed at llama2-7b's
 linears (K2's and K4's new shapes join their censuses below, as the path
-``methods``). Then it drives the port at the full width of llama32-1b (16 layers,
+``methods``). Then the training phase (:func:`phase_train`): llama32-1b at
+full depth and width from the seed trains 200 AdamW steps (batch 16 x 64,
+lr 1e-3, 20 warmup steps, remat on; the train CLI's loop) in sync-debug
+mode, the loss printed every 20 steps and required to fall, with the step
+time, tokens/s, FLOP share, peak memory, host waits a step and the
+gradient/update split; a save at step 10 restored by a fresh manager and
+continued is held to the uninterrupted run's bits; microbatches 2 against
+1; three Adafactor steps; the trained model is compressed by the main
+path on the kernels and plain (held at the bars, each layer's PGD
+iterations printed) and pruned by the Table-1 policy on blocks 0-1, with
+perplexity at init, trained and compressed. K6 and K6p are also held and
+timed at nemotron-4-340b's heads (g = 12, D = 192) among the kernel
+checks. Then it drives the port at the full width of llama32-1b (16 layers,
 d_model 2048, d_ff 8192, padded vocab 129024, random weights from a
 seed):
 
@@ -281,6 +293,34 @@ LLAMA2_K1B = ((4, 4096, 4096), (2, 11008, 4096))
 # loss traces, kernels against plain, and their largest rise a step
 # (tests/test_awp.py:74-80)
 PPL_BAR, TRACE_BAR, TRACE_RISE = 1e-4, 2e-4, 1e-4
+# K6 and K6p at nemotron-4-340b's heads (H, Hk, D) at the engines' T and
+# INT8 group: g = 12 at D = 192, the generic form's 32 accumulators a lane
+NEMOTRON_HEADS = (96, 8, 192, 2048, 64)
+# the training phase: llama32-1b at full width with the train CLI's
+# defaults (batch 16 x 64, AdamW) and benchmarks/common.py's recipe (lr
+# 1e-3, 20 warmup steps, 200 steps); the loss printed every 20 steps; the
+# median step time over the steps from TRAIN_WARMUP on
+TRAIN = dict(steps=200, batch=16, seq=64, lr=1e-3, log_every=20)
+TRAIN_WARMUP = 5
+# the resume check: save at step RESUME_K, RESUME_K more steps after the
+# restore against 2·RESUME_K uninterrupted ones. Bit-equal is the goal; if
+# bits part, each differing entry is bounded by a near-zero gradient whose
+# sign flipped every step, 2·lr a step
+RESUME_K = 10
+RESUME_BOUND = 2 * TRAIN["lr"] * RESUME_K
+# microbatches 2 against 1 on one batch: the accumulated gradient equals
+# the mean of the two interleaved halves' own gradients bit for bit, and
+# differs from the single batch's, leaf by leaf, by at most MICRO_BAR of
+# the leaf's norm. cuBLAS's default (split-K) sums a 512-token product in
+# another grouping than a 1024-token one, and on the trained model a
+# step's gradient is the small mean of much larger per-token terms: up to
+# 2.4e-4 there on an H100 (scripts/train_microbatch_probe.py), and the
+# rounding floor (reordered rows) under unsplit cuBLAS, where the --parity
+# process holds the pair at MICRO_PARITY_BAR
+MICRO_BAR, MICRO_PARITY_BAR = 1e-3, 1e-5
+# the trained model's compression (no packed linear runs there)
+TRAIN_COMPRESS_PATH = ("awp_pgd_step", "awp_pgd_step_batched", "topk_row",
+                       "quant_project")
 
 
 def k1_variant(torch, b: int, m: int, k: int) -> int:
@@ -561,10 +601,12 @@ def phase_build():
                 k = re.search(r"[a-z][a-z_]*_kernel", raw)
                 fn = k.group(0) if k else raw
                 if k and raw[k.end():].startswith("I"):
-                    # template arguments: integers and bools, in order
-                    args = re.findall(r"L[ib](\d+)E",
+                    # template arguments: integers (a leading n is a
+                    # minus sign) and bools, in order
+                    args = re.findall(r"L[ib](n?\d+)E",
                                       raw[k.end():].split("Ev", 1)[0])
-                    fn += f"<{', '.join(args)}>"
+                    fn += "<" + ", ".join(a.replace("n", "-")
+                                          for a in args) + ">"
                 spills = ""
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
@@ -620,6 +662,8 @@ def phase_kernels(torch, dev):
     rows["kv_dequant"] = check_k5(torch, dev, gen)
     rows["decode_attn"] = check_k6(torch, dev, gen)
     rows["decode_attn_paged"] = check_k6p(torch, dev, gen)
+    for name, entries in check_k6_nemotron(torch, dev).items():
+        rows[name]["by_lengths"] += entries
     return rows
 
 
@@ -1411,6 +1455,106 @@ def check_k6p(torch, dev, gen):
     row["dense"] = res["dense"]
     row["by_lengths"] = by_lengths
     return row
+
+
+def check_k6_nemotron(torch, dev):
+    """K6 and K6p at nemotron-4-340b's decode head shape (96 query heads
+    over 8 KV heads: g = 12, D = 192, the generic form's 32-accumulator
+    instantiation) at the engines' batch, cache and census lengths (8 rows,
+    T = 2048; K6p through 16-token pages of K6P_POOL), dense f32 and INT8
+    (group 64): within 1e-5 of the plain version, two launches the same
+    bits, K6p equal to K6 on the gathered rows, a length-0 row exactly
+    zero; timed beside the plain version (and, dense, SDPA) at the bound.
+    Returns the K6 and K6p entries (the kernel table's (12, 192) rows)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    h, hk, d, t, group = NEMOTRON_HEADS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lens = K6_LENGTHS
+    b, live = len(lens), sum(K6_LENGTHS)
+    tok_bytes = {"dense": 2 * hk * d * 4.0,
+                 "int8": 2 * hk * (d + 4.0 * d / group)}
+    q = torch.randn((b, h, d), generator=gen, device=dev)
+    k = torch.randn((b, t, hk, d), generator=gen, device=dev)
+    v = torch.randn((b, t, hk, d), generator=gen, device=dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    table = k6p_tables(torch, dev, gen, lens)
+    chunk, splits = ops.decode_attn_splits(b, hk, t, sms=sms)
+    out_rows = {"decode_attn": [], "decode_attn_paged": []}
+    for name, ((kk, vv), kw) in k6_kinds(k, v, group).items():
+        # the paged pools: each row's tokens scattered to its table's pages
+        # (rows 2 and 3 share their first pages: row 3's tokens land there)
+        pools = {}
+        for n, x in [("k", kk), ("v", vv)] + [
+                (n, x) for n, x in kw.items() if torch.is_tensor(x)]:
+            pool = x.new_zeros((K6P_POOL, K6P_PAGE) + tuple(x.shape[2:]))
+            for i, n_tok in enumerate(lens):
+                npg = -(-n_tok // K6P_PAGE)
+                if npg:
+                    pool[table[i, :npg].long()] = x[i, :npg * K6P_PAGE] \
+                        .reshape((npg, K6P_PAGE) + tuple(x.shape[2:]))
+            pools[n] = pool
+        pkw = {n: pools.get(n, x) for n, x in kw.items()}
+        gkw = {n: (ref.gather_pages(x, table) if torch.is_tensor(x) else x)
+               for n, x in pkw.items()}
+        slot_of_pages = ops.decode_attn(q, ref.gather_pages(pools["k"], table),
+                                        ref.gather_pages(pools["v"], table),
+                                        lengths, **gkw)
+        for kernel in ("decode_attn", "decode_attn_paged"):
+            if kernel == "decode_attn":
+                args, call_kw = (q, kk, vv, lengths), kw
+                call, plain_fn = ops.decode_attn, ref.decode_attn
+            else:
+                args = (q, pools["k"], pools["v"], table, lengths)
+                call_kw = pkw
+                call, plain_fn = ops.decode_attn_paged, ref.decode_attn_paged
+            out = call(*args, **call_kw)
+            want = plain_fn(*args, **call_kw)
+            err = float((out - want).abs().max())
+            rel = float(((out - want).abs() / (want.abs() + 1.0)).max())
+            check(err <= 1e-5 or rel <= 1e-5,
+                  f"{kernel} {name} at g = 12, D = 192: max|d| {err:.3e} "
+                  f"against the plain version")
+            check(torch.equal(out.view(torch.int32),
+                              call(*args, **call_kw).view(torch.int32)),
+                  f"{kernel} {name} at g = 12, D = 192: two launches differ")
+            check(torch.equal(out[0], torch.zeros_like(out[0])),
+                  f"{kernel} {name} at g = 12, D = 192: the length-0 row")
+            if kernel != "decode_attn":
+                check(torch.equal(out, slot_of_pages), f"K6p {name} at g = "
+                      f"12, D = 192 differs from K6 on the gathered rows")
+            io = 4.0 * 2 * b * h * d + 4 * b + (
+                4.0 * table.numel() if kernel != "decode_attn" else 0)
+            nbytes = live * tok_bytes[name] + io
+            ms = time_ms(torch, lambda i: call(*args, **call_kw), 50)
+            plain = time_ms(torch, lambda i: plain_fn(*args, **call_kw), 10)
+            bnd, by = bound_ms(4.0 * h * d * live, nbytes)
+            lib = None
+            if name == "dense" and kernel == "decode_attn":
+                qs = q[:, :, None, :]
+                kr, vr = (x.permute(0, 2, 1, 3).repeat_interleave(h // hk, 1)
+                          for x in (kk, vv))
+                mask = (torch.arange(t, device=dev)[None, :]
+                        < lengths[:, None].long())[:, None, None, :]
+                lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                    qs, kr, vr, attn_mask=mask), 50)
+                del kr, vr
+            log(f"[K6 nemotron] {kernel} {name} B={b} H={h} Hk={hk} D={d} "
+                f"T={t} census lengths: {splits} splits of {chunk}, max|d| "
+                f"{err:.2e}, two launches the same bits"
+                + (", equal to K6" if kernel != "decode_attn" else "")
+                + f"; kernel {ms:.4f} ms ({bnd / ms:.1%} of the bound), "
+                f"plain {plain:.4f} ms, sdpa "
+                f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+                f"{bnd:.4f} ms ({by})")
+            out_rows[kernel].append(dict(
+                shape=f"B={b},H={h},Hk={hk},D={d},T={t},{name}",
+                lengths="census (nemotron-4-340b heads)", ms=ms,
+                plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+                max_abs_err=err, splits=splits, chunk=chunk))
+        del pools, slot_of_pages
+    return out_rows
 
 
 # ---------------------------------------------------------------------------
@@ -3262,6 +3406,420 @@ def phase_paged_engine(torch, cfg, model, packed, tag, exact_first,
                           spill_restore=spill), census, k6, tok_k
 
 
+# ---------------------------------------------------------------------------
+# the training phase: llama32-1b at full width, then its compression
+# ---------------------------------------------------------------------------
+
+def train_flops(cfg, b: int, s: int) -> dict:
+    """Model operations of one train step on (b, s) tokens, counted apart:
+    the forward (every linear at 2 operations a weight and token, the head
+    over the padded vocabulary, and the chunked attention's full S × S
+    scores and P·V, 4·B·H·S²·D a layer), the backward (twice the forward)
+    and the remat recompute (the blocks' forward again, and each logit
+    chunk's head product)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    lin = cfg.num_layers * (2 * d * cfg.num_heads * hd
+                            + 2 * d * cfg.num_kv_heads * hd
+                            + (3 if cfg.mlp_act == "silu" else 2) * d
+                            * cfg.d_ff)
+    head = d * cfg.padded_vocab
+    tokens = b * s
+    attn = cfg.num_layers * 4.0 * b * cfg.num_heads * s * s * hd
+    fwd = 2.0 * tokens * (lin + head) + attn
+    return dict(forward=fwd, backward=2.0 * fwd,
+                recompute=2.0 * tokens * lin + attn + 2.0 * tokens * head)
+
+
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def hold_states(torch, want, got, tag, bound):
+    """Two train states leaf by leaf: the same bits, or else the largest
+    difference, the differing entries and the leaf, held to ``bound``."""
+    worst, n_diff, n_all, where = 0.0, 0, 0, None
+    for (key, a), (_, b) in zip(_paths(want), _paths(got)):
+        n_all += a.numel()
+        if torch.equal(a, b):
+            continue
+        d = (a.to(torch.float64) - b.to(torch.float64)).abs()
+        n_diff += int((d > 0).sum())
+        if float(d.max()) > worst:
+            worst, where = float(d.max()), "/".join(key)
+    log(f"[{tag}] {'the same bits' if n_diff == 0 else 'bits part'}: "
+        f"{n_diff} of {n_all} entries differ, largest {worst:.3e}"
+        + (f" (in {where})" if where else ""))
+    check(worst <= bound, f"{tag}: largest difference {worst:.3e} over the "
+                          f"bound {bound:.1e}")
+    return dict(same_bits=n_diff == 0, entries_differ=n_diff,
+                max_abs_diff=worst, leaf=where)
+
+
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def iteration_census(report, tag):
+    """Each layer's PGD iterations and its method's cap (AWP prune's stop
+    rule caps at 200; the quantization recipe runs its 10 steps with no
+    stop rule): the layers that stopped early and the distribution."""
+    from collections import Counter
+    from repro_torch.core import awp
+    caps = {"awp_prune": awp.PRUNE_CONFIG.max_iters, "awp_quant": 10}
+    by = {}
+    for r in report:
+        its = int(report.artifacts[r.qualname].result.iters)
+        by.setdefault(r.method, []).append(its)
+    out = {}
+    for method, its in sorted(by.items()):
+        cap = caps.get(method)
+        early = sum(n < cap for n in its) if cap else 0
+        dist = dict(sorted(Counter(its).items()))
+        log(f"[{tag}] {method}: {len(its)} layers, cap {cap}, {early} "
+            f"stopped before it; iterations {dist}")
+        out[method] = dict(layers=len(its), cap=cap, early=early,
+                           iterations=its)
+    return out
+
+
+def hold_microbatches(torch, model, tcfg, params, batch, bar, tag):
+    """One batch's gradient as two interleaved microbatches against one:
+    the accumulated gradient must equal the mean of the two halves' own
+    gradients bit for bit (the split and the accumulation), the loss within
+    1e-6 relative, and every leaf's |dg| / |g| within ``bar``."""
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.training.train_loop import (TrainConfig, compute_grads,
+                                                 split_microbatches)
+    l1, g1 = compute_grads(model, tcfg, params, batch)
+    l2, g2 = compute_grads(model, TrainConfig(microbatches=2), params, batch)
+    halves = [compute_grads(model, tcfg, params, mb)[1]
+              for mb in split_microbatches(batch, 2)]
+    mean = tree_map(lambda a, b: a / 2 + b / 2, *halves)
+    del halves
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(_paths(mean),
+                                                            _paths(g2)))
+    del mean
+    rel = {"/".join(k): float(torch.linalg.vector_norm(a - b)
+                              / torch.linalg.vector_norm(a))
+           for (k, a), (_, b) in zip(_paths(g1), _paths(g2))}
+    del g1, g2
+    worst = max(rel.values())
+    dl = abs(float(l1) - float(l2)) / abs(float(l1))
+    log(f"[{tag}] microbatches 2 against 1 on one batch: the accumulated "
+        f"gradient {'equals' if same else 'DIFFERS FROM'} the mean of the "
+        f"two halves' own, bit for bit; loss {float(l1):.6f} / "
+        f"{float(l2):.6f} (relative {dl:.2e}); |dg| / |g| per leaf "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + f" (bar {bar:.0e})")
+    check(same, f"{tag}: the microbatched gradient is not the mean of its "
+                f"halves'")
+    check(worst <= bar and dl <= 1e-6, f"{tag}: microbatched gradients "
+                                       f"differ beyond the bar: {worst:.2e}")
+    return dict(halves_mean_bits=same, max_rel=worst, loss_rel=dl,
+                per_leaf=rel)
+
+
+def step_split(torch, model, tcfg, state, batch, reps=3):
+    """A train step's device time split between the gradient (forward,
+    backward and recompute) and the optimizer's update (norm, clip and
+    AdamW), each timed by CUDA events, the median of ``reps`` (the update
+    runs in place on ``state``)."""
+    import statistics
+    from repro_torch.optim import make_optimizer
+    from repro_torch.training.train_loop import compute_grads
+    _, update = make_optimizer(tcfg.optimizer)
+    grads_ms, update_ms = [], []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        _, grads = compute_grads(model, tcfg, state["params"], batch)
+        ev[1].record()
+        update(grads, state["opt"], state["params"])
+        ev[2].record()
+        del grads
+        torch.cuda.synchronize()
+        grads_ms.append(ev[0].elapsed_time(ev[1]))
+        update_ms.append(ev[1].elapsed_time(ev[2]))
+    out = dict(grads_ms=statistics.median(grads_ms),
+               update_ms=statistics.median(update_ms))
+    log(f"[train] a step's split: gradients {out['grads_ms']:.2f} ms "
+        f"(forward, backward, recompute), optimizer update "
+        f"{out['update_ms']:.2f} ms (norm, clip, AdamW); medians of {reps}")
+    return out
+
+
+def phase_train(torch, dev, cfg):
+    """Training on the card (:mod:`repro_torch.launch.train`'s loop and
+    recipe), then the main path's compression of the trained model.
+
+    llama32-1b at full depth and width from seed 0 (1.237e9 f32
+    parameters, about 20 GB with gradients and AdamW's state), AdamW with
+    the train CLI's defaults and ``benchmarks/common.py``'s recipe: batch
+    16 × 64, lr 1e-3, 20 warmup steps, 200 steps, remat on. The loss is
+    printed at step 0, every 20 steps and at the end, and must fall. Every
+    step runs in PyTorch's sync-debug mode, its waits counted apart from
+    the print's reads (and from the checkpoint's host copy): none is
+    allowed outside a print step after the first. Step times come from
+    CUDA events recorded after each step. At step ``RESUME_K`` the state
+    is saved by ``CheckpointManager.save_async`` and at 2·``RESUME_K``
+    cloned; after the run a fresh manager restores the save and
+    ``RESUME_K`` more steps are held to the clone (bit-equal is the goal;
+    otherwise the largest difference is printed and held to
+    ``RESUME_BOUND``). Then: the gradient of one batch as two interleaved
+    microbatches against one (:func:`hold_microbatches` at ``MICRO_BAR``);
+    three
+    Adafactor steps from the trained params; the trained model compressed
+    by the main path (batched engine, mixed policy, 16,384 calibration
+    tokens) on the kernels (counted) and through the plain versions, held
+    at the repo's bars, with each layer's iterations; the Table-1 prune
+    policy on blocks 0–1 on the kernels (every linear through the stop
+    rule, ``prune_batched_compacted``'s retire-and-restack); perplexity on
+    the compress CLI's held-out batches before training, after it and
+    after compression. Returns the launches of the compression and the
+    numbers."""
+    import argparse
+    import statistics
+    from repro_torch import kernels
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import DataConfig, ZipfMarkov, calibration_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.compress import perplexity
+    from repro_torch.models import build_model
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, remat=True)
+    recipe = argparse.Namespace(optimizer="adamw", lr=TRAIN["lr"],
+                                steps=TRAIN["steps"], microbatches=1)
+    tcfg = train_cli.train_config(recipe)
+    check(tcfg.optimizer.warmup_steps == 20, "the recipe's warmup")
+    step_fn, _ = make_train_step(model, tcfg)
+    state = init_train_state(model, SEED, device=dev, tcfg=tcfg)
+    gen = ZipfMarkov(DataConfig(vocab_size=cfg.vocab_size,
+                                seq_len=TRAIN["seq"],
+                                global_batch=TRAIN["batch"]))
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=EVAL_SEQ,
+                    global_batch=EVAL_BATCH)
+    evals = [tuple(torch.as_tensor(a, device=dev)
+                   for a in ZipfMarkov(dc).batch(9000 + i))
+             for i in range(EVAL_BATCHES)]
+    ppl_init = perplexity(model, state["params"], evals)
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab}),"
+        f" {n_params / 1e9:.3f}e9 f32 parameters from seed {SEED} (full "
+        f"depth and width), AdamW, batch {TRAIN['batch']} x {TRAIN['seq']},"
+        f" lr {TRAIN['lr']}, warmup {tcfg.optimizer.warmup_steps}, "
+        f"{TRAIN['steps']} steps, remat on; perplexity at init "
+        f"{ppl_init:.3f}")
+
+    k = RESUME_K
+    events, waits, marks, losses = [], [], {"exit": 0}, {}
+    held = {}
+    ops.reset_launches()
+    ckpt = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    ckdir = ckpt.name
+    with host_waits(torch, True) as hw:
+        caught = hw["caught"]
+
+        def n_waits():
+            return sum(SYNC_WARNING in str(w.message) for w in caught)
+
+        mgr = CheckpointManager(ckdir, keep_n=1)
+
+        def on_step(i, st, m):
+            waits.append(n_waits() - marks["exit"])
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            if i % TRAIN["log_every"] == 0 or i + 1 == TRAIN["steps"]:
+                losses[i] = m["loss"]
+            if i + 1 == k:
+                t0 = time.time()
+                mgr.save_async(k, st)
+                held["save_host_s"] = time.time() - t0
+            elif i + 1 == 2 * k:
+                # the train step's own peak, before the clone below
+                held["peak"] = torch.cuda.max_memory_allocated()
+                held["snapshot"] = _tree_clone(st)
+            marks["exit"] = n_waits()
+
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, metrics = train_cli.run_steps(
+            step_fn, state, gen, 0, TRAIN["steps"], dev,
+            log_every=TRAIN["log_every"], on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        t0 = time.time()
+        mgr.wait()
+        held["save_wait_s"] = time.time() - t0
+    peak_train = held["peak"]
+    train_launches = dict(ops.LAUNCHES)
+    check(not any(train_launches.values()),
+          f"training launched a kernel: {train_launches}")
+
+    loss_vals = {i: float(v) for i, v in losses.items()}
+    first, last = loss_vals[0], loss_vals[TRAIN["steps"] - 1]
+    check(all(math.isfinite(v) for v in loss_vals.values())
+          and last < first,
+          f"the training loss did not fall: {loss_vals}")
+    step_ms = [events[i - 1].elapsed_time(events[i])
+               for i in range(1, len(events))]
+    timed = step_ms[TRAIN_WARMUP - 1:]
+    med = statistics.median(timed)
+    fl = train_flops(cfg, TRAIN["batch"], TRAIN["seq"])
+    share = sum(fl.values()) / (med * 1e-3) / PEAK_F32_FLOPS
+    print_steps = {i for i in range(TRAIN["steps"])
+                   if i % TRAIN["log_every"] == 0
+                   or i + 1 == TRAIN["steps"]}
+    quiet = [w for i, w in enumerate(waits) if i not in print_steps]
+    loud = [w for i, w in enumerate(waits) if i in print_steps]
+    log(f"[train] loss {json.dumps({str(i): round(v, 4) for i, v in loss_vals.items()})}")
+    log(f"[train] {TRAIN['steps']} steps in {wall:.2f}s; step "
+        f"{med:.2f} ms (median of steps {TRAIN_WARMUP}-"
+        f"{TRAIN['steps'] - 1}, CUDA events; min {min(timed):.2f}, max "
+        f"{max(timed):.2f}); {TRAIN['batch'] * TRAIN['seq'] / med * 1e3:.0f}"
+        f" tokens/s; model operations a step: forward "
+        f"{fl['forward'] / 1e12:.3f}e12, backward "
+        f"{fl['backward'] / 1e12:.3f}e12, remat recompute "
+        f"{fl['recompute'] / 1e12:.3f}e12 = {share:.1%} of "
+        f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32; peak "
+        f"{peak_train / 1e9:.2f} GB allocated (steps 0-{2 * k - 1})")
+    log(f"[train] host waits a step (sync-debug): step 0 {waits[0]}, "
+        f"other print steps {sorted(set(loud[1:]))}, the "
+        f"{len(quiet)} other steps {sum(quiet)} in all (max "
+        f"{max(quiet)}); checkpoint host copy {held['save_host_s']:.2f}s"
+        f" inside the run, writer waited {held['save_wait_s']:.2f}s "
+        f"after it")
+    check(sum(quiet) == 0,
+          f"train steps outside the print steps waited on the card: "
+          f"{[(i, w) for i, w in enumerate(waits) if w and i not in print_steps]}")
+
+    # the later checks need the trained params only
+    params = state["params"]
+    del state, metrics
+    torch.cuda.empty_cache()
+
+    # -- resume: restore the step-k save in a fresh manager, k steps
+    snapshot = held.pop("snapshot")
+    t0 = time.time()
+    restored, at = CheckpointManager(ckdir).restore_latest(snapshot)
+    t_restore = time.time() - t0
+    ckpt.cleanup()
+    check(at == k and int(restored["step"]) == k,
+          f"restored step {at}, expected {k}")
+    resumed, _ = train_cli.run_steps(step_fn, restored, gen, k, 2 * k, dev,
+                                     log_every=10 * k)
+    del restored
+    resume = hold_states(torch, snapshot, resumed, "train resume",
+                         RESUME_BOUND)
+    resume.update(restore_s=t_restore, save_host_s=held["save_host_s"],
+                  save_wait_s=held["save_wait_s"])
+    del snapshot
+    split = step_split(torch, model, tcfg, resumed,
+                       train_cli.device_batch(gen, 0, dev))
+    del resumed
+    torch.cuda.empty_cache()
+
+    # -- microbatches 2 against 1 on one batch
+    micro = hold_microbatches(torch, model, tcfg, params,
+                              train_cli.device_batch(gen, TRAIN["steps"],
+                                                     dev),
+                              MICRO_BAR, "train")
+    torch.cuda.empty_cache()
+
+    # -- three Adafactor steps from (a copy of) the trained params
+    recipe.optimizer = "adafactor"
+    af_step, af_init = make_train_step(model, train_cli.train_config(recipe))
+    af_params = _tree_clone(params)
+    af = {"params": af_params, "opt": af_init(af_params),
+          "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    af_losses = []
+    for i in range(3):
+        af, am = af_step(af, train_cli.device_batch(gen, TRAIN["steps"] + i,
+                                                    dev))
+        af_losses.append((float(am["loss"]), float(am["grad_norm"])))
+    opt_bytes = sum(t.numel() * 4 for t in _leaves(af["opt"]["v"]))
+    check(all(math.isfinite(a) and math.isfinite(b) for a, b in af_losses)
+          and int(af["step"]) == 3, f"Adafactor steps: {af_losses}")
+    log(f"[train] Adafactor, 3 steps from the trained params: (loss, "
+        f"grad_norm) {[(round(a, 4), round(b, 4)) for a, b in af_losses]}; "
+        f"factored state {opt_bytes / 1e6:.1f} MB against AdamW's "
+        f"{2 * 4 * n_params / 1e9:.2f} GB")
+    del af, af_params
+    torch.cuda.empty_cache()
+
+    # -- the trained model's compression: the main path, kernels and plain
+    ppl_trained = perplexity(model, params, evals)
+    cdc = DataConfig(vocab_size=cfg.vocab_size, seq_len=CALIB_SEQ,
+                     global_batch=CALIB_BATCH)
+    calib = [{"tokens": torch.as_tensor(t, device=dev)}
+             for t, _ in calibration_batches(cdc, CALIB_BATCHES)]
+    data = (model, params, calib, None)
+    ops.reset_launches()
+    cp, rep_k, t_k = compress(torch, data, policy_for("mixed"), "batched")
+    launches = dict(ops.LAUNCHES)
+    check_path(launches, TRAIN_COMPRESS_PATH,
+               "the trained model's compression")
+    ppl_after = perplexity(model, cp, evals)
+    del cp
+    with kernels.use_impl("reference"):
+        cp_p, rep_p, t_p = compress(torch, data, policy_for("mixed"),
+                                    "batched")
+        check(not any(ops.LAUNCHES[n] != launches[n] for n in launches),
+              "the plain compression launched a kernel")
+    ppl_plain = perplexity(model, cp_p, evals)
+    del cp_p
+    bars = hold_reports(torch, rep_k, rep_p, "train compress",
+                        7 * cfg.num_layers, iters_equal=False)
+    iters = iteration_census(rep_k, "train compress iterations")
+    log(f"[train compress] mixed policy, batched engine: kernels "
+        f"{t_k:.2f}s, plain {t_p:.2f}s; perplexity {ppl_init:.3f} at init,"
+        f" {ppl_trained:.3f} trained, {ppl_after:.3f} compressed "
+        f"({ppl_plain:.3f} plain); launches {launches}")
+    check(ppl_trained < ppl_init and math.isfinite(ppl_after),
+          f"perplexity {ppl_init} -> {ppl_trained} -> {ppl_after}")
+
+    # -- the Table-1 prune policy on blocks 0-1: every linear's stop rule
+    ops.reset_launches()
+    cp, rep_t, t_t = compress(torch, data, policy_for("table1"), "batched")
+    t1_launches = dict(ops.LAUNCHES)
+    check_path(t1_launches, PRUNE_PATH, "the trained model's Table-1 prune")
+    for r in rep_t:
+        if r.method == "awp_prune":
+            check(r.sparsity == 0.5, f"{r.qualname}: sparsity {r.sparsity}")
+    t1_iters = iteration_census(rep_t, "train table1 iterations")
+    del cp, data, params, calib
+    torch.cuda.empty_cache()
+    secs = time.time() - t_phase
+    log(f"[train] Table-1 prune of blocks 0-1 {t_t:.2f}s; phase "
+        f"{secs:.1f}s")
+    summary = dict(
+        seconds=secs, wall_s=wall, step_ms=med, step_ms_all=step_ms,
+        tokens_per_s=TRAIN["batch"] * TRAIN["seq"] / med * 1e3,
+        flops=fl, flop_share=share, peak_bytes=peak_train,
+        losses=loss_vals, waits=waits, resume=resume, split=split,
+        micro=micro,
+        adafactor=af_losses,
+        perplexity=dict(init=ppl_init, trained=ppl_trained,
+                        compressed=ppl_after, compressed_plain=ppl_plain),
+        compress_s=t_k, compress_plain_s=t_p, kernels_vs_plain=bars,
+        iterations=iters, table1_s=t_t, table1_iterations=t1_iters)
+    for n, c in t1_launches.items():
+        launches[n] += c
+    return launches, summary
+
+
 def phase_profile(torch, cfg, data, report, packed, timed):
     """The profile phase: each engine's fourth kernel run in a
     ``StepTraceWindow`` (:func:`profile_engine`; ``timed``: each layout's
@@ -3394,6 +3952,29 @@ def parity_k4(torch, dev, gen, randn):
                                 for (m, n, k, name), d in gemv.items()))
 
 
+def parity_train(torch, dev, cfg):
+    """Under unsplit cuBLAS, llama32-1b's gradient at its init (seed 0)
+    on the training phase's batch 200 as two microbatches against one:
+    within ``MICRO_PARITY_BAR`` of each leaf's norm (the phase's
+    ``MICRO_BAR`` covers the default configuration's split-K sums)."""
+    import argparse
+    from repro_torch.data import DataConfig, ZipfMarkov
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    tcfg = train_cli.train_config(argparse.Namespace(
+        optimizer="adamw", lr=TRAIN["lr"], steps=TRAIN["steps"],
+        microbatches=1))
+    params = model.init(SEED, device=dev)
+    gen = ZipfMarkov(DataConfig(vocab_size=cfg.vocab_size,
+                                seq_len=TRAIN["seq"],
+                                global_batch=TRAIN["batch"]))
+    hold_microbatches(torch, model, tcfg, params,
+                      train_cli.device_batch(gen, TRAIN["steps"], dev),
+                      MICRO_PARITY_BAR, "parity train")
+    del params
+
+
 def parity_main(torch, dev, cfg):
     """Under unsplit cuBLAS: K1 and K1b against their plain versions
     (:func:`parity_kernels`); the sequential driver's kernel and plain paths
@@ -3405,6 +3986,8 @@ def parity_main(torch, dev, cfg):
           f"{PARITY} needs CUBLAS_WORKSPACE_CONFIG={UNSPLIT_CUBLAS}")
     parity_kernels(torch, dev)
     parity_moe(torch, dev)
+    torch.cuda.empty_cache()
+    parity_train(torch, dev, cfg)
     torch.cuda.empty_cache()
     data = setup(torch, dev, cfg)
     model, _, _, prompts = data
@@ -3453,9 +4036,16 @@ def main() -> None:
         rows[name].setdefault("by_shape", [dict(rows[name])])
         rows[name]["by_shape"] += entries
     torch.cuda.empty_cache()
+    train_launches, train = phase_train(torch, dev, cfg)
+    torch.cuda.empty_cache()
     data = setup(torch, dev, cfg)
     launches, packed, census, k2_main, comp, report = phase_main_path(
         torch, dev, cfg, data)
+    log(f"[train compress] the trained model's compression (mixed policy, "
+        f"batched engine, kernels) {train['compress_s']:.2f}s against the "
+        f"random-weight model's {comp['batched_s']:.2f}s; plain "
+        f"{train['compress_plain_s']:.2f}s against "
+        f"{comp['batched_plain_s']:.2f}s")
     prune_launches, k2_prune, prune = phase_prune_path(torch, cfg, data)
     model = data[0]
     eng_launches, slot_tokens, eng, slot_census, slot_k6 = phase_engine(
@@ -3491,7 +4081,8 @@ def main() -> None:
                    "engine": eng_launches[name],
                    "paged_engine": paged_launches[name],
                    **{path: n[name] for path, n in moe_launches.items()},
-                   "methods": methods_launches[name]}
+                   "methods": methods_launches[name],
+                   "train_compress": train_launches[name]}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -3509,6 +4100,7 @@ def main() -> None:
     log(f"[paged] summary: {json.dumps(paged)}")
     log(f"[moe] summary: {json.dumps(moe)}")
     log(f"[methods] summary: {json.dumps(methods)}")
+    log(f"[train] summary: {json.dumps(train)}")
     log(f"[done] {time.time() - t_start:.1f}s; card {card}")
     log(json.dumps({"kernels": out}))
     log(card)

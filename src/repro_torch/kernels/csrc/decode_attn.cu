@@ -58,9 +58,12 @@
 //   p = exp(s − m_new), corr = exp(m − m_new), l = l·corr + Σp (xor
 //   butterfly over the tokens);
 // - P·V: each lane owns 4 dims of every head (a generic form for D > 128
-//   or g > 4: a few (head, 4-dim) outputs) and ts token lanes share the
-//   piece; acc = acc·corr, then one fmaf chain over the lane's tokens; the
-//   ts partials are summed by a xor butterfly at the end.
+//   or g > 4: a few (head, 4-dim) outputs, 16 registers of 4 floats a
+//   lane, or 32 where 16 cannot hold a lane's outputs — nemotron-4-340b's
+//   g = 12 at D = 192 takes 24 — so every head shape of the arch configs
+//   runs in one block a (row, KV head, chunk)) and ts token lanes share
+//   the piece; acc = acc·corr, then one fmaf chain over the lane's
+//   tokens; the ts partials are summed by a xor butterfly at the end.
 // The 8 warps' carries then merge in warp order, and the block's partial
 // (m, l, acc) goes to the workspace; a merge pass launched from the same
 // entry (only when splits > 1; a row with one live split is emitted by its
@@ -286,6 +289,8 @@ __device__ __forceinline__ int table_lane(const Params& p, int b, int p0,
   return min(max(e, 0), p.P - 1);
 }
 
+// NH > 0: the fast form, NH heads a lane; NH < 0: the generic form with
+// −NH (head, 4-dim) accumulators a lane.
 template <int KIND, bool PAGED, int GH, int NH>
 __global__ void __launch_bounds__(THREADS)
 decode_split_kernel(const Params p) {
@@ -332,7 +337,7 @@ decode_split_kernel(const Params p) {
   const int part = lane & (lt - 1);
   constexpr int QPC = KIND == KV_U8 ? 4 : KIND == KV_BF16 ? 2 : 1;
   constexpr int QB = KIND == KV_U8 ? 4 : KIND == KV_BF16 ? 8 : 16;
-  constexpr int NA = NH > 0 ? NH : 16;
+  constexpr int NA = NH > 0 ? NH : -NH;
   // P·V lanes: dim lane dl, head lane hsl, token lane tsl
   const int dl = lane & ((1 << p.nl_sh) - 1);
   const int hsl = (lane >> p.nl_sh) & ((1 << p.hs_sh) - 1);
@@ -735,11 +740,14 @@ int pow2_ceil(int x) {
 int round16(int x) { return (x + 15) & ~15; }
 
 // The piece, the P·V lanes and the shared-memory layout for a launch.
-// Returns whether the fast form runs (D ≤ 128 and g ≤ 4: scores 4 heads
-// at a time, a lane owns 4 dims of every head, template <4, 4>); the
-// generic form (scores 8 heads at a time, p.nh heads a lane, template
-// <8, 0>) takes every other (g, D).
-bool layout(Params& p, int kind) {
+// Returns the form: FORM_FAST (D ≤ 128 and g ≤ 4: scores 4 heads at a
+// time, a lane owns 4 dims of every head, template <4, 4>), else the
+// generic form (scores 8 heads at a time, p.nh heads a lane) with 16
+// accumulators a lane (template <8, −16>) where they hold the plan, or 32
+// (template <8, −32>: nemotron-4-340b's g = 12 at D = 192).
+enum Form { FORM_FAST = 0, FORM_16 = 1, FORM_32 = 2 };
+
+int layout(Params& p, int kind) {
   const int elem = kind == KV_F32 ? 4 : kind == KV_BF16 ? 2 : 1;
   p.rb = p.D * elem;
   p.nch = (p.rb + 15) / 16;
@@ -771,7 +779,8 @@ bool layout(Params& p, int kind) {
   p.nstage = per_warp > 1 ? 2 : 1;
   // P·V lanes: nl dim lanes (4 dims each), then hs head lanes × ts token
   // lanes. Fast form: hs = 1, every head in the lane; generic: the most
-  // token lanes that keep nd·nh ≤ 16 accumulators
+  // token lanes that keep nd·nh ≤ 16 accumulators, else one token lane
+  // and up to 32 (dispatch refuses a plan past that)
   const int d4 = p.D / 4;
   const int nl = d4 >= 32 ? 32 : pow2_ceil(d4);
   const int r = 32 / nl;
@@ -798,7 +807,7 @@ bool layout(Params& p, int kind) {
   p.off_stat = p.off_p + WARPS * p.pt * p.ps * 4;
   p.off_vsz = round16(p.off_stat + WARPS * 3 * p.ps * 4);
   p.smem = p.off_vsz + WARPS * p.pt * p.dg * 8;
-  return fast;
+  return fast ? FORM_FAST : p.na <= 16 ? FORM_16 : FORM_32;
 }
 
 template <int KIND, bool PAGED, int GH, int NH>
@@ -838,22 +847,24 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 }
 
 template <int KIND, bool PAGED>
-int forms(const Params& p, int B, bool fast, cudaStream_t s) {
-  return fast ? launch<KIND, PAGED, 4, 4>(p, B, s)
-              : launch<KIND, PAGED, 8, 0>(p, B, s);
+int forms(const Params& p, int B, int form, cudaStream_t s) {
+  if (form == FORM_FAST) return launch<KIND, PAGED, 4, 4>(p, B, s);
+  if (form == FORM_16) return launch<KIND, PAGED, 8, -16>(p, B, s);
+  return launch<KIND, PAGED, 8, -32>(p, B, s);
 }
 
 template <bool PAGED>
 int dispatch(Params& p, int B, int kind, cudaStream_t s) {
   if (kind < KV_F32 || kind > KV_U8) return (int)cudaErrorInvalidValue;
-  const bool fast = layout(p, kind);
+  const int form = layout(p, kind);
+  if (p.na > 32) return (int)cudaErrorInvalidValue;
   switch (kind) {
     case KV_F32:
-      return forms<KV_F32, PAGED>(p, B, fast, s);
+      return forms<KV_F32, PAGED>(p, B, form, s);
     case KV_BF16:
-      return forms<KV_BF16, PAGED>(p, B, fast, s);
+      return forms<KV_BF16, PAGED>(p, B, form, s);
     default:
-      return forms<KV_U8, PAGED>(p, B, fast, s);
+      return forms<KV_U8, PAGED>(p, B, form, s);
   }
 }
 
@@ -890,10 +901,11 @@ Params make_params(const float* q, const void* k, const void* v,
 // otherwise); lengths (B,) int32; out (B, H, D) f32; ws the merge
 // workspace, (B·Hk·splits·(2g + g·D)) f32 when splits > 1 (else unused).
 // All contiguous on the device, k and v 16-byte aligned; D % 4 == 0,
-// H % Hk == 0, g = H/Hk ≤ 32, and layout()'s P·V plan within its 16
-// accumulators a lane, ⌈D/4 / nl⌉·⌈g / (32 / nl)⌉ ≤ 16 with nl =
+// H % Hk == 0, g = H/Hk ≤ 32, and layout()'s P·V plan within 32
+// accumulators a lane, ⌈D/4 / nl⌉·⌈g / (32 / nl)⌉ ≤ 32 with nl =
 // min(32, pow2_ceil(D/4)) (kernels/ops.py, decode_attn_supported: g·D up
-// to 2048 at D = 64 or 128); the plan (chunk, splits) covers
+// to 4096 at D = 64 or 128, 3072 at D = 192, 2048 at D = 256); the plan
+// (chunk, splits) covers
 // [0, T) with (splits − 1)·chunk < max(T, 1) ≤ splits·chunk. Returns
 // cudaGetLastError().
 extern "C" int decode_attn(const float* q, const void* k, const void* v,

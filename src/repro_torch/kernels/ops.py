@@ -474,20 +474,25 @@ def kv_dequant(codes, scale, zero, group_size: int):
 
 
 _KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
+# (head, 4-dim) accumulators a lane of K6/K6p's wider generic form
+DECODE_MAX_ACCUMULATORS = 32
 
 
 def decode_attn_supported(g: int, d: int) -> bool:
     """True when K6/K6p take g query heads a KV head at head dim d: d % 4
     == 0, g <= 32, and the generic form's P·V plan (csrc/decode_attn.cu,
-    ``layout``) fits its 16 accumulators a lane: with nl = min(32, d/4
-    rounded up to a power of two) dim lanes of 4 dims each, a lane holds
-    ⌈d/4 / nl⌉ dim quads of ⌈g / (32 / nl)⌉ heads. So g·D up to 2048 at D
-    = 64 or 128 (qwen3-moe: g = 16, D = 128), 1024 at D = 256."""
+    ``layout``) fits the 32 accumulators a lane of its wider instantiation
+    (16 in the other, which takes every plan that fits it): with nl =
+    min(32, d/4 rounded up to a power of two) dim lanes of 4 dims each, a
+    lane holds ⌈d/4 / nl⌉ dim quads of ⌈g / (32 / nl)⌉ heads. So g·D up
+    to 4096 at D = 64 or 128 (qwen3-moe: g = 16, D = 128), 3072 at D = 192
+    (nemotron-4-340b: g = 12), 2048 at D = 256 — every head shape of the
+    JAX package's arch configs."""
     if d % 4 or d < 4 or not 1 <= g <= 32:
         return False
     d4 = d // 4
     nl = 32 if d4 >= 32 else 1 << (d4 - 1).bit_length()
-    return -(-d4 // nl) * -(-g // (32 // nl)) <= 16
+    return -(-d4 // nl) * -(-g // (32 // nl)) <= DECODE_MAX_ACCUMULATORS
 
 
 def _decode_checks(name, q, k, v, lengths, planes, group_size, rows):
@@ -505,7 +510,8 @@ def _decode_checks(name, q, k, v, lengths, planes, group_size, rows):
     if not decode_attn_supported(g, d):
         raise ValueError(f"{name}: D={d}, {g} query heads per KV head "
                          f"not supported (D % 4 == 0, g <= 32, and a lane's "
-                         f"P·V outputs within 16 (4-dim, head) quads)")
+                         f"P·V outputs within {DECODE_MAX_ACCUMULATORS} "
+                         f"(4-dim, head) quads)")
     _check(f"{name}.q", q, torch.float32, (b, h, d))
     _check(f"{name}.lengths", lengths, torch.int32, (b,))
     quant = bool(planes)
@@ -649,7 +655,8 @@ def decode_attn_paged(q, k_pool, v_pool, table, lengths, k_scale=None,
     return out
 
 
-__all__ = ["AWP_PGD_TILES", "DECODE_BLOCKS_PER_SM", "DECODE_MAX_SPLITS",
+__all__ = ["AWP_PGD_TILES", "DECODE_BLOCKS_PER_SM", "DECODE_MAX_ACCUMULATORS",
+           "DECODE_MAX_SPLITS",
            "DEQUANT_SPLITS", "DEQUANT_TILES", "GEMV_COLS", "GEMV_MAX_M",
            "K2_CENSUS", "K4_CENSUS", "K4X_CENSUS", "K6_CENSUS", "KERNELS", "LAUNCHES",
            "TILE_COST", "TILE_SHARE", "TOPK_FORMS", "arm_k6_census",

@@ -8,11 +8,13 @@ from repro_torch.models.transformer import DenseModel
 _FAMILY = {"dense": DenseModel, "moe": MoEModel}
 
 
-def build_model(cfg: ModelConfig):
+def build_model(cfg: ModelConfig, remat: bool = True):
+    """The model of ``cfg``'s family; ``remat`` recomputes each block in
+    backward (the reference's ``build_model(cfg, remat=...)``)."""
     if cfg.family not in _FAMILY:
         raise ValueError(f"family {cfg.family!r} is not ported; ported: "
                          f"{', '.join(_FAMILY)}")
-    return _FAMILY[cfg.family](cfg)
+    return _FAMILY[cfg.family](cfg, remat=remat)
 
 
 __all__ = ["build_model"]

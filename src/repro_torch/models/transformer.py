@@ -6,7 +6,15 @@ layers as stacked :class:`~repro_torch.quant.QTensor` leaves — so
 compression paths, policy names and checkpoint keys carry over unchanged.
 The model object holds only its config; every method takes the params.
 :meth:`DenseModel.loss` is the reference's chunked softmax cross-entropy
-(:func:`chunked_xent`): the (B, S, V) logits are never built whole.
+(:func:`chunked_xent`): the (B, S, V) logits are never built whole. It
+takes a gradient as the reference's does: when a params leaf requires grad
+(the train step's), the stacked leaves are unbound once (their backward is
+one stack, not a full-size write a layer), each block runs under
+``torch.utils.checkpoint`` with ``remat`` (the reference's
+``jax.checkpoint`` around the block body) and each logit chunk is
+recomputed in backward. Without such a leaf (inference: engines,
+calibration capture, perplexity) no graph is built and the forward is the
+same code as before.
 """
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -48,6 +57,26 @@ def block_apply(p, x, cfg, *, positions=None, capture=None, kv_cache=None,
     return x, new_kv
 
 
+def needs_graph(params) -> bool:
+    """True when autograd is on and some dense leaf of ``params`` requires
+    grad: the training forward (unbound stacks, remat, recomputed logit
+    chunks)."""
+    if not torch.is_grad_enabled():
+        return False
+    if isinstance(params, dict):
+        return any(needs_graph(v) for v in params.values())
+    return isinstance(params, torch.Tensor) and params.requires_grad
+
+
+def unstack(tree, n: int) -> list:
+    """The ``n`` per-layer trees of a dense stacked tree, each leaf
+    unbound once along its layer axis (views, the same as ``x[i]``)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def _layer(entry, i: int):
     """Layer ``i`` of stacked cache storage (a view; dense or quantized)."""
     if isinstance(entry, QuantizedKV):
@@ -69,14 +98,16 @@ class DenseModel(nn.Module):
     ``use_fused_decode`` routes the s == 1 cache read through K6 instead
     of the expand-then-attend reference; off by default, as in the
     reference, and the serving engine sets it per
-    ``EngineConfig.use_fused_decode``.
+    ``EngineConfig.use_fused_decode``. ``remat`` recomputes each block in
+    backward (the reference's ``DenseModel.remat``); it only acts when a
+    graph is built.
     """
 
     FAMILY = "dense"
     LOGIT_CHUNK = 512
 
     def __init__(self, cfg: ModelConfig, *, attn_chunk: int = 1024,
-                 use_fused_decode: bool = False):
+                 use_fused_decode: bool = False, remat: bool = True):
         super().__init__()
         if cfg.family != self.FAMILY or cfg.frontend is not None:
             raise ValueError(f"{type(self).__name__} runs the plain "
@@ -85,6 +116,7 @@ class DenseModel(nn.Module):
         self.cfg = cfg
         self.attn_chunk = attn_chunk
         self.use_fused_decode = use_fused_decode
+        self.remat = remat
 
     # -- params ------------------------------------------------------------
     def init(self, seed: int = 0, *, device="cuda",
@@ -137,11 +169,22 @@ class DenseModel(nn.Module):
         h = L.rmsnorm(h, params["final_norm"], self.cfg.norm_eps)
         return self._mask_pad(L.linear_apply(self._head_w(params), h))
 
+    def _block_out(self, p, h):
+        return self._block(p, h, attn_chunk=self.attn_chunk)[0]
+
     def hidden_states(self, params, batch) -> torch.Tensor:
         h = self.embed(params, batch)
-        for i in range(self.num_blocks()):
-            h, _ = self._block(self.block_slice(params, i), h,
-                               attn_chunk=self.attn_chunk)
+        if needs_graph(params):
+            for bp in unstack(params["blocks"], self.num_blocks()):
+                if self.remat:
+                    h = checkpoint(self._block_out, bp, h,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+                else:
+                    h = self._block_out(bp, h)
+        else:
+            for i in range(self.num_blocks()):
+                h = self._block_out(self.block_slice(params, i), h)
         return L.rmsnorm(h, params["final_norm"], self.cfg.norm_eps)
 
     def logits(self, params, batch) -> torch.Tensor:
@@ -151,8 +194,8 @@ class DenseModel(nn.Module):
     # -- loss (chunked xent, full logits never built) -----------------------
     def loss(self, params, batch) -> tuple:
         """Mean token NLL of ``batch["labels"]`` (−1 = padding, ignored)
-        and ``{"sum_nll", "tokens"}``; the inference half of the
-        reference's ``DenseModel.loss`` (no recompute, no backward)."""
+        and ``{"sum_nll", "tokens"}``, the reference's ``DenseModel.loss``:
+        differentiable in ``params`` when its leaves require grad."""
         h = self.hidden_states(params, batch)
         nll, cnt = chunked_xent(h, self._head_w(params), batch["labels"],
                                 chunk=self.LOGIT_CHUNK,
@@ -292,22 +335,39 @@ def chunked_xent(h: torch.Tensor, w_head, labels: torch.Tensor, *,
         h = torch.nn.functional.pad(h, (0, 0, 0, pad))
         labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
     w32 = w_head if isinstance(w_head, QTensor) else w_head.to(torch.float32)
+    # a graph is being built: each chunk's logits are recomputed in
+    # backward (the reference's @jax.checkpoint body), never kept
+    remat = torch.is_grad_enabled() and (
+        h.requires_grad or (isinstance(w32, torch.Tensor)
+                            and w32.requires_grad))
     nll_acc = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt_acc = torch.zeros((), dtype=torch.int32, device=h.device)
     for i in range(0, h.shape[1], chunk):
         lx = labels[:, i:i + chunk].to(torch.int64)
-        logits = L.linear_apply(w32, h[:, i:i + chunk].to(torch.float32))
-        iota = torch.arange(logits.shape[-1], device=logits.device)
-        if vocab and logits.shape[-1] != vocab:
-            logits = logits.masked_fill(iota >= vocab, -1e30)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.where(iota == torch.clamp(lx, min=0)[..., None],
-                           logits, 0.0).sum(dim=-1)
-        valid = lx >= 0
-        nll = torch.where(valid, lse - gold, 0.0)
-        nll_acc = nll_acc + nll.sum()
-        cnt_acc = cnt_acc + valid.sum(dtype=torch.int32)
+        hx = h[:, i:i + chunk]
+        if remat:
+            nll, cnt = checkpoint(_xent_chunk, hx, w32, lx, vocab,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            nll, cnt = _xent_chunk(hx, w32, lx, vocab)
+        nll_acc = nll_acc + nll
+        cnt_acc = cnt_acc + cnt
     return nll_acc, cnt_acc
+
+
+def _xent_chunk(hx, w32, lx, vocab: int):
+    """One chunk's (Σ NLL, valid count)."""
+    logits = L.linear_apply(w32, hx.to(torch.float32))
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    if vocab and logits.shape[-1] != vocab:
+        logits = logits.masked_fill(iota >= vocab, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.where(iota == torch.clamp(lx, min=0)[..., None],
+                       logits, 0.0).sum(dim=-1)
+    valid = lx >= 0
+    nll = torch.where(valid, lse - gold, 0.0)
+    return nll.sum(), valid.sum(dtype=torch.int32)
 
 
 __all__ = ["DenseModel", "block_apply", "chunked_xent", "tree_map"]

@@ -593,7 +593,8 @@ def _kv_case(rng, dev, b, t, hk, g, d, quant, group):
 @pytest.mark.parametrize("hk,g,d,quant,group,block_t", [
     (1, 1, 16, False, 0, 16), (2, 4, 16, False, 0, 7),
     (2, 3, 16, True, 8, 16), (8, 4, 64, True, 64, 256),
-    (8, 4, 64, False, 0, 256), (2, 2, 32, True, 32, 64)])
+    (8, 4, 64, False, 0, 256), (2, 2, 32, True, 32, 64),
+    (2, 12, 192, True, 64, 16), (2, 12, 192, False, 0, 16)])
 def test_decode_attn_matches_plain(cuda, hk, g, d, quant, group, block_t):
     rng = np.random.default_rng(6)
     t = 300 if d == 64 else 40
@@ -666,7 +667,8 @@ def _paged_case(rng, dev, lens, page, hk, g, d, quant, group, pool=None):
 @pytest.mark.parametrize("page,hk,g,d,quant,group,block_t", [
     (8, 1, 1, 16, False, 0, 16), (4, 2, 4, 16, False, 0, 7),
     (8, 2, 3, 16, True, 8, 16), (16, 8, 4, 64, True, 64, 256),
-    (16, 8, 4, 64, False, 0, 256), (5, 2, 2, 32, True, 32, 64)])
+    (16, 8, 4, 64, False, 0, 256), (5, 2, 2, 32, True, 32, 64),
+    (8, 2, 12, 192, True, 64, 16), (8, 2, 12, 192, False, 0, 16)])
 def test_decode_attn_paged_matches_plain(cuda, page, hk, g, d, quant, group,
                                          block_t):
     rng = np.random.default_rng(8)
@@ -685,6 +687,58 @@ def test_decode_attn_paged_matches_plain(cuda, page, hk, g, d, quant, group,
                            ref.gather_pages(v, table), lengths,
                            block_t=block_t, **dict(kw, **rows))
     assert torch.equal(out, slot)
+
+
+def test_every_arch_head_shape_is_supported():
+    """K6/K6p take the head shape of every arch config of the JAX package
+    (full and tiny), nemotron-4-340b's g = 12 at D = 192 included. Runs on
+    the CPU: it asks the wrapper's plan, not the card; the configs module
+    imports no JAX."""
+    from repro.configs import get_config, get_tiny_config, list_archs
+    shapes = set()
+    for arch in list_archs():
+        for cfg in (get_config(arch), get_tiny_config(arch)):
+            if cfg.num_heads == 0:                  # attention-free (SSM)
+                continue
+            g = cfg.num_heads // cfg.num_kv_heads
+            shapes.add((g, cfg.resolved_head_dim))
+            assert ops.decode_attn_supported(g, cfg.resolved_head_dim), \
+                (arch, cfg.name, g, cfg.resolved_head_dim)
+    assert (12, 192) in shapes and (16, 128) in shapes
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["slot", "paged"])
+def test_decode_attn_nemotron_head_shape(cuda, quant, paged):
+    """K6 and K6p at nemotron-4-340b's decode shape (96 query heads over 8
+    KV heads: g = 12, D = 192; the generic form's 32-accumulator
+    instantiation), rows of 0-700 tokens split over 256-token chunks,
+    against the plain version at K6's bar; K6p's bits equal K6's on the
+    gathered rows."""
+    rng = np.random.default_rng(70)
+    lens = [0, 1, 17, 256, 300, 700]
+    group = 64 if quant else 0
+    if paged:
+        q, k, v, table, lengths, kw = _paged_case(rng, cuda, lens, 16, 8, 12,
+                                                  192, quant, group)
+        out = _launched("decode_attn_paged", lambda: ops.decode_attn_paged(
+            q, k, v, table, lengths, **kw))
+        want = ref.decode_attn_paged(q, k, v, table, lengths, **kw)
+        rows = {n: ref.gather_pages(x, table) for n, x in kw.items()
+                if torch.is_tensor(x)}
+        slot = ops.decode_attn(q, ref.gather_pages(k, table),
+                               ref.gather_pages(v, table), lengths,
+                               **dict(kw, **rows))
+        assert torch.equal(out, slot)
+    else:
+        q, (k, v), kw = _kv_case(rng, cuda, len(lens), 700, 8, 12, 192,
+                                 quant, group)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        out = _launched("decode_attn", lambda: ops.decode_attn(
+            q, k, v, lengths, **kw))
+        want = ref.decode_attn(q, k, v, lengths, **kw)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
 
 
 def test_decode_attn_paged_bf16_nan_and_lengths_past_the_table(cuda):
@@ -1237,3 +1291,88 @@ def test_dequant_matmul_at_llama2_shapes(cuda, m, n, k):
         y = _launched("dequant_matmul", lambda: ops.dequant_matmul(
             x, packed, scale, zero, 128, variant=v))
         _k4_close(y, y_ref)
+
+
+def _tiny_setup(dev, remat):
+    """The tiny llama32 model's AdamW step, its train state (made on the
+    CPU from seed 0 and moved to ``dev``) and its batch generator."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.data import DataConfig, ZipfMarkov
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.training.train_loop import (TrainConfig,
+                                                 init_train_state,
+                                                 make_train_step)
+    model = build_model(get_tiny_config("llama32-1b"), remat=remat)
+    tcfg = TrainConfig(optimizer=OptimizerConfig(lr=1e-3, warmup_steps=2,
+                                                 total_steps=20))
+    state = _tree_to(init_train_state(model, 0, device="cpu", tcfg=tcfg),
+                     dev)
+    step, _ = make_train_step(model, tcfg)
+    gen = ZipfMarkov(DataConfig(vocab_size=model.cfg.vocab_size, seq_len=32,
+                                global_batch=8))
+    return step, state, gen
+
+
+def _tiny_run(step, state, gen, dev, start, n):
+    from repro_torch.launch.train import device_batch
+    metrics = None
+    for i in range(start, start + n):
+        state, metrics = step(state, device_batch(gen, i, dev))
+    return state, metrics
+
+
+def _tiny_train(dev, steps, remat):
+    step, state, gen = _tiny_setup(dev, remat)
+    return _tiny_run(step, state, gen, dev, 0, steps)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def test_tiny_train_step_on_the_card_matches_the_cpu(cuda):
+    """One AdamW step of the tiny config with remat on the card against the
+    same step on the CPU: loss and grad_norm within 1e-5 relative, every
+    parameter within 1e-5 but the near-zero gradients whose sign the two
+    devices' sums part (at most 1 in 1,000 entries, within 2·lr)."""
+    got, gm = _tiny_train(cuda, 1, remat=True)
+    want, wm = _tiny_train(torch.device("cpu"), 1, remat=True)
+    for k in ("loss", "grad_norm"):
+        assert abs(float(gm[k]) - float(wm[k])) <= 1e-5 * abs(float(wm[k]))
+    flips, total = 0, 0
+    for (key, a), (_, b) in zip(_flat(want["params"]), _flat(got["params"])):
+        d = (a - b.cpu()).abs()
+        assert float(d.max()) <= 2e-3 + 1e-5, key
+        flips += int((d > 1e-5).sum())
+        total += d.numel()
+    assert flips <= total // 1000
+    assert int(got["step"]) == 1 and got["step"].device.type == "cuda"
+
+
+def test_train_step_never_waits_on_the_card(cuda):
+    """Train steps on the card read nothing on the host: in sync-debug mode
+    the steps after the first raise no synchronizing-operation warning."""
+    import warnings
+    step, state, gen = _tiny_setup(cuda, remat=True)
+    state, _ = _tiny_run(step, state, gen, cuda, 0, 1)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _tiny_run(step, state, gen, cuda, 1, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    waits = [w for w in caught if SYNC_WARNING in str(w.message)]
+    assert not waits, [f"{w.filename}:{w.lineno}" for w in waits]

@@ -39,6 +39,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {f"repro_torch.serving.{m}" for m in (
         "engine", "faults", "kv_cache", "paging", "prefix_cache", "sampling",
         "scheduler")} <= set(mods)
+    assert {"repro_torch.optim.optimizers", "repro_torch.optim.grad_compress",
+            "repro_torch.training.train_loop",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}: __import__(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -78,10 +81,11 @@ def test_entry_points_raise_without_card(no_card, tmp_path):
     from repro_torch.bridge import params_from_numpy
     from repro_torch.configs import get_tiny_config
     from repro_torch.core import calibration
-    from repro_torch.launch import compress, serve
+    from repro_torch.launch import compress, serve, train
     from repro_torch.models import build_model
     from repro_torch.serving import (KVCacheConfig, init_paged_storage,
                                      init_slot_cache)
+    from repro_torch.training.train_loop import init_train_state
 
     cfg = get_tiny_config("llama32-1b")
     model = build_model(cfg)
@@ -96,7 +100,10 @@ def test_entry_points_raise_without_card(no_card, tmp_path):
                                  "--kv-quant", "--gen", "2"]),
              lambda: serve.main(["--tiny", "--engine", "continuous",
                                  "--kv", "paged", "--gen", "2"]),
-             lambda: compress.main(["--tiny", "--out", str(tmp_path)])]
+             lambda: compress.main(["--tiny", "--out", str(tmp_path)]),
+             lambda: init_train_state(model, 0),
+             lambda: train.main(["--tiny", "--steps", "1", "--ckpt-dir",
+                                 str(tmp_path)])]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

@@ -307,13 +307,16 @@ def test_decode_attn_splits_long_rows_stay_bounded():
 
 
 def test_decode_attn_supported_head_groups():
-    """K6/K6p take every (g, D) whose P·V plan fits 16 accumulators a lane:
-    qwen3-moe's 16 query heads a KV head at D = 128 and the earlier cases
-    (g·D up to 1024), not a group past 32, D not a multiple of 4, or a
-    plan that needs more accumulators (g = 30 at D = 68, g = 8 at D =
-    512)."""
+    """K6/K6p take every (g, D) whose P·V plan fits the wider generic
+    form's 32 accumulators a lane: qwen3-moe's 16 query heads a KV head at
+    D = 128, nemotron-4-340b's 12 at D = 192 (24 accumulators), the
+    earlier cases and the plans that needed more than 16 (g = 30 at D =
+    68, g = 8 at D = 512, g = 32 at D = 128); not a group past 32, D not a
+    multiple of 4, or a plan past 32 (g = 32 at D = 192, g = 16 at D =
+    512, g = 12 at D = 384)."""
     for g, d in ((16, 128), (32, 64), (8, 128), (4, 256), (32, 32), (1, 16),
-                 (2, 20), (12, 64)):
+                 (2, 20), (12, 64), (12, 192), (30, 68), (8, 512),
+                 (32, 128)):
         assert ops.decode_attn_supported(g, d), (g, d)
-    for g, d in ((33, 32), (4, 30), (30, 68), (8, 512), (32, 128)):
+    for g, d in ((33, 32), (4, 30), (32, 192), (16, 512), (12, 384)):
         assert not ops.decode_attn_supported(g, d), (g, d)
