@@ -50,9 +50,25 @@ continued is held to the uninterrupted run's bits; microbatches 2 against
 1; three Adafactor steps; the trained model is compressed by the main
 path on the kernels and plain (held at the bars, each layer's PGD
 iterations printed) and pruned by the Table-1 policy on blocks 0-1, with
-perplexity at init, trained and compressed. K6 and K6p are also held and
-timed at nemotron-4-340b's heads (g = 12, D = 192) among the kernel
-checks. Then it drives the port at the full width of llama32-1b (16 layers,
+perplexity at init, trained and compressed. Then the SSM phase
+(:func:`phase_ssm`): zamba2-1.2b at full depth and width (38 Mamba-2
+blocks and one shared attention + MLP block invoked before every 6 of
+them; 1.157e9 f32 parameters from the seed) and falcon-mamba-7b at full
+width over 4 of its 64 Mamba-1 layers (0.958e9), each through the main
+path: the mixed-policy compression with the batched engine on the
+kernels in sync-debug mode (its host waits a block counted, only its path's
+kernels launched), packing, prefill logits and the static greedy decode
+over the recurrent state cache (K4 at every packed linear of every
+forward), the kernels' packed model decoded again through the plain
+versions (the same first tokens), the same main path through the plain
+versions held at the bars with equal iterations, and the sequential
+driver on blocks 0-1 held to the batched engine; K1, K1b and K3 at the
+SSM linears; an ``ssm`` path in K4's and K2's censuses; and, after every
+timed run of the process, one ``torch.profiler`` window over a prefill
+and four decode steps of each arch (:func:`phase_ssm_profile`) splitting
+the device time into the scans, K4 and the rest. K6 and K6p are also
+held and timed at nemotron-4-340b's heads (g = 12, D = 192) among the
+kernel checks. Then it drives the port at the full width of llama32-1b (16 layers,
 d_model 2048, d_ff 8192, padded vocab 129024, random weights from a
 seed):
 
@@ -139,7 +155,11 @@ layer is printed and the pair held to the bars. Before them the MoE phase
 runs again: K4x's tile bit-equal to its plain version, the MoE
 compression with its host waits counted a block in sync-debug mode, its
 codes, masks and static tokens the same bits on both paths if the
-compressions agree, and every slot-engine request's first token equal.
+compressions agree, and every slot-engine request's first token equal;
+and after the training parity the SSM parity (:func:`parity_ssm`): each
+arch's packed model gives the same greedy tokens through K4 and through
+the plain versions, and its compression on the kernels and plain is held
+at the bars (the same bits, then the same tokens, if it agrees).
 
 Exits non-zero on any failed check, without a CUDA card, and outside a
 checkout of the repository. Prints the card, a JSON line of per-kernel
@@ -321,6 +341,26 @@ MICRO_BAR, MICRO_PARITY_BAR = 1e-3, 1e-5
 # the trained model's compression (no packed linear runs there)
 TRAIN_COMPRESS_PATH = ("awp_pgd_step", "awp_pgd_step_batched", "topk_row",
                        "quant_project")
+# the SSM phase: zamba2-1.2b at full depth and width (38 Mamba-2 blocks and
+# the shared attention block) and falcon-mamba-7b at full width with one
+# cut, depth 64 -> 4 layers (one block's AWP-int4 step is 2 x 5.5e11
+# operations: 64 blocks on the kernels and again plain would take over 10
+# minutes of the 1200 s limit)
+SSM_ARCHS = ("zamba2-1.2b", "falcon-mamba-7b")
+SSM_LAYERS = {"falcon-mamba-7b": 4}
+# the kernels each arch's mixed-policy compression and static decode run:
+# falcon-mamba-7b has no attention (nothing pruned, so no K2) and no two
+# linears of one shape (no K1b)
+SSM_PATH = {"zamba2-1.2b": COMPRESS_PATH,
+            "falcon-mamba-7b": ("awp_pgd_step", "quant_project",
+                                "dequant_matmul")}
+# K1, K1b and K3 at the SSM linears: falcon's in_proj and out_proj,
+# zamba2's out_proj; K1b at zamba2's {wz, wx}
+SSM_K1 = ((16384, 4096), (4096, 8192), (2048, 4096))
+SSM_K1B = ((2, 4096, 2048),)
+# the profiled window: a prefill and four decode steps
+SSM_PROFILE_STEPS = 4
+SSM_SCAN = "ssm_scan"
 
 
 def k1_variant(torch, b: int, m: int, k: int) -> int:
@@ -1745,10 +1785,11 @@ def moe_config():
     return dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
 
 
-def moe_setup(torch, dev, cfg):
-    """The MoE model, its calibration batches and prompts (the llama
-    phase's sizes at the MoE vocabulary). Each run makes the weights from
-    the seed itself (:func:`moe_run`), so the card holds one set."""
+def model_setup(torch, dev, cfg):
+    """The model of ``cfg``, its calibration batches and prompts (the llama
+    phase's sizes at ``cfg``'s vocabulary). Each run makes the weights
+    from the seed itself (:func:`moe_run`, :func:`ssm_run`), so the card
+    holds one set."""
     from repro_torch.data import DataConfig, ZipfMarkov, calibration_batches
     from repro_torch.models import build_model
     model = build_model(cfg)
@@ -1894,15 +1935,8 @@ def moe_hold(torch, cfg, run_k, run_p, tag, exact):
     check(max_dloss <= LOSS_BAR and min_agree >= AGREE_BAR,
           f"{tag}: the two compressions differ beyond the repo's bars")
     check(not exact or iters_differ == 0, f"{tag}: iteration counts differ")
-    v, vp = cfg.vocab_size, cfg.padded_vocab
     for run in (run_k, run_p):
-        lg, tok = run["logits"], run["tokens"]
-        check(tuple(lg.shape) == (BATCH, 1, vp), f"logits shape {lg.shape}")
-        check(bool(torch.isfinite(lg[..., :v]).all()), "non-finite logits")
-        check(bool((lg[..., v:] == torch.finfo(lg.dtype).min).all()),
-              "padded vocab columns not masked")
-        check(tok.shape == (BATCH, GEN) and tok.min() >= 0 and tok.max() < v,
-              "greedy tokens malformed")
+        check_decode(torch, cfg, run["logits"], run["tokens"], tag)
     dlog = float((run_k["logits"] - run_p["logits"].to(
         run_k["logits"].device)).abs().max())
     same_tok = bool((run_k["tokens"] == run_p["tokens"]).all())
@@ -1996,7 +2030,7 @@ def phase_moe(torch, dev):
     row = check_k4x(torch, dev)
     check_k6_moe(torch, dev)
     cfg = moe_config()
-    model, calib, prompts = moe_setup(torch, dev, cfg)
+    model, calib, prompts = model_setup(torch, dev, cfg)
     torch.cuda.reset_peak_memory_stats()
     run_k = moe_run(torch, dev, cfg, model, calib, prompts, "moe kernels")
     check_path(run_k["launches"], MOE_PATH, "the MoE compress and decode path")
@@ -2078,7 +2112,7 @@ def parity_moe(torch, dev):
         f"(shape, form, variant) triples; GEMV entries differing (a record): "
         + ", ".join(f"{key}: {d}" for key, d in gemv.items()))
     cfg = moe_config()
-    model, calib, prompts = moe_setup(torch, dev, cfg)
+    model, calib, prompts = model_setup(torch, dev, cfg)
     run_k = moe_run(torch, dev, cfg, model, calib, prompts,
                     "parity moe kernels", count=True)
     run_k["packed"] = to_host_tree(run_k["packed"])
@@ -3820,6 +3854,442 @@ def phase_train(torch, dev, cfg):
     return launches, summary
 
 
+class _FirstBlocks:
+    """The model with its compression protocol cut to its first ``n``
+    blocks: ``compress_model`` compresses and propagates through those
+    alone, on the same inputs as the whole model's first blocks."""
+
+    def __init__(self, model, n):
+        self._model, self._n = model, n
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def num_blocks(self):
+        return self._n
+
+
+def ssm_config(arch):
+    """``arch`` at its published widths, cut in depth to ``SSM_LAYERS``
+    (falcon-mamba-7b) or at full depth (zamba2-1.2b)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(
+        cfg, num_layers=SSM_LAYERS.get(arch, cfg.num_layers))
+
+
+def ssm_counts(cfg):
+    """(linears compressed, K4 launches a forward) of the mixed policy: a
+    Mamba-1 block's in_proj and out_proj; a Mamba-2 block's wz, wx and
+    out_proj and the shared block's linears once, all packed but its
+    pruned wo, which runs densely at each of its invocations."""
+    if cfg.family == "ssm":
+        return 2 * cfg.num_layers, 2 * cfg.num_layers
+    shared = 6 + (cfg.mlp_act == "silu")
+    invocations = -(-cfg.num_layers // cfg.attn_every)
+    return (3 * cfg.num_layers + shared,
+            3 * cfg.num_layers + (shared - 1) * invocations)
+
+
+def check_decode(torch, cfg, logits, tokens, tag):
+    """Static-path outputs well-formed: (B, 1, padded vocab) logits, finite
+    over the vocabulary and masked past it; (B, GEN) tokens in range."""
+    v, vp = cfg.vocab_size, cfg.padded_vocab
+    check(tuple(logits.shape) == (BATCH, 1, vp),
+          f"{tag}: logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits[..., :v]).all()),
+          f"{tag}: non-finite logits")
+    check(bool((logits[..., v:] == torch.finfo(logits.dtype).min).all()),
+          f"{tag}: padded vocab columns not masked")
+    check(tokens.shape == (BATCH, GEN) and tokens.min() >= 0
+          and tokens.max() < v, f"{tag}: greedy tokens malformed")
+
+
+def ssm_run(torch, dev, cfg, model, calib, prompts, label, count=False):
+    """An SSM or hybrid model's main path once, on the active
+    implementation: weights from the seed, compress (batched engine, mixed
+    policy; with ``count`` in sync-debug mode with the host's waits counted
+    a block, timed all the same), pack in memory, prefill logits and the
+    static greedy decode; launch counts and K4's and K2's census from 0
+    just before. Returns the report, the packed params, logits, tokens,
+    seconds, peak memory, launches and censuses."""
+    from repro_torch.checkpoint import pack_params
+    from repro_torch.core.compress import compress_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import greedy_decode
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(SEED, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    waits = None
+    if count:
+        waits, report, cp = count_waits(
+            torch, (model, params, calib, None), policy_for("mixed"),
+            f"{label} ", keep=True)
+    else:
+        cp, report = compress_model(model, params, calib,
+                                    policy_for("mixed"))
+    torch.cuda.synchronize()
+    t_comp = time.time() - t0
+    del params
+    comp_launches, k2 = dict(ops.LAUNCHES), dict(ops.K2_CENSUS)
+    packed = pack_params(cp, report)
+    del cp
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    logits, _ = model.prefill(
+        packed, {"tokens": torch.as_tensor(prompts, device=dev)},
+        model.init_cache(BATCH, PROMPT_LEN + GEN, torch.float32, device=dev))
+    tokens, secs = greedy_decode(model, packed, prompts, GEN)
+    launches = dict(ops.LAUNCHES)
+    log(f"[{label}] compress {t_comp:.2f}s"
+        + (" (sync-debug mode)" if count else "")
+        + f", peak {peak / 1e9:.1f} GB allocated; prefill "
+        f"{secs['prefill']:.3f}s ({BATCH * PROMPT_LEN / secs['prefill']:.0f}"
+        f" tok/s), {GEN - 1} decode steps {secs['decode']:.3f}s "
+        f"({BATCH * (GEN - 1) / secs['decode']:.1f} tok/s); launches in "
+        f"compression {comp_launches}, in all {launches}")
+    return dict(report=report, packed=packed, logits=logits, tokens=tokens,
+                compress_s=t_comp, decode=secs, peak_bytes=peak,
+                n_params=n_params, launches=launches,
+                compress_launches=comp_launches, waits=waits, k2=k2,
+                k4=dict(ops.K4_CENSUS))
+
+
+def ssm_engines(torch, dev, cfg, model, calib, report, tag):
+    """The sequential driver on the kernels over blocks 0-1 (the mixed
+    policy), held to the batched engine's first two blocks in ``report``
+    at the bars with equal iterations."""
+    from repro_torch.core.compress import CompressionReport, compress_model
+    from repro_torch.kernels import ops
+    params = model.init(SEED, device=dev)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cp, rep_s = compress_model(_FirstBlocks(model, 2), params, calib,
+                               policy_for("mixed"), engine="sequential")
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    del cp, params
+    check_path(dict(ops.LAUNCHES), ("awp_pgd_step", "quant_project"),
+               f"{tag}'s sequential compression")
+    n = len(rep_s)
+    first = CompressionReport(
+        layers=report.layers[:n],
+        artifacts={r.qualname: report.artifacts[r.qualname]
+                   for r in report.layers[:n]})
+    held = hold_reports(torch, first, rep_s, f"{tag} engines", n,
+                        iters_equal=True)
+    held["sequential_s"] = secs
+    return held
+
+
+def check_ssm_shapes(torch, dev):
+    """K1 (every tile variant), K1b and K3 (bits 4) at the SSM linears,
+    each held to its plain version and timed beside it, its bound and
+    ``addmm``/``baddbmm``. Returns the JSON entries by kernel."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    out = {"awp_pgd_step": [check_k1(torch, randn, m, k)
+                            for m, k in SSM_K1],
+           "awp_pgd_step_batched": [k1b_entry(torch, randn, *shape)
+                                    for shape in SSM_K1B],
+           "quant_project": [check_k3(torch, randn, r, d, 4)
+                             for r, d in SSM_K1 + (SSM_K1B[0][1:],)]}
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ssm(torch, dev):
+    """The SSM and hybrid families at full width: zamba2-1.2b at full
+    depth, falcon-mamba-7b over ``SSM_LAYERS`` of its layers. For each:
+    the main path on the kernels (compression counted in sync-debug mode
+    and timed, every kernel of its path launched, K4 at every packed
+    linear of every forward), the kernels' packed model decoded again
+    through the plain versions (the same first tokens), the main path
+    through the plain versions held to the kernels' at the bars with
+    equal iterations, and the sequential driver on blocks 0-1 held to the
+    batched engine. Then K1, K1b and K3 at the SSM linears. Returns the
+    kernels' new JSON entries, the launches, K4's and K2's census, the
+    numbers, and each arch's packed model (on the host) for the profile
+    at the end of the run (:func:`phase_ssm_profile`)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import greedy_decode
+    t_phase = time.time()
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    k4, k2, summary, keep = {}, {}, {}, {}
+    for arch in SSM_ARCHS:
+        cfg = ssm_config(arch)
+        tag = f"ssm {arch}"
+        n_layers, k4_forward = ssm_counts(cfg)
+        model, calib, prompts = model_setup(torch, dev, cfg)
+        run_k = ssm_run(torch, dev, cfg, model, calib, prompts,
+                        f"{tag} kernels", count=True)
+        published = get_config(arch).num_layers
+        log(f"[model] {cfg.name}: {cfg.num_layers} layers"
+            + (" (full depth, no cut)" if cfg.num_layers == published else
+               f" of {published} (the one cut)")
+            + f", d_model {cfg.d_model}, d_inner {cfg.d_inner}, SSM state "
+            f"{cfg.ssm_state}"
+            + (f", {cfg.num_heads} heads of {cfg.resolved_head_dim} in the "
+               f"shared block (before every {cfg.attn_every} blocks), d_ff "
+               f"{cfg.d_ff}" if cfg.family == "hybrid" else "")
+            + f", vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
+            f"{run_k['n_params'] / 1e9:.3f}e9 f32 parameters from seed "
+            f"{SEED}")
+        check_path(run_k["launches"], SSM_PATH[arch],
+                   f"{tag}'s compress and decode path")
+        check(run_k["compress_launches"]["dequant_matmul"] == 0,
+              f"{tag}: K4 launched during compression")
+        forwards = 1 + GEN        # the logits prefill, greedy's prefill, steps
+        check(run_k["launches"]["dequant_matmul"] == k4_forward * forwards,
+              f"{tag}: K4 launched {run_k['launches']['dequant_matmul']} "
+              f"times, expected {k4_forward} a forward")
+        check_decode(torch, cfg, run_k["logits"], run_k["tokens"],
+                     f"{tag} kernels")
+        for name, n in run_k["launches"].items():
+            launches[name] += n
+        for key, n in run_k["k4"].items():
+            k4[key] = k4.get(key, 0) + n
+        for key, n in run_k["k2"].items():
+            k2[key] = k2.get(key, 0) + n
+        with kernels.use_impl("reference"):
+            tok_kp, _ = greedy_decode(model, run_k["packed"], prompts, GEN)
+        first_equal = bool((tok_kp[:, 0] == run_k["tokens"][:, 0]).all())
+        log(f"[{tag}] the kernels' packed model decoded through the plain "
+            f"versions: first tokens "
+            + ("equal" if first_equal else "DIFFER") + ", all tokens "
+            + ("identical" if (tok_kp == run_k["tokens"]).all() else
+               "differ") + f"; row 0: {run_k['tokens'][0][:12].tolist()}")
+        check(first_equal, f"{tag}: first tokens differ between K4 and the "
+                           f"plain version on one packed model")
+        keep[arch] = dict(cfg=cfg, model=model, prompts=prompts,
+                          tokens=run_k["tokens"],
+                          packed=to_host_tree(run_k["packed"]))
+        del run_k["packed"]
+        torch.cuda.empty_cache()
+        ops.reset_launches()
+        with kernels.use_impl("reference"):
+            run_p = ssm_run(torch, dev, cfg, model, calib, prompts,
+                            f"{tag} plain")
+        check(not any(ops.LAUNCHES.values()),
+              f"{tag}: the plain run launched a kernel")
+        check_decode(torch, cfg, run_p["logits"], run_p["tokens"],
+                     f"{tag} plain")
+        held = hold_reports(torch, run_k["report"], run_p["report"],
+                            f"{tag} layer", n_layers, iters_equal=True)
+        held["tokens_identical"] = bool(
+            (run_k["tokens"] == run_p["tokens"]).all())
+        held["logits_dmax"] = float((run_k["logits"]
+                                     - run_p["logits"]).abs().max())
+        log(f"[{tag}] kernels against plain: prefill logits max |dlogit| "
+            f"{held['logits_dmax']:.3e}; greedy tokens "
+            + ("identical" if held["tokens_identical"] else "differ"))
+        del run_p["packed"], run_p["report"]
+        torch.cuda.empty_cache()
+        engines = ssm_engines(torch, dev, cfg, model, calib, run_k["report"],
+                              tag)
+        del run_k["report"]
+        torch.cuda.empty_cache()
+        dec = run_k["decode"]
+        summary[arch] = dict(
+            layers=cfg.num_layers, n_params=run_k["n_params"],
+            compress_s=run_k["compress_s"],
+            compress_plain_s=run_p["compress_s"],
+            waits_per_block=run_k["waits"],
+            peak_gb=run_k["peak_bytes"] / 1e9,
+            prefill_s=dec["prefill"], decode_s=dec["decode"],
+            prefill_tok_s=BATCH * PROMPT_LEN / dec["prefill"],
+            decode_tok_s=BATCH * (GEN - 1) / dec["decode"],
+            plain_prefill_s=run_p["decode"]["prefill"],
+            plain_decode_s=run_p["decode"]["decode"],
+            first_tokens_equal=first_equal, kernels_vs_plain=held,
+            engines=engines)
+        log(f"[{tag}] summary: {json.dumps(summary[arch])}")
+        del run_k, run_p, calib
+        torch.cuda.empty_cache()
+    shapes = check_ssm_shapes(torch, dev)
+    summary["seconds"] = time.time() - t_phase
+    log(f"[ssm] phase {summary['seconds']:.1f}s; launches {launches}")
+    return shapes, launches, k4, k2, summary, keep
+
+
+def _annotated(torch, fn):
+    """``fn`` inside a ``record_function`` span named ``SSM_SCAN``."""
+    def wrapped(*args, **kw):
+        with torch.profiler.record_function(SSM_SCAN):
+            return fn(*args, **kw)
+    return wrapped
+
+
+def split_device_time(prof, windows):
+    """Device ms and kernel counts inside ``windows`` split three ways:
+    kernels launched inside a ``SSM_SCAN`` span (the scans), K4's kernels,
+    the rest."""
+    scans = _union([(e["ts"], e["ts"] + e["dur"]) for e in prof["host"]
+                    if e["name"] == SSM_SCAN])
+    in_scan = _inside([dict(start=a, end=b) for a, b in scans])
+    scan_ids = {e["args"]["correlation"] for e in prof["host"]
+                if e["cat"] in ("cuda_runtime", "cuda_driver")
+                and "Launch" in e["name"]
+                and "correlation" in e.get("args", {}) and in_scan(e["ts"])}
+    inside = _inside(windows)
+    out = {f"{c}_{u}": 0.0 for c in ("scan", "k4", "other")
+           for u in ("ms", "kernels")}
+    for e in prof["device"]:
+        if e["cat"] != "kernel" or not inside(e["ts"]):
+            continue
+        if e.get("args", {}).get("correlation") in scan_ids:
+            c = "scan"
+        elif "dequant_gemv_kernel" in e["name"] or \
+                "dequant_gemm_kernel" in e["name"]:
+            c = "k4"
+        else:
+            c = "other"
+        out[f"{c}_ms"] += e["dur"] / 1e3
+        out[f"{c}_kernels"] += 1
+    return out
+
+
+def phase_ssm_profile(torch, dev, keep):
+    """After every timed run: for each arch one ``torch.profiler`` window
+    (the port's ``StepTraceWindow``) over a prefill of the phase's prompts
+    and ``SSM_PROFILE_STEPS`` decode steps of its packed model, each step
+    ended by a synchronize, with the scans (``_mamba_scan_y``,
+    ``_ssd_chunked``) in ``record_function`` spans. The tokens must be the
+    timed run's and the trace's K4 kernel events K4's launches. Prints the
+    device time of the scans, K4 and the rest, and the decode steps'
+    device idle share. Returns the numbers by arch."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import mamba, mamba2
+    from repro_torch.obs import StepTraceWindow
+    scan_fns = {(mamba, "_mamba_scan_y"): mamba._mamba_scan_y,
+                (mamba2, "_ssd_chunked"): mamba2._ssd_chunked}
+    out = {}
+    try:
+        for (mod, name), fn in scan_fns.items():
+            setattr(mod, name, _annotated(torch, fn))
+        for arch, k in keep.items():
+            model, packed = k["model"], to_card_tree(k["packed"], dev)
+            toks = torch.as_tensor(k["prompts"], device=dev)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                win = StepTraceWindow(tmp, 1 + SSM_PROFILE_STEPS)
+                ops.reset_launches()
+                torch.cuda.synchronize()
+                win.start()
+                cache = model.init_cache(BATCH, PROMPT_LEN + GEN,
+                                         torch.float32, device=dev)
+                logits, cache = model.prefill(packed, {"tokens": toks},
+                                              cache)
+                got = [torch.argmax(logits[:, -1], -1)[:, None]]
+                torch.cuda.synchronize()
+                win.on_step()
+                for _ in range(SSM_PROFILE_STEPS):
+                    logits, cache = model.decode_step(packed, got[-1], cache)
+                    got.append(torch.argmax(logits[:, -1], -1)[:, None])
+                    torch.cuda.synchronize()
+                    win.on_step()
+                check(bool(win.path), f"ssm profile {arch}: no trace written")
+                with open(win.path) as f:
+                    prof = read_profile(json.load(f)["traceEvents"])
+            tokens = torch.cat(got, 1).cpu().numpy()
+            check((tokens == k["tokens"][:, :1 + SSM_PROFILE_STEPS]).all(),
+                  f"ssm profile {arch}: tokens differ from the timed run's")
+            n_k4 = sum(c for name, c in prof["kernels"].items()
+                       if "dequant_gemv_kernel" in name
+                       or "dequant_gemm_kernel" in name)
+            check(n_k4 == ops.LAUNCHES["dequant_matmul"],
+                  f"ssm profile {arch}: {n_k4} K4 kernel events, "
+                  f"{ops.LAUNCHES['dequant_matmul']} launches")
+            wins = prof["windows"]
+            check(len(wins) == 1 + SSM_PROFILE_STEPS,
+                  f"ssm profile {arch}: {len(wins)} step windows")
+            res = {}
+            for label, ws in (("prefill", wins[:1]), ("decode", wins[1:])):
+                split = split_device_time(prof, ws)
+                busy = sum(w["busy_ms"] for w in ws) / len(ws)
+                kern = sum(v for k, v in split.items() if k.endswith("_ms"))
+                res[label] = dict(
+                    steps=len(ws), step_ms=sum(w["ms"] for w in ws) / len(ws),
+                    busy_ms=busy,
+                    idle_mean=sum(w["idle"] for w in ws) / len(ws),
+                    kernels=sum(w["kernels"] for w in ws) / len(ws),
+                    **{key: v / len(ws) for key, v in split.items()},
+                    scan_share=split["scan_ms"] / kern if kern else 0.0)
+                r = res[label]
+                log(f"[ssm profile] {arch}, {label}: {r['steps']} windows, "
+                    f"{r['step_ms']:.3f} ms a step profiled, device busy "
+                    f"{r['busy_ms']:.3f} ms, idle share {r['idle_mean']:.4f}"
+                    f", {r['kernels']:.0f} kernels a step; kernel time "
+                    f"(kernels) a step: scans {r['scan_ms']:.3f} ms "
+                    f"({r['scan_share']:.1%}; {r['scan_kernels']:.0f}), K4 "
+                    f"{r['k4_ms']:.3f} ms ({r['k4_kernels']:.0f}), the rest "
+                    f"{r['other_ms']:.3f} ms ({r['other_kernels']:.0f})")
+            res["device_ops"] = device_ops(prof, wins[1:], 8)
+            log(f"[ssm profile] {arch}, decode: top device ops (ms and "
+                f"count a window): " + "; ".join(
+                    f"{name[:80]} {ms / SSM_PROFILE_STEPS:.4f} "
+                    f"({c / SSM_PROFILE_STEPS:.1f})"
+                    for name, ms, c in res["device_ops"]))
+            out[arch] = res
+            del packed, cache
+            torch.cuda.empty_cache()
+    finally:
+        for (mod, name), fn in scan_fns.items():
+            setattr(mod, name, fn)
+    return out
+
+
+def parity_ssm(torch, dev):
+    """Under unsplit cuBLAS, each SSM arch's main path through the kernels
+    and through the plain versions: the kernels' packed model decoded
+    through the plain versions gives every greedy token of the kernels'
+    decode; the two compressions held at the bars with equal iterations,
+    and, if they came out the same bits, the same greedy tokens."""
+    from repro_torch import kernels
+    from repro_torch.launch.serve import greedy_decode
+    for arch in SSM_ARCHS:
+        cfg = ssm_config(arch)
+        tag = f"parity ssm {arch}"
+        model, calib, prompts = model_setup(torch, dev, cfg)
+        run_k = ssm_run(torch, dev, cfg, model, calib, prompts,
+                        f"{tag} kernels")
+        with kernels.use_impl("reference"):
+            tok_kp, _ = greedy_decode(model, run_k["packed"], prompts, GEN)
+        same = bool((tok_kp == run_k["tokens"]).all())
+        log(f"[{tag}] the kernels' packed model through the plain versions:"
+            f" greedy tokens " + ("identical" if same else "DIFFER"))
+        check(same, f"{tag}: greedy tokens differ between K4 and the plain "
+                    f"version on one packed model under unsplit cuBLAS")
+        del run_k["packed"]
+        torch.cuda.empty_cache()
+        with kernels.use_impl("reference"):
+            run_p = ssm_run(torch, dev, cfg, model, calib, prompts,
+                            f"{tag} plain")
+        held = hold_reports(torch, run_k["report"], run_p["report"],
+                            f"{tag} layer", ssm_counts(cfg)[0],
+                            iters_equal=True)
+        same = bool((run_k["tokens"] == run_p["tokens"]).all())
+        log(f"[{tag}] kernels against plain: "
+            + ("the same bits in every layer" if held["identical"] else
+               f"{held['layers_differ']} layers differ, the first "
+               f"{held['first_diff']}; held to the bars instead")
+            + "; greedy tokens " + ("identical" if same else "differ"))
+        check(not held["identical"] or same,
+              f"{tag}: the same compression bits but other greedy tokens")
+        del run_k, run_p, calib
+        torch.cuda.empty_cache()
+
+
 def phase_profile(torch, cfg, data, report, packed, timed):
     """The profile phase: each engine's fourth kernel run in a
     ``StepTraceWindow`` (:func:`profile_engine`; ``timed``: each layout's
@@ -3989,6 +4459,8 @@ def parity_main(torch, dev, cfg):
     torch.cuda.empty_cache()
     parity_train(torch, dev, cfg)
     torch.cuda.empty_cache()
+    parity_ssm(torch, dev)
+    torch.cuda.empty_cache()
     data = setup(torch, dev, cfg)
     model, _, _, prompts = data
     for engine, mode in (("sequential", "bits"), ("batched", "bits_if_same")):
@@ -4038,6 +4510,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_launches, train = phase_train(torch, dev, cfg)
     torch.cuda.empty_cache()
+    ssm_shapes, ssm_launches, ssm_k4, ssm_k2, ssm, ssm_keep = phase_ssm(
+        torch, dev)
+    for name, entries in ssm_shapes.items():
+        rows[name].setdefault("by_shape", [dict(rows[name])])
+        rows[name]["by_shape"] += entries
+    torch.cuda.empty_cache()
     data = setup(torch, dev, cfg)
     launches, packed, census, k2_main, comp, report = phase_main_path(
         torch, dev, cfg, data)
@@ -4060,16 +4538,18 @@ def main() -> None:
     rows["decode_attn_paged"]["census"] = k6_census["paged"]
     k4_census = phase_k4_census(torch, dev, {
         **dict(zip(K4_PATHS, (census, slot_census, paged_census))),
-        "methods": methods_k4})
+        "methods": methods_k4, "ssm": ssm_k4})
     rows["dequant_matmul"]["census"] = k4_census
     rows["topk_row"]["census"] = phase_k2_census(
-        torch, dev, {**k2_main, **k2_prune, "methods": methods_k2})
+        torch, dev, {**k2_main, **k2_prune, "methods": methods_k2,
+                     "ssm": ssm_k2})
     eng["profile"], paged["profile"], comp["profile"] = phase_profile(
         torch, cfg, data, report, packed,
         {"slot": (slot_tokens, eng["kernels"]),
          "paged": (paged_tokens, paged["kernels"])})
     check_busy_floor({"slot": eng, "paged": paged}, k4_census, k6_census)
-    del data, model, packed, report
+    ssm["profile"] = phase_ssm_profile(torch, dev, ssm_keep)
+    del data, model, packed, report, ssm_keep
     torch.cuda.empty_cache()
     phase_parity()
 
@@ -4082,7 +4562,8 @@ def main() -> None:
                    "paged_engine": paged_launches[name],
                    **{path: n[name] for path, n in moe_launches.items()},
                    "methods": methods_launches[name],
-                   "train_compress": train_launches[name]}
+                   "train_compress": train_launches[name],
+                   "ssm": ssm_launches[name]}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -4101,6 +4582,7 @@ def main() -> None:
     log(f"[moe] summary: {json.dumps(moe)}")
     log(f"[methods] summary: {json.dumps(methods)}")
     log(f"[train] summary: {json.dumps(train)}")
+    log(f"[ssm] summary: {json.dumps(ssm)}")
     log(f"[done] {time.time() - t_start:.1f}s; card {card}")
     log(json.dumps({"kernels": out}))
     log(card)

@@ -1,7 +1,8 @@
 """Model configuration (the port's copy of ``repro/configs/base.py``, for
 the families the port runs: dense ``llama32-1b``, ``llama2-7b``,
-``llama2-13b``, ``llama31-8b`` and ``granite-8b``, and MoE
-``qwen3-moe-235b-a22b``)."""
+``llama2-13b``, ``llama31-8b`` and ``granite-8b``, MoE
+``qwen3-moe-235b-a22b``, SSM ``falcon-mamba-7b`` (Mamba-1) and hybrid
+``zamba2-1.2b`` (Mamba-2 blocks and one shared attention block))."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,13 +10,14 @@ import importlib
 from typing import Optional
 
 _ARCH_IDS = ["llama32-1b", "llama2-7b", "llama2-13b", "llama31-8b",
-             "granite-8b", "qwen3-moe-235b-a22b"]
+             "granite-8b", "qwen3-moe-235b-a22b", "falcon-mamba-7b",
+             "zamba2-1.2b"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe (the families the port runs)
+    family: str                 # dense | moe | ssm | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -27,6 +29,13 @@ class ModelConfig:
     num_experts: int = 0
     experts_per_token: int = 0
     capacity_factor: float = 1.25
+    # --- SSM (mamba1/mamba2) ---
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64      # mamba2 only
+    # --- hybrid (zamba2): one shared attention block every `attn_every` ---
+    attn_every: int = 0
     mlp_act: str = "silu"       # silu (gated) | relu2 | gelu (non-gated)
     rope_theta: float = 1e4
     tie_embeddings: bool = False
@@ -46,21 +55,37 @@ class ModelConfig:
             return -(-self.vocab_size // 2048) * 2048
         return -(-self.vocab_size // 128) * 128
 
+    @property
+    def d_inner(self) -> int:        # ssm inner width
+        return self.ssm_expand * self.d_model
+
     def _attn_params(self) -> int:
         d, hd = self.d_model, self.resolved_head_dim
         return d * (self.num_heads * hd) * 2 + d * (self.num_kv_heads * hd) * 2
 
     def param_count(self) -> int:
-        """Total parameter count N of the dense and MoE families."""
+        """Total parameter count N, as the reference counts it (for the
+        SSM and hybrid families an estimate: it leaves out the norms and
+        some small projections, kept so that both packages agree)."""
         d, L = self.d_model, self.num_layers
         gate = 3 if self.mlp_act == "silu" else 2
         if self.family == "dense":
-            mlp = gate * d * self.d_ff
+            n = L * (self._attn_params() + gate * d * self.d_ff)
         elif self.family == "moe":
-            mlp = gate * d * self.d_ff * self.num_experts + d * self.num_experts
+            mlp = (gate * d * self.d_ff * self.num_experts
+                   + d * self.num_experts)
+            n = L * (self._attn_params() + mlp)
+        elif self.family == "ssm":
+            di, N = self.d_inner, self.ssm_state
+            n = L * (d * 2 * di + di * self.ssm_conv + di * (2 * N + 1) + di
+                     + di * d)
+        elif self.family == "hybrid":
+            di = self.d_inner
+            nh = di // self.ssm_head_dim
+            n = L * (d * 2 * di + di * self.ssm_conv + 3 * nh + di + di * d)
+            n += self._attn_params() + gate * d * self.d_ff
         else:
             raise ValueError(self.family)
-        n = L * (self._attn_params() + mlp)
         n += d * self.vocab_size * (1 if self.tie_embeddings else 2)
         return int(n)
 

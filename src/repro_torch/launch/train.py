@@ -17,7 +17,9 @@ here and the reverse. ``--heartbeat FILE`` is rewritten with the step
 number after every step (liveness for an external supervisor).
 
 Runs on the card unless ``--device cpu``. ``--mesh`` takes only ``none``:
-the multi-device step comes with the multi-device slice.
+the multi-device step comes with the multi-device slice. The SSM and
+hybrid families (falcon-mamba-7b, zamba2-1.2b) are refused: their
+gradient through the scans comes with a later slice.
 """
 from __future__ import annotations
 
@@ -99,9 +101,13 @@ def main(argv=None):
     if args.mesh != "none":
         raise ValueError(f"--mesh {args.mesh!r}: the port trains on one "
                          f"device; meshes come with the multi-device slice")
+    cfg = get_tiny_config(args.arch) if args.tiny else get_config(args.arch)
+    if cfg.family in ("ssm", "hybrid"):
+        raise SystemExit(f"[train] --arch {args.arch}: the port does not "
+                         f"train the {cfg.family} family yet; its gradient "
+                         f"through the scans comes with a later slice")
     dev = resolve_device(args.device)
 
-    cfg = get_tiny_config(args.arch) if args.tiny else get_config(args.arch)
     model = build_model(cfg, remat=not args.tiny)
     tcfg = train_config(args)
     step_fn, _ = make_train_step(model, tcfg)

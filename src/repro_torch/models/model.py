@@ -1,11 +1,15 @@
-"""Model registry: config → model instance (dense and MoE families)."""
+"""Model registry: config → model instance (dense, MoE, SSM and hybrid
+families)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.mamba import MambaModel
+from repro_torch.models.mamba2 import Zamba2Model
 from repro_torch.models.moe import MoEModel
 from repro_torch.models.transformer import DenseModel
 
-_FAMILY = {"dense": DenseModel, "moe": MoEModel}
+_FAMILY = {"dense": DenseModel, "moe": MoEModel, "ssm": MambaModel,
+           "hybrid": Zamba2Model}
 
 
 def build_model(cfg: ModelConfig, remat: bool = True):

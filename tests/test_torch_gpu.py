@@ -1376,3 +1376,83 @@ def test_train_step_never_waits_on_the_card(cuda):
         torch.cuda.set_sync_debug_mode("default")
     waits = [w for w in caught if SYNC_WARNING in str(w.message)]
     assert not waits, [f"{w.filename}:{w.lineno}" for w in waits]
+
+
+# ---------------------------------------------------------------------------
+# the SSM and hybrid families: both blocks and the packed tiny models
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ["falcon-mamba-7b", "zamba2-1.2b"]
+
+
+def _to(tree, dev):
+    from repro_torch.models.transformer import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+# f32 on both devices with TF32 off: the products sum in other orders, so
+# agreement to a few ulps of each sum, hence 1e-4 relative / 1e-5 absolute
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_block_on_the_card_matches_the_cpu(cuda, arch):
+    """A Mamba-1 or Mamba-2 block at chunk 8 over 20 tokens (a padded last
+    chunk) from a random state: output, new conv and SSM state on the card
+    against the CPU."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import build_model
+    cfg = get_tiny_config(arch)
+    model = build_model(cfg)
+    model.scan_chunk = 8
+    params = model.block_slice(model.init(0, device="cpu"), 1)
+    rng = np.random.default_rng(40)
+    x = _randn(rng, (2, 20, cfg.d_model), "cpu")
+    cache = model.init_cache(2, 1, device="cpu")
+    state = {k: _randn(rng, cache[k][0].shape, "cpu") for k in ("conv", "ssm")}
+    for st in (None, state):
+        want = model._block(params, x, state=st)
+        got = model._block(_to(params, cuda), x.to(cuda),
+                           state=None if st is None else _to(st, cuda))
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4,
+                                   atol=1e-5)
+        if st is not None:
+            for k in ("conv", "ssm"):
+                torch.testing.assert_close(got[1][k].cpu(), want[1][k],
+                                           rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_packed_ssm_model_on_the_kernels_matches_plain(cuda, arch):
+    """The tiny model compressed on the card (AWP int4, group 32) and
+    packed: its logits, prefill and a decode step through K4 against the
+    same through the plain versions, within 1e-4; K4 at every packed
+    linear."""
+    from repro_torch import kernels
+    from repro_torch.checkpoint import pack_params
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.core import specs
+    from repro_torch.core.compress import compress_model
+    from repro_torch.models import build_model
+    cfg = get_tiny_config(arch)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(41).integers(
+        0, cfg.vocab_size, (2, 12))).to(cuda)
+    cp, rep = compress_model(model, params, [{"tokens": toks}],
+                             specs.QuantSpec(bits=4, group_size=32))
+    packed = pack_params(cp, rep)
+
+    def run():
+        cache = model.init_cache(2, 14, device=cuda)
+        logits, cache = model.prefill(packed, {"tokens": toks}, cache)
+        step, _ = model.decode_step(packed, toks[:, :1], cache)
+        return model.logits(packed, {"tokens": toks}), logits, step
+    ops.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    per_forward = len(rep.packed_layers())
+    if cfg.family == "hybrid":      # the shared block's 6 at each invocation
+        per_forward += 6 * (len(model._groups()) - 1)
+    assert ops.LAUNCHES["dequant_matmul"] == 3 * per_forward
+    with kernels.use_impl("reference"):
+        want = run()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)

@@ -42,6 +42,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"repro_torch.optim.optimizers", "repro_torch.optim.grad_compress",
             "repro_torch.training.train_loop",
             "repro_torch.launch.train"} <= set(mods)
+    assert {"repro_torch.models.mamba", "repro_torch.models.mamba2",
+            "repro_torch.configs.falcon_mamba_7b",
+            "repro_torch.configs.zamba2_1p2b"} <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}: __import__(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -104,6 +107,14 @@ def test_entry_points_raise_without_card(no_card, tmp_path):
              lambda: init_train_state(model, 0),
              lambda: train.main(["--tiny", "--steps", "1", "--ckpt-dir",
                                  str(tmp_path)])]
+    for arch in ("falcon-mamba-7b", "zamba2-1.2b"):
+        ssm = build_model(get_tiny_config(arch))
+        calls += [lambda m=ssm: m.init(0),
+                  lambda m=ssm: m.init_cache(1, 8),
+                  lambda a=arch: serve.main(["--tiny", "--arch", a, "--gen",
+                                             "2"]),
+                  lambda a=arch: compress.main(["--tiny", "--arch", a,
+                                                "--out", str(tmp_path)])]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
