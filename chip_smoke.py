@@ -51,10 +51,10 @@ continued is held to the uninterrupted run's bits; microbatches 2 against
 path on the kernels and plain (held at the bars, each layer's PGD
 iterations printed) and pruned by the Table-1 policy on blocks 0-1, with
 perplexity at init, trained and compressed. Then the SSM phase
-(:func:`phase_ssm`): zamba2-1.2b at full depth and width (38 Mamba-2
-blocks and one shared attention + MLP block invoked before every 6 of
-them; 1.157e9 f32 parameters from the seed) and falcon-mamba-7b at full
-width over 4 of its 64 Mamba-1 layers (0.958e9), each through the main
+(:func:`phase_ssm`): zamba2-1.2b at full width over 12 of its 38
+Mamba-2 blocks (and one shared attention + MLP block invoked before every
+6 of them) and falcon-mamba-7b at full width over 4 of its 64 Mamba-1
+layers (0.958e9 f32 parameters from the seed), each through the main
 path: the mixed-policy compression with the batched engine on the
 kernels in sync-debug mode (its host waits a block counted, only its path's
 kernels launched), packing, prefill logits and the static greedy decode
@@ -66,7 +66,25 @@ driver on blocks 0-1 held to the batched engine; K1, K1b and K3 at the
 SSM linears; an ``ssm`` path in K4's and K2's censuses; and, after every
 timed run of the process, one ``torch.profiler`` window over a prefill
 and four decode steps of each arch (:func:`phase_ssm_profile`) splitting
-the device time into the scans, K4 and the rest. K6 and K6p are also
+the device time into the scans, K4 and the rest. Then the frontends
+phase (:func:`phase_frontends`): musicgen-medium (audio: 48 layers,
+frame embeddings in place of tokens) and internvl2-1b (vlm: 24 layers,
+256 patch embeddings ahead of the tokens) at full depth and width, and
+starcoder2-7b at full width over 4 of its 32 layers, each calibrated on
+16,384 positions from the port's ``make_batch`` and through the main
+path on the kernels (the compression in sync-debug mode with its waits
+counted a block; the packed loss and perplexity against the dense
+result, a prefill of 4 x 128 frames or 4 x (256 patches + 128 tokens) or
+4 x 128 tokens and, where the arch decodes tokens, 31 greedy steps; K4 at
+every packed linear of every forward), the kernels' packed model served
+again through the plain versions (the same first tokens), the first four
+blocks compressed through the plain versions and held to the kernels' at
+the bars with equal iterations, the sequential driver on blocks 0-1 held
+to the batched engine, and starcoder2-7b's packed model on the slot
+engine of 3 below with every request's first token equal on the kernels
+and plain (K5, and K6 at g = 9, D = 128); then K1, K1b and K3 at the new
+linears and K6/K6p at starcoder2-7b's heads, and a ``frontends`` path in
+K4's and K2's censuses. K6 and K6p are also
 held and timed at nemotron-4-340b's heads (g = 12, D = 192) among the
 kernel checks. Then it drives the port at the full width of llama32-1b (16 layers,
 d_model 2048, d_ff 8192, padded vocab 129024, random weights from a
@@ -159,7 +177,12 @@ compressions agree, and every slot-engine request's first token equal;
 and after the training parity the SSM parity (:func:`parity_ssm`): each
 arch's packed model gives the same greedy tokens through K4 and through
 the plain versions, and its compression on the kernels and plain is held
-at the bars (the same bits, then the same tokens, if it agrees).
+at the bars (the same bits, then the same tokens, if it agrees); then the
+frontends parity (:func:`parity_frontends`): each arch's packed model
+gives the same loss, prefill logits and greedy tokens through K4 and
+through the plain versions, its first four blocks compress to the same
+bits on both, and every starcoder2-7b slot-engine request gets the same
+first token.
 
 Exits non-zero on any failed check, without a CUDA card, and outside a
 checkout of the repository. Prints the card, a JSON line of per-kernel
@@ -341,13 +364,15 @@ MICRO_BAR, MICRO_PARITY_BAR = 1e-3, 1e-5
 # the trained model's compression (no packed linear runs there)
 TRAIN_COMPRESS_PATH = ("awp_pgd_step", "awp_pgd_step_batched", "topk_row",
                        "quant_project")
-# the SSM phase: zamba2-1.2b at full depth and width (38 Mamba-2 blocks and
-# the shared attention block) and falcon-mamba-7b at full width with one
-# cut, depth 64 -> 4 layers (one block's AWP-int4 step is 2 x 5.5e11
-# operations: 64 blocks on the kernels and again plain would take over 10
-# minutes of the 1200 s limit)
+# the SSM phase: zamba2-1.2b and falcon-mamba-7b at full width, each with
+# one cut: falcon's depth 64 -> 4 layers (one block's AWP-int4 step is 2 x
+# 5.5e11 operations: 64 blocks on the kernels and again plain would take
+# over 10 minutes of the 1200 s limit); zamba2's 38 -> 12 Mamba-2 blocks
+# (two invocations of the shared attention block), which keeps the whole
+# script under its time budget beside the frontends phase (PERF.md keeps
+# the 38-block numbers)
 SSM_ARCHS = ("zamba2-1.2b", "falcon-mamba-7b")
-SSM_LAYERS = {"falcon-mamba-7b": 4}
+SSM_LAYERS = {"falcon-mamba-7b": 4, "zamba2-1.2b": 12}
 # the kernels each arch's mixed-policy compression and static decode run:
 # falcon-mamba-7b has no attention (nothing pruned, so no K2) and no two
 # linears of one shape (no K1b)
@@ -361,6 +386,36 @@ SSM_K1B = ((2, 4096, 2048),)
 # the profiled window: a prefill and four decode steps
 SSM_PROFILE_STEPS = 4
 SSM_SCAN = "ssm_scan"
+# the frontends phase: musicgen-medium (audio: frame embeddings in place of
+# tokens) and internvl2-1b (vlm: 256 patch embeddings ahead of the tokens)
+# at full depth and width, and starcoder2-7b at full width with one cut,
+# depth 32 -> 4 layers (one block's compression is about 8e13 operations,
+# 1.7 s on the kernels: 32 blocks on the kernels and again plain would take
+# about two minutes of the 1200 s limit). starcoder2-7b also serves the
+# slot engine (K5, and K6 at g = 9, D = 128)
+FRONTEND_ARCHS = ("musicgen-medium", "internvl2-1b", "starcoder2-7b")
+FRONTEND_LAYERS = {"starcoder2-7b": 4}
+ENGINE_ARCH = "starcoder2-7b"
+# the blocks the plain compression runs, held to the kernels' first blocks
+# (at the bars, and under unsplit cuBLAS bit for bit). Over all of
+# musicgen-medium's 48 blocks the plain run takes 13.6 s (22.5 s under
+# unsplit cuBLAS), past the phase's budget; and under cuBLAS's default
+# (split-K) sums a pruned wo's mask parts by a few entries from block 5 on,
+# and the drift that follows passes the 1e-5 loss bar by block 43
+# (PERF.md, the frontends phase)
+FRONTEND_PLAIN_BLOCKS = 4
+# the sequential driver with the mixed policy: K1 alone, K2 at the pruned wo
+PRUNE_QUANT_PATH = ("awp_pgd_step", "topk_row", "quant_project")
+# K1 and K3 at the new linears, K1b at the new buckets: musicgen-medium's
+# wq-wo, wu, wd and {wq, wk, wv}; internvl2-1b's wq and wo, wd, {wk, wv},
+# {wg, wu}; starcoder2-7b's wq and wo, wu, wd, {wk, wv}
+FRONTEND_K1 = ((1536, 1536), (6144, 1536), (1536, 6144), (896, 896),
+               (896, 4864), (4608, 4608), (18432, 4608), (4608, 18432))
+FRONTEND_K1B = ((3, 1536, 1536), (2, 128, 896), (2, 4864, 896),
+                (2, 512, 4608))
+# K6 and K6p at starcoder2-7b's heads (H, Hk, D) at the engines' T and INT8
+# group: g = 9 at D = 128, the generic form
+STARCODER_HEADS = (36, 4, 128, 2048, 64)
 
 
 def k1_variant(torch, b: int, m: int, k: int) -> int:
@@ -702,7 +757,8 @@ def phase_kernels(torch, dev):
     rows["kv_dequant"] = check_k5(torch, dev, gen)
     rows["decode_attn"] = check_k6(torch, dev, gen)
     rows["decode_attn_paged"] = check_k6p(torch, dev, gen)
-    for name, entries in check_k6_nemotron(torch, dev).items():
+    for name, entries in check_k6_heads(torch, dev, NEMOTRON_HEADS,
+                                        "nemotron", 22).items():
         rows[name]["by_lengths"] += entries
     return rows
 
@@ -1497,19 +1553,22 @@ def check_k6p(torch, dev, gen):
     return row
 
 
-def check_k6_nemotron(torch, dev):
-    """K6 and K6p at nemotron-4-340b's decode head shape (96 query heads
-    over 8 KV heads: g = 12, D = 192, the generic form's 32-accumulator
-    instantiation) at the engines' batch, cache and census lengths (8 rows,
-    T = 2048; K6p through 16-token pages of K6P_POOL), dense f32 and INT8
-    (group 64): within 1e-5 of the plain version, two launches the same
-    bits, K6p equal to K6 on the gathered rows, a length-0 row exactly
-    zero; timed beside the plain version (and, dense, SDPA) at the bound.
-    Returns the K6 and K6p entries (the kernel table's (12, 192) rows)."""
+def check_k6_heads(torch, dev, heads, tag, seed):
+    """K6 and K6p at one arch's decode head shape (``heads``: H, Hk, D, T
+    and the INT8 group; nemotron-4-340b's g = 12 at D = 192 takes the
+    generic form's 32-accumulator instantiation, starcoder2-7b's g = 9 at
+    D = 128 its 16-accumulator one) at the engines' batch, cache and census
+    lengths (8 rows, T = 2048; K6p through 16-token pages of K6P_POOL),
+    dense f32 and INT8: within 1e-5 of the plain version, two launches the
+    same bits, K6p equal to K6 on the gathered rows, a length-0 row
+    exactly zero; timed beside the plain version (and, dense, SDPA) at the
+    bound. Returns the K6 and K6p entries (the kernel table's rows at
+    these heads), printed as ``[K6 <tag>]`` lines."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
-    h, hk, d, t, group = NEMOTRON_HEADS
+    gen = torch.Generator(device=dev).manual_seed(SEED + seed)
+    h, hk, d, t, group = heads
+    at = f"g = {h // hk}, D = {d}"
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     lens = K6_LENGTHS
     b, live = len(lens), sum(K6_LENGTHS)
@@ -1554,16 +1613,16 @@ def check_k6_nemotron(torch, dev):
             err = float((out - want).abs().max())
             rel = float(((out - want).abs() / (want.abs() + 1.0)).max())
             check(err <= 1e-5 or rel <= 1e-5,
-                  f"{kernel} {name} at g = 12, D = 192: max|d| {err:.3e} "
+                  f"{kernel} {name} at {at}: max|d| {err:.3e} "
                   f"against the plain version")
             check(torch.equal(out.view(torch.int32),
                               call(*args, **call_kw).view(torch.int32)),
-                  f"{kernel} {name} at g = 12, D = 192: two launches differ")
+                  f"{kernel} {name} at {at}: two launches differ")
             check(torch.equal(out[0], torch.zeros_like(out[0])),
-                  f"{kernel} {name} at g = 12, D = 192: the length-0 row")
+                  f"{kernel} {name} at {at}: the length-0 row")
             if kernel != "decode_attn":
-                check(torch.equal(out, slot_of_pages), f"K6p {name} at g = "
-                      f"12, D = 192 differs from K6 on the gathered rows")
+                check(torch.equal(out, slot_of_pages), f"K6p {name} at {at} "
+                      f"differs from K6 on the gathered rows")
             io = 4.0 * 2 * b * h * d + 4 * b + (
                 4.0 * table.numel() if kernel != "decode_attn" else 0)
             nbytes = live * tok_bytes[name] + io
@@ -1580,7 +1639,7 @@ def check_k6_nemotron(torch, dev):
                 lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
                     qs, kr, vr, attn_mask=mask), 50)
                 del kr, vr
-            log(f"[K6 nemotron] {kernel} {name} B={b} H={h} Hk={hk} D={d} "
+            log(f"[K6 {tag}] {kernel} {name} B={b} H={h} Hk={hk} D={d} "
                 f"T={t} census lengths: {splits} splits of {chunk}, max|d| "
                 f"{err:.2e}, two launches the same bits"
                 + (", equal to K6" if kernel != "decode_attn" else "")
@@ -1590,7 +1649,7 @@ def check_k6_nemotron(torch, dev):
                 f"{bnd:.4f} ms ({by})")
             out_rows[kernel].append(dict(
                 shape=f"B={b},H={h},Hk={hk},D={d},T={t},{name}",
-                lengths="census (nemotron-4-340b heads)", ms=ms,
+                lengths=f"census ({tag} heads)", ms=ms,
                 plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
                 max_abs_err=err, splits=splits, chunk=chunk))
         del pools, slot_of_pages
@@ -3869,14 +3928,15 @@ class _FirstBlocks:
         return self._n
 
 
-def ssm_config(arch):
-    """``arch`` at its published widths, cut in depth to ``SSM_LAYERS``
-    (falcon-mamba-7b) or at full depth (zamba2-1.2b)."""
+def cut_config(arch, layers):
+    """``arch`` at its published widths, cut in depth to ``layers[arch]``
+    where ``layers`` holds it (``SSM_LAYERS``, ``FRONTEND_LAYERS``), else
+    at full depth."""
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     return dataclasses.replace(
-        cfg, num_layers=SSM_LAYERS.get(arch, cfg.num_layers))
+        cfg, num_layers=layers.get(arch, cfg.num_layers))
 
 
 def ssm_counts(cfg):
@@ -3960,10 +4020,12 @@ def ssm_run(torch, dev, cfg, model, calib, prompts, label, count=False):
                 k4=dict(ops.K4_CENSUS))
 
 
-def ssm_engines(torch, dev, cfg, model, calib, report, tag):
+def hold_sequential_blocks(torch, dev, cfg, model, calib, report, tag,
+                           path=("awp_pgd_step", "quant_project")):
     """The sequential driver on the kernels over blocks 0-1 (the mixed
-    policy), held to the batched engine's first two blocks in ``report``
-    at the bars with equal iterations."""
+    policy; only ``path``'s kernels launched), held to the batched
+    engine's first two blocks in ``report`` at the bars with equal
+    iterations."""
     from repro_torch.core.compress import CompressionReport, compress_model
     from repro_torch.kernels import ops
     params = model.init(SEED, device=dev)
@@ -3975,8 +4037,7 @@ def ssm_engines(torch, dev, cfg, model, calib, report, tag):
     torch.cuda.synchronize()
     secs = time.time() - t0
     del cp, params
-    check_path(dict(ops.LAUNCHES), ("awp_pgd_step", "quant_project"),
-               f"{tag}'s sequential compression")
+    check_path(dict(ops.LAUNCHES), path, f"{tag}'s sequential compression")
     n = len(rep_s)
     first = CompressionReport(
         layers=report.layers[:n],
@@ -4008,8 +4069,8 @@ def check_ssm_shapes(torch, dev):
 
 
 def phase_ssm(torch, dev):
-    """The SSM and hybrid families at full width: zamba2-1.2b at full
-    depth, falcon-mamba-7b over ``SSM_LAYERS`` of its layers. For each:
+    """The SSM and hybrid families at full width, zamba2-1.2b and
+    falcon-mamba-7b each over ``SSM_LAYERS`` of its layers. For each:
     the main path on the kernels (compression counted in sync-debug mode
     and timed, every kernel of its path launched, K4 at every packed
     linear of every forward), the kernels' packed model decoded again
@@ -4028,7 +4089,7 @@ def phase_ssm(torch, dev):
     launches = dict.fromkeys(ops.LAUNCHES, 0)
     k4, k2, summary, keep = {}, {}, {}, {}
     for arch in SSM_ARCHS:
-        cfg = ssm_config(arch)
+        cfg = cut_config(arch, SSM_LAYERS)
         tag = f"ssm {arch}"
         n_layers, k4_forward = ssm_counts(cfg)
         model, calib, prompts = model_setup(torch, dev, cfg)
@@ -4096,8 +4157,8 @@ def phase_ssm(torch, dev):
             + ("identical" if held["tokens_identical"] else "differ"))
         del run_p["packed"], run_p["report"]
         torch.cuda.empty_cache()
-        engines = ssm_engines(torch, dev, cfg, model, calib, run_k["report"],
-                              tag)
+        engines = hold_sequential_blocks(torch, dev, cfg, model, calib,
+                                         run_k["report"], tag)
         del run_k["report"]
         torch.cuda.empty_cache()
         dec = run_k["decode"]
@@ -4258,7 +4319,7 @@ def parity_ssm(torch, dev):
     from repro_torch import kernels
     from repro_torch.launch.serve import greedy_decode
     for arch in SSM_ARCHS:
-        cfg = ssm_config(arch)
+        cfg = cut_config(arch, SSM_LAYERS)
         tag = f"parity ssm {arch}"
         model, calib, prompts = model_setup(torch, dev, cfg)
         run_k = ssm_run(torch, dev, cfg, model, calib, prompts,
@@ -4288,6 +4349,380 @@ def parity_ssm(torch, dev):
               f"{tag}: the same compression bits but other greedy tokens")
         del run_k, run_p, calib
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the frontends phase: musicgen-medium, internvl2-1b, starcoder2-7b
+# ---------------------------------------------------------------------------
+
+def frontend_setup(torch, dev, cfg):
+    """The model of ``cfg`` and its inputs from the port's ``make_batch``
+    (a generator seeded from ``SEED`` on the card): ``CALIB_BATCHES``
+    calibration batches of ``CALIB_BATCH`` x ``CALIB_SEQ`` positions
+    (16,384; internvl2-1b's count its 256 patches), and one batch of
+    ``BATCH`` x ``PROMPT_LEN`` frames or tokens (internvl2-1b: the patches
+    ahead of them) for the loss, the prefill and the static decode."""
+    from repro_torch.models import build_model, make_batch
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    calib = []
+    for _ in range(CALIB_BATCHES):
+        b = make_batch(cfg, gen, CALIB_BATCH, CALIB_SEQ, device=dev)
+        del b["labels"]
+        calib.append(b)
+    batch = make_batch(cfg, gen, BATCH, PROMPT_LEN + cfg.num_patches,
+                       device=dev)
+    return build_model(cfg), dict(calib=calib, batch=batch)
+
+
+def k4_per_forward(cfg, model):
+    """K4's launches a forward after the mixed policy: every block linear
+    is packed but the pruned wo."""
+    return (len(model.block_linears(0)) - 1) * cfg.num_layers
+
+
+def frontend_forwards(torch, dev, cfg, model, params, batch):
+    """The served outputs of ``params`` on the active implementation: the
+    loss and perplexity of ``batch`` (a vlm batch's on its text positions),
+    the prefill logits of its frames or tokens (and patches), timed, and,
+    where the arch decodes tokens, the static greedy decode of ``GEN``
+    tokens. Returns them, with the number of forwards run."""
+    from repro_torch.launch.serve import greedy_decode
+    loss, m = model.loss(params, batch)
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    s = inputs["frames" if "frames" in inputs else "tokens"].shape[1]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    logits, _ = model.prefill(params, inputs, model.init_cache(
+        BATCH, cfg.num_patches + s + GEN, torch.float32, device=dev))
+    torch.cuda.synchronize()
+    out = dict(loss=float(loss), tokens_scored=int(m["tokens"]),
+               ppl=math.exp(float(loss)), logits=logits,
+               prefill_s=time.time() - t0, tokens=None, decode=None)
+    forwards = 2
+    if cfg.frontend != "audio_frames":       # the frame stub decodes nothing
+        extra = {"patches": inputs["patches"]} if cfg.num_patches else None
+        out["tokens"], out["decode"] = greedy_decode(
+            model, params, inputs["tokens"], GEN, inputs=extra)
+        forwards += GEN
+    return out, forwards
+
+
+def check_frontend_outputs(torch, cfg, out, tag):
+    """Well-formed outputs: a finite loss over every label, (B, 1, padded
+    vocab) prefill logits finite over the vocabulary and masked past it,
+    and (B, GEN) greedy tokens in range where the arch decodes."""
+    v, vp = cfg.vocab_size, cfg.padded_vocab
+    logits = out["logits"]
+    check(math.isfinite(out["loss"]) and out["tokens_scored"] == BATCH
+          * PROMPT_LEN, f"{tag}: loss {out['loss']} over "
+                        f"{out['tokens_scored']} labels")
+    check(tuple(logits.shape) == (BATCH, 1, vp),
+          f"{tag}: logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits[..., :v]).all()),
+          f"{tag}: non-finite logits")
+    check(bool((logits[..., v:] == torch.finfo(logits.dtype).min).all()),
+          f"{tag}: padded vocab columns not masked")
+    toks = out["tokens"]
+    check(toks is None or (toks.shape == (BATCH, GEN) and toks.min() >= 0
+                           and toks.max() < v),
+          f"{tag}: greedy tokens malformed")
+
+
+def frontend_run(torch, dev, cfg, model, data, label, count=False):
+    """One arch's main path once, on the kernels: weights from the seed,
+    compress (batched engine, mixed policy; with ``count`` in sync-debug
+    mode with the host's waits counted a block, timed all the same), the
+    dense result's loss, pack in memory, then the packed model's loss,
+    prefill and static decode (:func:`frontend_forwards`); launch counts
+    and K4's and K2's census from 0 just before. Returns the report, the
+    packed params, the outputs, seconds, peak memory, launches and
+    censuses."""
+    from repro_torch.checkpoint import pack_params
+    from repro_torch.core.compress import compress_model
+    from repro_torch.kernels import ops
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(SEED, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    waits = None
+    if count:
+        waits, report, cp = count_waits(
+            torch, (model, params, data["calib"], None),
+            policy_for("mixed"), f"{label} ", keep=True)
+    else:
+        cp, report = compress_model(model, params, data["calib"],
+                                    policy_for("mixed"))
+    torch.cuda.synchronize()
+    t_comp = time.time() - t0
+    del params
+    comp_launches, k2 = dict(ops.LAUNCHES), dict(ops.K2_CENSUS)
+    dense_loss = float(model.loss(cp, data["batch"])[0])
+    packed = pack_params(cp, report)
+    del cp
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    out, forwards = frontend_forwards(torch, dev, cfg, model, packed,
+                                      data["batch"])
+    launches = dict(ops.LAUNCHES)
+    dec = out["decode"]
+    log(f"[{label}] compress {t_comp:.2f}s"
+        + (" (sync-debug mode)" if count else "")
+        + f", peak {peak / 1e9:.1f} GB allocated; loss {out['loss']:.6f} "
+        f"(perplexity {out['ppl']:.3f}; the dense result's "
+        f"{dense_loss:.6f}) over {out['tokens_scored']} labels; prefill "
+        f"{out['prefill_s']:.3f}s"
+        + (f", {GEN - 1} decode steps {dec['decode']:.3f}s "
+           f"({BATCH * (GEN - 1) / dec['decode']:.1f} tok/s)" if dec else "")
+        + f"; launches in compression {comp_launches}, in all {launches}")
+    return dict(report=report, packed=packed, out=out, forwards=forwards,
+                dense_loss=dense_loss, compress_s=t_comp, peak_bytes=peak,
+                n_params=n_params, launches=launches,
+                compress_launches=comp_launches, waits=waits, k2=k2,
+                k4=dict(ops.K4_CENSUS))
+
+
+def hold_plain_blocks(torch, dev, model, data, report, tag):
+    """The mixed-policy compression of the first ``FRONTEND_PLAIN_BLOCKS``
+    blocks through the plain versions (weights from the seed, no kernel
+    launched), timed, and held to the same blocks of the kernels'
+    ``report`` at the bars with equal iterations. Returns the summary with
+    the plain run's seconds."""
+    from repro_torch import kernels
+    from repro_torch.core.compress import CompressionReport, compress_model
+    from repro_torch.kernels import ops
+    n = FRONTEND_PLAIN_BLOCKS
+    params = model.init(SEED, device=dev)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with kernels.use_impl("reference"):
+        cp, rep_p = compress_model(_FirstBlocks(model, n), params,
+                                   data["calib"], policy_for("mixed"))
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    del cp, params
+    check(not any(ops.LAUNCHES.values()),
+          f"{tag}: the plain run launched a kernel")
+    log(f"[{tag} plain] compress of blocks 0-{n - 1} {secs:.2f}s")
+    layers = [r for r in report.layers if r.block < n]
+    first = CompressionReport(
+        layers=layers,
+        artifacts={r.qualname: report.artifacts[r.qualname] for r in layers})
+    held = hold_reports(torch, first, rep_p, f"{tag} layer",
+                        n * len(model.block_linears(0)), iters_equal=True)
+    held["plain_s"] = secs
+    return held
+
+
+def check_frontend_shapes(torch, dev):
+    """K1 (every tile variant), K1b and K3 (bits 4) at the new linears,
+    each held to its plain version and timed beside it, its bound and
+    ``addmm``/``baddbmm``; K6 and K6p at starcoder2-7b's heads. Returns
+    the JSON entries by kernel."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    out = {"awp_pgd_step": [], "quant_project": []}
+    for m, k in FRONTEND_K1:
+        out["awp_pgd_step"].append(check_k1(torch, randn, m, k))
+        out["quant_project"].append(check_k3(torch, randn, m, k, 4))
+        torch.cuda.empty_cache()
+    out["awp_pgd_step_batched"] = [k1b_entry(torch, randn, *shape)
+                                   for shape in FRONTEND_K1B]
+    out.update(check_k6_heads(torch, dev, STARCODER_HEADS, "starcoder2-7b",
+                              44))
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_frontends(torch, dev):
+    """The audio and vlm frontends and the last dense configs at full
+    width: musicgen-medium (frames in place of tokens) and internvl2-1b
+    (256 patches ahead of the tokens) at full depth, starcoder2-7b over
+    ``FRONTEND_LAYERS`` of its layers. For each: the main path on the
+    kernels (compression counted in sync-debug mode and timed, every
+    kernel of its path launched, K4 at every packed linear of every
+    forward), the kernels' packed model served again through the plain
+    versions (the same first tokens, the loss within ``PPL_BAR``), the
+    compression of the first ``FRONTEND_PLAIN_BLOCKS`` blocks through the
+    plain versions held to the kernels' at the bars with equal iterations
+    (:func:`hold_plain_blocks`), and the sequential driver on blocks 0-1
+    held to the batched engine. starcoder2-7b's packed model then serves
+    the slot engine of the llama phase on its trace at its vocabulary,
+    every request's first token equal on the kernels and plain (K6 at
+    g = 9, D = 128). Then K1, K1b and K3 at the new linears and K6/K6p at
+    starcoder2-7b's heads. Returns the kernels' new JSON entries, the
+    launches, K4's and K2's census and the numbers."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    t_phase = time.time()
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    k4, k2, summary = {}, {}, {}
+
+    def add(counts, into):
+        for key, n in counts.items():
+            into[key] = into.get(key, 0) + n
+
+    for arch in FRONTEND_ARCHS:
+        cfg = cut_config(arch, FRONTEND_LAYERS)
+        tag = f"frontends {arch}"
+        model, data = frontend_setup(torch, dev, cfg)
+        k4_forward = k4_per_forward(cfg, model)
+        run_k = frontend_run(torch, dev, cfg, model, data,
+                             f"{tag} kernels", count=True)
+        published = get_config(arch).num_layers
+        log(f"[model] {cfg.name} ({cfg.family}"
+            + (f", {cfg.frontend} stub" if cfg.frontend else "") + "): "
+            + f"{cfg.num_layers} layers"
+            + (" (full depth, no cut)" if cfg.num_layers == published else
+               f" of {published} (the one cut)")
+            + f", d_model {cfg.d_model}, {cfg.num_heads} heads over "
+            f"{cfg.num_kv_heads} KV heads of {cfg.resolved_head_dim}, "
+            f"{cfg.mlp_act} d_ff {cfg.d_ff}"
+            + (f", {cfg.num_patches} patches" if cfg.num_patches else "")
+            + f", vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
+            f"{run_k['n_params'] / 1e9:.3f}e9 f32 parameters from seed "
+            f"{SEED}")
+        check_path(run_k["launches"], COMPRESS_PATH,
+                   f"{tag}'s compress and serve path")
+        check(run_k["compress_launches"]["dequant_matmul"] == 0,
+              f"{tag}: K4 launched during compression")
+        check(run_k["launches"]["dequant_matmul"]
+              == k4_forward * run_k["forwards"],
+              f"{tag}: K4 launched {run_k['launches']['dequant_matmul']} "
+              f"times, expected {k4_forward} a forward")
+        out_k = run_k["out"]
+        check_frontend_outputs(torch, cfg, out_k, f"{tag} kernels")
+        check(abs(out_k["loss"] - run_k["dense_loss"])
+              <= PPL_BAR * run_k["dense_loss"],
+              f"{tag}: the packed loss {out_k['loss']} against the dense "
+              f"result's {run_k['dense_loss']}")
+        add(run_k["launches"], launches)
+        add(run_k["k4"], k4)
+        add(run_k["k2"], k2)
+        with kernels.use_impl("reference"):
+            out_kp, _ = frontend_forwards(torch, dev, cfg, model,
+                                          run_k["packed"], data["batch"])
+        dlogit = float((out_kp["logits"] - out_k["logits"]).abs().max())
+        check(abs(out_kp["loss"] - out_k["loss"])
+              <= PPL_BAR * out_k["loss"],
+              f"{tag}: the packed loss through the plain versions "
+              f"{out_kp['loss']} against the kernels' {out_k['loss']}")
+        first_equal = all_equal = None
+        if out_k["tokens"] is not None:
+            first_equal = bool((out_kp["tokens"][:, 0]
+                                == out_k["tokens"][:, 0]).all())
+            all_equal = bool((out_kp["tokens"] == out_k["tokens"]).all())
+            check(first_equal, f"{tag}: first tokens differ between K4 and "
+                               f"the plain version on one packed model")
+        log(f"[{tag}] the kernels' packed model through the plain versions:"
+            f" loss {out_kp['loss']:.6f} against {out_k['loss']:.6f}, "
+            f"prefill max |dlogit| {dlogit:.3e}"
+            + ("" if first_equal is None else
+               f", first tokens {'equal' if first_equal else 'DIFFER'}, all "
+               f"tokens {'identical' if all_equal else 'differ'}; row 0: "
+               f"{out_k['tokens'][0][:12].tolist()}"))
+        engine = None
+        packed = run_k.pop("packed")
+        if arch != ENGINE_ARCH:
+            packed = None
+        del out_kp
+        torch.cuda.empty_cache()
+        held = hold_plain_blocks(torch, dev, model, data, run_k["report"],
+                                 tag)
+        torch.cuda.empty_cache()
+        engines = hold_sequential_blocks(torch, dev, cfg, model,
+                                         data["calib"], run_k["report"], tag,
+                                         path=PRUNE_QUANT_PATH)
+        del run_k["report"]
+        torch.cuda.empty_cache()
+        if packed is not None:
+            eng_launches, _, engine, census, _ = phase_engine(
+                torch, cfg, model, packed, f"{arch} ", exact_first=True)
+            add(eng_launches, launches)
+            add(census, k4)
+            del packed
+            torch.cuda.empty_cache()
+        dec = out_k["decode"]
+        summary[arch] = dict(
+            layers=cfg.num_layers, n_params=run_k["n_params"],
+            compress_s=run_k["compress_s"],
+            plain_blocks=FRONTEND_PLAIN_BLOCKS,
+            waits_per_block=run_k["waits"],
+            peak_gb=run_k["peak_bytes"] / 1e9, loss=out_k["loss"],
+            ppl=out_k["ppl"], dense_loss=run_k["dense_loss"],
+            prefill_s=out_k["prefill_s"],
+            prefill_tok_s=BATCH * (PROMPT_LEN + cfg.num_patches)
+            / out_k["prefill_s"],
+            decode_s=dec and dec["decode"],
+            decode_tok_s=dec and BATCH * (GEN - 1) / dec["decode"],
+            first_tokens_equal=first_equal, kernels_vs_plain=held,
+            engines=engines, engine=engine)
+        log(f"[{tag}] summary: {json.dumps(summary[arch])}")
+        del run_k, data, out_k
+        torch.cuda.empty_cache()
+    shapes = check_frontend_shapes(torch, dev)
+    summary["seconds"] = time.time() - t_phase
+    log(f"[frontends] phase {summary['seconds']:.1f}s; launches {launches}")
+    return shapes, launches, k4, k2, summary
+
+
+def parity_frontends(torch, dev):
+    """Under unsplit cuBLAS, each arch of the frontends phase through the
+    kernels and through the plain versions: the same bits with equal
+    iterations in every compressed layer of the first
+    ``FRONTEND_PLAIN_BLOCKS`` blocks, the kernels' packed model (every
+    block) giving the same loss, prefill logits and greedy tokens through
+    the plain versions, and starcoder2-7b's slot engine every request's
+    first token."""
+    from repro_torch import kernels
+    for arch in FRONTEND_ARCHS:
+        cfg = cut_config(arch, FRONTEND_LAYERS)
+        tag = f"parity frontends {arch}"
+        model, data = frontend_setup(torch, dev, cfg)
+        run_k = frontend_run(torch, dev, cfg, model, data, f"{tag} kernels")
+        out_k = run_k["out"]
+        with kernels.use_impl("reference"):
+            out_kp, _ = frontend_forwards(torch, dev, cfg, model,
+                                          run_k["packed"], data["batch"])
+        same_logits = torch.equal(out_kp["logits"], out_k["logits"])
+        same_tokens = out_k["tokens"] is None or bool(
+            (out_kp["tokens"] == out_k["tokens"]).all())
+        log(f"[{tag}] the kernels' packed model through the plain versions:"
+            f" loss {out_kp['loss']:.9f} / {out_k['loss']:.9f}, prefill "
+            f"logits " + ("the same bits" if same_logits else "DIFFER")
+            + ("" if out_k["tokens"] is None else ", greedy tokens "
+               + ("identical" if same_tokens else "DIFFER")))
+        check(same_logits and same_tokens and out_kp["loss"] == out_k["loss"],
+              f"{tag}: K4 and the plain version serve one packed model "
+              f"differently under unsplit cuBLAS")
+        packed = run_k.pop("packed")
+        if arch != ENGINE_ARCH:
+            packed = None
+        del out_kp
+        torch.cuda.empty_cache()
+        held = hold_plain_blocks(torch, dev, model, data, run_k["report"],
+                                 tag)
+        log(f"[{tag}] kernels against plain over blocks 0-"
+            f"{FRONTEND_PLAIN_BLOCKS - 1}: "
+            + ("the same bits in every layer" if held["identical"] else
+               f"{held['layers_differ']} layers differ, the first "
+               f"{held['first_diff']}"))
+        check(held["identical"], f"{tag}: the kernels and the plain versions "
+                                 f"compress differently under unsplit cuBLAS")
+        del run_k, data
+        torch.cuda.empty_cache()
+        if packed is not None:
+            phase_engine(torch, cfg, model, packed, f"parity {arch} ",
+                         exact_first=True)
+            del packed
+            torch.cuda.empty_cache()
 
 
 def phase_profile(torch, cfg, data, report, packed, timed):
@@ -4461,6 +4896,8 @@ def parity_main(torch, dev, cfg):
     torch.cuda.empty_cache()
     parity_ssm(torch, dev)
     torch.cuda.empty_cache()
+    parity_frontends(torch, dev)
+    torch.cuda.empty_cache()
     data = setup(torch, dev, cfg)
     model, _, _, prompts = data
     for engine, mode in (("sequential", "bits"), ("batched", "bits_if_same")):
@@ -4516,6 +4953,12 @@ def main() -> None:
         rows[name].setdefault("by_shape", [dict(rows[name])])
         rows[name]["by_shape"] += entries
     torch.cuda.empty_cache()
+    fe_shapes, fe_launches, fe_k4, fe_k2, fe = phase_frontends(torch, dev)
+    for name, entries in fe_shapes.items():
+        key = "by_lengths" if name.startswith("decode_attn") else "by_shape"
+        rows[name].setdefault(key, [dict(rows[name])])
+        rows[name][key] += entries
+    torch.cuda.empty_cache()
     data = setup(torch, dev, cfg)
     launches, packed, census, k2_main, comp, report = phase_main_path(
         torch, dev, cfg, data)
@@ -4538,11 +4981,11 @@ def main() -> None:
     rows["decode_attn_paged"]["census"] = k6_census["paged"]
     k4_census = phase_k4_census(torch, dev, {
         **dict(zip(K4_PATHS, (census, slot_census, paged_census))),
-        "methods": methods_k4, "ssm": ssm_k4})
+        "methods": methods_k4, "ssm": ssm_k4, "frontends": fe_k4})
     rows["dequant_matmul"]["census"] = k4_census
     rows["topk_row"]["census"] = phase_k2_census(
         torch, dev, {**k2_main, **k2_prune, "methods": methods_k2,
-                     "ssm": ssm_k2})
+                     "ssm": ssm_k2, "frontends": fe_k2})
     eng["profile"], paged["profile"], comp["profile"] = phase_profile(
         torch, cfg, data, report, packed,
         {"slot": (slot_tokens, eng["kernels"]),
@@ -4563,7 +5006,8 @@ def main() -> None:
                    **{path: n[name] for path, n in moe_launches.items()},
                    "methods": methods_launches[name],
                    "train_compress": train_launches[name],
-                   "ssm": ssm_launches[name]}
+                   "ssm": ssm_launches[name],
+                   "frontends": fe_launches[name]}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -4583,6 +5027,7 @@ def main() -> None:
     log(f"[methods] summary: {json.dumps(methods)}")
     log(f"[train] summary: {json.dumps(train)}")
     log(f"[ssm] summary: {json.dumps(ssm)}")
+    log(f"[frontends] summary: {json.dumps(fe)}")
     log(f"[done] {time.time() - t_start:.1f}s; card {card}")
     log(json.dumps({"kernels": out}))
     log(card)

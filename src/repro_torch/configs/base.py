@@ -1,6 +1,9 @@
 """Model configuration (the port's copy of ``repro/configs/base.py``, for
 the families the port runs: dense ``llama32-1b``, ``llama2-7b``,
-``llama2-13b``, ``llama31-8b`` and ``granite-8b``, MoE
+``llama2-13b``, ``llama31-8b``, ``granite-8b``, ``starcoder2-7b``,
+``starcoder2-15b`` and ``nemotron-4-340b``, audio ``musicgen-medium``
+(precomputed frame embeddings in place of tokens), vlm ``internvl2-1b``
+(precomputed patch embeddings ahead of the tokens), MoE
 ``qwen3-moe-235b-a22b``, SSM ``falcon-mamba-7b`` (Mamba-1) and hybrid
 ``zamba2-1.2b`` (Mamba-2 blocks and one shared attention block))."""
 from __future__ import annotations
@@ -11,13 +14,14 @@ from typing import Optional
 
 _ARCH_IDS = ["llama32-1b", "llama2-7b", "llama2-13b", "llama31-8b",
              "granite-8b", "qwen3-moe-235b-a22b", "falcon-mamba-7b",
-             "zamba2-1.2b"]
+             "zamba2-1.2b", "musicgen-medium", "internvl2-1b",
+             "starcoder2-7b", "starcoder2-15b", "nemotron-4-340b"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe | ssm | hybrid
+    family: str                 # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -40,7 +44,8 @@ class ModelConfig:
     rope_theta: float = 1e4
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
-    frontend: Optional[str] = None
+    frontend: Optional[str] = None   # audio_frames | vision_patches (stubs)
+    num_patches: int = 0             # vlm prefix length
     source: str = ""
 
     @property
@@ -69,7 +74,7 @@ class ModelConfig:
         some small projections, kept so that both packages agree)."""
         d, L = self.d_model, self.num_layers
         gate = 3 if self.mlp_act == "silu" else 2
-        if self.family == "dense":
+        if self.family in ("dense", "audio", "vlm"):
             n = L * (self._attn_params() + gate * d * self.d_ff)
         elif self.family == "moe":
             mlp = (gate * d * self.d_ff * self.num_experts

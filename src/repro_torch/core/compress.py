@@ -441,8 +441,10 @@ def compress_model(model, params, calib_batches: List[dict],
     reading the block's metrics on the host once at its end;
     ``engine="sequential"`` is the layer-at-a-time reference driver. Both
     return ``(params, CompressionReport)`` with per-layer losses within
-    ~1e-5 of each other. ``calib_batches`` are dicts with ``"tokens"``
-    tensors on the params' device.
+    ~1e-5 of each other. ``calib_batches`` are input batches on the
+    params' device, read only through ``model.embed``: ``"tokens"``; an
+    audio config's ``"frames"`` instead; a vlm config's ``"patches"``
+    beside its tokens (``models.make_batch`` gives each).
 
     ``metrics`` receives the telemetry (per-layer iterations, residual and
     seconds, per-bucket counts and seconds, per-block seconds); None uses

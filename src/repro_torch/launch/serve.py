@@ -68,18 +68,24 @@ def make_step_fns(model):
 
 
 def greedy_decode(model, params, prompts, gen: int, max_len: int = 0,
-                  step_fns=None):
+                  step_fns=None, inputs=None):
     """Greedy continuation of ``prompts`` (B, S) on the static slot cache
-    (length ``max_len``, default S + gen). Returns ``(tokens, seconds)``:
-    (B, gen) int tokens and the wall times of the prefill and of the
-    decode steps (each ends in a device sync)."""
+    (length ``max_len``, default P + S + gen). ``inputs`` joins the
+    prefill batch: a vlm config's ``"patches"`` (B, P, d_model) on the
+    params' device, ahead of the prompts in the cache (P = 0 without).
+    Returns ``(tokens, seconds)``: (B, gen) int tokens and the wall times
+    of the prefill and of the decode steps (each ends in a device sync)."""
     prefill, decode = step_fns or make_step_fns(model)
     dev = params["embed"].device
-    prompts = torch.as_tensor(np.asarray(prompts), device=dev)
+    if not torch.is_tensor(prompts):
+        prompts = np.asarray(prompts)
+    prompts = torch.as_tensor(prompts, device=dev)
+    batch = {"tokens": prompts, **(inputs or {})}
     b, s = prompts.shape
+    s += batch["patches"].shape[1] if "patches" in batch else 0
     cache = model.init_cache(b, max_len or s + gen, torch.float32, device=dev)
     t0 = time.time()
-    tok, cache = prefill(params, {"tokens": prompts}, cache)
+    tok, cache = prefill(params, batch, cache)
     _sync(dev)
     t1 = time.time()
     out = [tok]

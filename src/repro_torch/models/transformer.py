@@ -5,6 +5,13 @@ stacked on a leading layer dim, weights stored ``(d_in, d_out)``, packed
 layers as stacked :class:`~repro_torch.quant.QTensor` leaves — so
 compression paths, policy names and checkpoint keys carry over unchanged.
 The model object holds only its config; every method takes the params.
+The audio and vlm families run the same blocks behind a stub frontend, as
+in the reference: an audio batch holds precomputed frame embeddings
+(``"frames"``, (B, S, d_model)) in place of tokens, a vlm batch
+precomputed patch embeddings (``"patches"``, (B, P, d_model)) placed ahead
+of its token embeddings, with rope positions over patches and text
+together and the loss on the text positions only. Decode steps embed
+tokens in every family.
 :meth:`DenseModel.loss` is the reference's chunked softmax cross-entropy
 (:func:`chunked_xent`): the (B, S, V) logits are never built whole. It
 takes a gradient as the reference's does: when a params leaf requires grad
@@ -31,6 +38,11 @@ from repro_torch.quant import QTensor
 from repro_torch.serving.kv_cache import QuantizedKV
 
 Params = Dict[str, Any]
+
+# the families that run the dense blocks behind a stub frontend, and the
+# batch key each frontend reads
+FRONTENDS = {"audio": "audio_frames", "vlm": "vision_patches"}
+FRONTEND_KEYS = {"audio_frames": "frames", "vision_patches": "patches"}
 
 
 def tree_map(fn, tree):
@@ -109,10 +121,16 @@ class DenseModel(nn.Module):
     def __init__(self, cfg: ModelConfig, *, attn_chunk: int = 1024,
                  use_fused_decode: bool = False, remat: bool = True):
         super().__init__()
-        if cfg.family != self.FAMILY or cfg.frontend is not None:
+        plain = cfg.family == self.FAMILY and cfg.frontend is None
+        stub = (self.FAMILY == "dense" and cfg.frontend is not None
+                and FRONTENDS.get(cfg.family) == cfg.frontend)
+        if not (plain or stub):
             raise ValueError(f"{type(self).__name__} runs the plain "
-                             f"{self.FAMILY} family, got "
-                             f"{cfg.family}/{cfg.frontend}")
+                             f"{self.FAMILY} family"
+                             + (" and the audio/audio_frames and "
+                                "vlm/vision_patches pairs"
+                                if self.FAMILY == "dense" else "")
+                             + f", got {cfg.family}/{cfg.frontend}")
         self.cfg = cfg
         self.attn_chunk = attn_chunk
         self.use_fused_decode = use_fused_decode
@@ -150,7 +168,25 @@ class DenseModel(nn.Module):
 
     # -- forward -----------------------------------------------------------
     def embed(self, params: Params, batch: Dict[str, torch.Tensor]):
-        return params["embed"][batch["tokens"].to(torch.int64)]
+        """(B, S, d_model) inputs of the first block: token embeddings;
+        an audio batch's frames cast to the params' dtype; a vlm batch's
+        patches cast to the embedding's dtype, ahead of its tokens'."""
+        frontend = self.cfg.frontend
+        if frontend == "audio_frames":
+            return self._frontend_input(batch).to(params["embed"].dtype)
+        h = params["embed"][batch["tokens"].to(torch.int64)]
+        if frontend == "vision_patches":
+            h = torch.cat([self._frontend_input(batch).to(h.dtype), h], dim=1)
+        return h
+
+    def _frontend_input(self, batch) -> torch.Tensor:
+        key = FRONTEND_KEYS[self.cfg.frontend]
+        if key not in batch:
+            raise ValueError(
+                f"{self.cfg.name}: the {self.cfg.frontend} frontend is a stub "
+                f"that reads precomputed embeddings from batch[{key!r}], and "
+                f"this batch has only {sorted(batch)}")
+        return batch[key]
 
     def _head_w(self, params):
         if self.cfg.tie_embeddings:
@@ -193,10 +229,13 @@ class DenseModel(nn.Module):
 
     # -- loss (chunked xent, full logits never built) -----------------------
     def loss(self, params, batch) -> tuple:
-        """Mean token NLL of ``batch["labels"]`` (−1 = padding, ignored)
-        and ``{"sum_nll", "tokens"}``, the reference's ``DenseModel.loss``:
+        """Mean token NLL of ``batch["labels"]`` (−1 = padding, ignored;
+        a vlm batch's labels cover its text positions) and
+        ``{"sum_nll", "tokens"}``, the reference's ``DenseModel.loss``:
         differentiable in ``params`` when its leaves require grad."""
         h = self.hidden_states(params, batch)
+        if self.cfg.frontend == "vision_patches" and self.cfg.num_patches:
+            h = h[:, self.cfg.num_patches:, :]     # the text positions only
         nll, cnt = chunked_xent(h, self._head_w(params), batch["labels"],
                                 chunk=self.LOGIT_CHUNK,
                                 vocab=self.cfg.vocab_size)

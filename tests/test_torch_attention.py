@@ -32,6 +32,17 @@ from repro_torch.serving import kv_cache as PKV
 ARCH = "llama32-1b"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's tiny models: more gain them
+    nothing, and under pytest-xdist their spin-waits take the cores from
+    the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tiny8():
     """Tiny llama32 with 8-token attention chunks, JAX and port."""

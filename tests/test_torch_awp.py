@@ -24,6 +24,17 @@ from repro_torch.kernels import ops
 CPU = "cpu"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's tiny models: more gain them
+    nothing, and under pytest-xdist their spin-waits take the cores from
+    the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _problem(d_out, d_in, n=512, seed=0):
     """A weight and calibration activations with correlated, outlier-heavy
     channels (the regime activation-aware methods are built for)."""

@@ -39,6 +39,17 @@ from repro_torch.quant import QTensor
 ARCH = "llama32-1b"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's tiny models: more gain them
+    nothing, and under pytest-xdist their spin-waits take the cores from
+    the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _policy(mod):
     """The slice's policy: prune every wo, quantize the other six linears."""
     return mod.Policy({"*.attn.wo": mod.PruneSpec(ratio=0.5)},

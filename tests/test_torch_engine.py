@@ -35,6 +35,17 @@ from repro_torch.serving.scheduler import default_buckets
 ARCH = "llama32-1b"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's tiny models: more gain them
+    nothing, and under pytest-xdist their spin-waits take the cores from
+    the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     cfg, jcfg = get_tiny_config(ARCH), jget_tiny(ARCH)

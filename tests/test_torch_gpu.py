@@ -707,20 +707,16 @@ def test_every_arch_head_shape_is_supported():
     assert (12, 192) in shapes and (16, 128) in shapes
 
 
-@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
-@pytest.mark.parametrize("paged", [False, True], ids=["slot", "paged"])
-def test_decode_attn_nemotron_head_shape(cuda, quant, paged):
-    """K6 and K6p at nemotron-4-340b's decode shape (96 query heads over 8
-    KV heads: g = 12, D = 192; the generic form's 32-accumulator
-    instantiation), rows of 0-700 tokens split over 256-token chunks,
-    against the plain version at K6's bar; K6p's bits equal K6's on the
-    gathered rows."""
-    rng = np.random.default_rng(70)
+def _head_shape_case(dev, seed, hk, g, d, quant, paged):
+    """K6 (or K6p) at one arch's decode head shape, rows of 0-700 tokens
+    split over 256-token chunks, against the plain version at K6's bar;
+    K6p's bits equal K6's on the gathered rows; the length-0 row zero."""
+    rng = np.random.default_rng(seed)
     lens = [0, 1, 17, 256, 300, 700]
     group = 64 if quant else 0
     if paged:
-        q, k, v, table, lengths, kw = _paged_case(rng, cuda, lens, 16, 8, 12,
-                                                  192, quant, group)
+        q, k, v, table, lengths, kw = _paged_case(rng, dev, lens, 16, hk, g,
+                                                  d, quant, group)
         out = _launched("decode_attn_paged", lambda: ops.decode_attn_paged(
             q, k, v, table, lengths, **kw))
         want = ref.decode_attn_paged(q, k, v, table, lengths, **kw)
@@ -731,14 +727,34 @@ def test_decode_attn_nemotron_head_shape(cuda, quant, paged):
                                **dict(kw, **rows))
         assert torch.equal(out, slot)
     else:
-        q, (k, v), kw = _kv_case(rng, cuda, len(lens), 700, 8, 12, 192,
-                                 quant, group)
-        lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        q, (k, v), kw = _kv_case(rng, dev, len(lens), 700, hk, g, d, quant,
+                                 group)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         out = _launched("decode_attn", lambda: ops.decode_attn(
             q, k, v, lengths, **kw))
         want = ref.decode_attn(q, k, v, lengths, **kw)
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
     assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["slot", "paged"])
+def test_decode_attn_nemotron_head_shape(cuda, quant, paged):
+    """K6 and K6p at nemotron-4-340b's decode shape (96 query heads over 8
+    KV heads: g = 12, D = 192; the generic form's 32-accumulator
+    instantiation), rows of 0-700 tokens split over 256-token chunks,
+    against the plain version at K6's bar; K6p's bits equal K6's on the
+    gathered rows."""
+    _head_shape_case(cuda, 70, 8, 12, 192, quant, paged)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["slot", "paged"])
+def test_decode_attn_starcoder2_head_shape(cuda, quant, paged):
+    """K6 and K6p at starcoder2-7b's decode shape (36 query heads over 4
+    KV heads: g = 9, D = 128; the generic form, which the slot engine runs
+    on it), as the nemotron case above."""
+    _head_shape_case(cuda, 71, 4, 9, 128, quant, paged)
 
 
 def test_decode_attn_paged_bf16_nan_and_lengths_past_the_table(cuda):
@@ -1452,6 +1468,54 @@ def test_packed_ssm_model_on_the_kernels_matches_plain(cuda, arch):
     if cfg.family == "hybrid":      # the shared block's 6 at each invocation
         per_forward += 6 * (len(model._groups()) - 1)
     assert ops.LAUNCHES["dequant_matmul"] == 3 * per_forward
+    with kernels.use_impl("reference"):
+        want = run()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the audio and vlm frontends: the packed tiny models
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["musicgen-medium", "internvl2-1b"])
+def test_packed_frontend_model_on_the_kernels_matches_plain(cuda, arch):
+    """The tiny model compressed on the card from the port's ``make_batch``
+    (mixed policy at group 32: wo AWP-pruned, the rest AWP-int4) and
+    packed: its logits, loss and prefill from frames or patches (and, for
+    the vlm, a decode step) through K4 against the same through the plain
+    versions, within 1e-4; K4 at every packed linear of every forward."""
+    from repro_torch import kernels
+    from repro_torch.checkpoint import pack_params
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.core import specs
+    from repro_torch.core.compress import compress_model
+    from repro_torch.models import build_model, make_batch
+    cfg = get_tiny_config(arch)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    batch = make_batch(cfg, gen, 2, 12 + cfg.num_patches, device=cuda)
+    policy = specs.Policy({"*.attn.wo": specs.PruneSpec(ratio=0.5)},
+                          default=specs.QuantSpec(bits=4, group_size=32))
+    cp, rep = compress_model(model, params, [batch], policy)
+    packed = pack_params(cp, rep)
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+
+    def run():
+        out = [model.logits(packed, inputs), model.loss(packed, batch)[0]]
+        cache = model.init_cache(2, 14 + cfg.num_patches, device=cuda)
+        logits, cache = model.prefill(packed, inputs, cache)
+        out.append(logits)
+        if cfg.frontend == "vision_patches":
+            out.append(model.decode_step(packed, batch["tokens"][:, :1],
+                                         cache)[0])
+        return out
+    ops.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["dequant_matmul"] == len(got) * len(
+        rep.packed_layers())
     with kernels.use_impl("reference"):
         want = run()
     for g, w in zip(got, want):

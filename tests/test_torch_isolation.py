@@ -23,6 +23,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "src")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's tiny models: more gain them
+    nothing, and under pytest-xdist their spin-waits take the cores from
+    the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_modules():
     return sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, prefix="repro_torch."))
@@ -45,6 +56,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"repro_torch.models.mamba", "repro_torch.models.mamba2",
             "repro_torch.configs.falcon_mamba_7b",
             "repro_torch.configs.zamba2_1p2b"} <= set(mods)
+    assert {f"repro_torch.configs.{m}" for m in (
+        "musicgen_medium", "internvl2_1b", "starcoder2_7b", "starcoder2_15b",
+        "nemotron_4_340b")} <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}: __import__(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -85,7 +99,7 @@ def test_entry_points_raise_without_card(no_card, tmp_path):
     from repro_torch.configs import get_tiny_config
     from repro_torch.core import calibration
     from repro_torch.launch import compress, serve, train
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, make_batch
     from repro_torch.serving import (KVCacheConfig, init_paged_storage,
                                      init_slot_cache)
     from repro_torch.training.train_loop import init_train_state
@@ -111,6 +125,17 @@ def test_entry_points_raise_without_card(no_card, tmp_path):
         ssm = build_model(get_tiny_config(arch))
         calls += [lambda m=ssm: m.init(0),
                   lambda m=ssm: m.init_cache(1, 8),
+                  lambda a=arch: serve.main(["--tiny", "--arch", a, "--gen",
+                                             "2"]),
+                  lambda a=arch: compress.main(["--tiny", "--arch", a,
+                                                "--out", str(tmp_path)])]
+    for arch in ("musicgen-medium", "internvl2-1b", "starcoder2-7b",
+                 "starcoder2-15b", "nemotron-4-340b"):
+        cfg_a = get_tiny_config(arch)
+        new = build_model(cfg_a)
+        calls += [lambda m=new: m.init(0),
+                  lambda m=new: m.init_cache(1, 8),
+                  lambda c=cfg_a: make_batch(c, torch.Generator(), 1, 8),
                   lambda a=arch: serve.main(["--tiny", "--arch", a, "--gen",
                                              "2"]),
                   lambda a=arch: compress.main(["--tiny", "--arch", a,

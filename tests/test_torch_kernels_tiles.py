@@ -20,6 +20,17 @@ PICKS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's tiny models: more gain them
+    nothing, and under pytest-xdist their spin-waits take the cores from
+    the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("shape", sorted(PICKS))
 def test_awp_pgd_tiles_pick_and_partials(shape):
     b, m, k = shape

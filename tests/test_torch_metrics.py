@@ -58,8 +58,9 @@ def test_dense_configs_match_jax(arch):
 
 def test_every_config_passes_the_decode_attention_guard():
     """K6/K6p take every ported config's head shape, full and tiny, and
-    nemotron-4-340b's (g = 12 at D = 192; not ported yet), which the
-    32-accumulator generic form takes since the kernel's repair."""
+    nemotron-4-340b's among them (g = 12 at D = 192, the port's config
+    equal to JAX's), which the 32-accumulator generic form takes since
+    the kernel's repair."""
     for arch in list_archs():
         for cfg in (get_config(arch), get_tiny_config(arch)):
             if cfg.num_heads == 0:                  # attention-free (SSM)
@@ -70,8 +71,12 @@ def test_every_config_passes_the_decode_attention_guard():
     assert {(get_config(a).num_heads // get_config(a).num_kv_heads,
              get_config(a).resolved_head_dim) for a in NEW_DENSE} == \
         {(1, 128), (4, 128)}
-    nemotron = jget_config("nemotron-4-340b")
-    assert "nemotron-4-340b" not in list_archs()
+    nemotron = get_config("nemotron-4-340b")
+    assert "nemotron-4-340b" in list_archs()
+    assert dataclasses.asdict(nemotron) == dataclasses.asdict(
+        jget_config("nemotron-4-340b"))
+    assert (nemotron.num_heads // nemotron.num_kv_heads,
+            nemotron.resolved_head_dim) == (12, 192)
     assert ops.decode_attn_supported(
         nemotron.num_heads // nemotron.num_kv_heads,
         nemotron.resolved_head_dim)

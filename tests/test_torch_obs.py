@@ -73,6 +73,17 @@ HISTS = (
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's tiny models: more gain them
+    nothing, and under pytest-xdist their spin-waits take the cores from
+    the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _drive_registry(mod, enabled):
     """The same operations through one package's registry."""
     reg = mod.MetricsRegistry(enabled=enabled)

@@ -17,6 +17,7 @@ K6p wrappers run their plain versions.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_tiny_config as jget_tiny
 from repro.models import build_model as jbuild
@@ -36,6 +37,17 @@ from repro_torch.serving import (Engine, EngineConfig, FaultPlan,
                                  SamplingParams, Scheduler, pow2_at_least)
 
 ARCH = "llama32-1b"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's tiny models: more gain them
+    nothing, and under pytest-xdist their spin-waits take the cores from
+    the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

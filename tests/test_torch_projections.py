@@ -20,6 +20,17 @@ from repro_torch.core import projections as proj
 from repro_torch.kernels import ops
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's tiny models: more gain them
+    nothing, and under pytest-xdist their spin-waits take the cores from
+    the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(kind, shape, seed=0):
     rng = np.random.default_rng(seed)
     if kind == "random":

@@ -22,6 +22,17 @@ from repro_torch.kernels import ops, ref
 from repro_torch.quant import QTensor, matmul_impl, pack_int4, unpack_int4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module's tiny models: more gain them
+    nothing, and under pytest-xdist their spin-waits take the cores from
+    the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _qt_pair(d_out=48, d_in=256, bits=4, group=128, col_scale=False, seed=0):
     rng = np.random.default_rng(seed)
     w = rng.standard_normal((d_out, d_in)).astype(np.float32)
