@@ -24,8 +24,8 @@ then served by the slot engine of 3 below on the kernels' packed model
 (kernels, sync-debug, plain): only K4, K4x, K5 and K6 may launch, K4x
 three times a layer in every forward, and K4x's census is timed key by
 key. Then the evaluation phase (:func:`phase_methods`): llama2-7b at its
-published widths cut to 2 of its 32 layers (d_model 4096, 32 MHA heads of
-128, d_ff 11008, vocab 32000 padded to 32768, untied; 0.67e9 f32
+published widths cut to 1 of its 32 layers (d_model 4096, 32 MHA heads of
+128, d_ff 11008, vocab 32000 padded to 32768, untied; 0.47e9 f32
 parameters from the seed). The params go through the port's
 ``CheckpointManager`` and back bit for bit, and ``restore_checkpoint``
 must refuse a packed checkpoint; perplexity on the compress CLI's four
@@ -50,11 +50,19 @@ continued is held to the uninterrupted run's bits; microbatches 2 against
 1; three Adafactor steps; the trained model is compressed by the main
 path on the kernels and plain (held at the bars, each layer's PGD
 iterations printed) and pruned by the Table-1 policy on blocks 0-1, with
-perplexity at init, trained and compressed. Then the SSM phase
-(:func:`phase_ssm`): zamba2-1.2b at full width over 12 of its 38
+perplexity at init, trained and compressed. Then the training phase of
+the other families (:func:`phase_train_families`): qwen3-moe-235b-a22b
+(2 layers, Adafactor), zamba2-1.2b (12 blocks), falcon-mamba-7b (2
+layers), musicgen-medium and internvl2-1b (full depth) at full width
+from the seed, 12 steps each of the train step with the CLI's recipe in
+sync-debug mode: the loss falling from step 0 to step 11, no host wait
+between, the step time, tokens/s, FLOP share and peak memory; the MoE's
+and zamba2's gradient as two microbatches against one; zamba2 resumed
+from a save at step 6 and held to the uninterrupted run. Then the SSM
+phase (:func:`phase_ssm`): zamba2-1.2b at full width over 12 of its 38
 Mamba-2 blocks (and one shared attention + MLP block invoked before every
-6 of them) and falcon-mamba-7b at full width over 4 of its 64 Mamba-1
-layers (0.958e9 f32 parameters from the seed), each through the main
+6 of them) and falcon-mamba-7b at full width over 2 of its 64 Mamba-1
+layers (0.747e9 f32 parameters from the seed), each through the main
 path: the mixed-policy compression with the batched engine on the
 kernels in sync-debug mode (its host waits a block counted, only its path's
 kernels launched), packing, prefill logits and the static greedy decode
@@ -70,7 +78,7 @@ the device time into the scans, K4 and the rest. Then the frontends
 phase (:func:`phase_frontends`): musicgen-medium (audio: 48 layers,
 frame embeddings in place of tokens) and internvl2-1b (vlm: 24 layers,
 256 patch embeddings ahead of the tokens) at full depth and width, and
-starcoder2-7b at full width over 4 of its 32 layers, each calibrated on
+starcoder2-7b at full width over 2 of its 32 layers, each calibrated on
 16,384 positions from the port's ``make_batch`` and through the main
 path on the kernels (the compression in sync-debug mode with its waits
 counted a block; the packed loss and perplexity against the dense
@@ -78,7 +86,8 @@ result, a prefill of 4 x 128 frames or 4 x (256 patches + 128 tokens) or
 4 x 128 tokens and, where the arch decodes tokens, 31 greedy steps; K4 at
 every packed linear of every forward), the kernels' packed model served
 again through the plain versions (the same first tokens), the first four
-blocks compressed through the plain versions and held to the kernels' at
+blocks (starcoder2-7b's two) compressed through the plain versions and
+held to the kernels' at
 the bars with equal iterations, the sequential driver on blocks 0-1 held
 to the batched engine, and starcoder2-7b's packed model on the slot
 engine of 3 below with every request's first token equal on the kernels
@@ -182,7 +191,8 @@ frontends parity (:func:`parity_frontends`): each arch's packed model
 gives the same loss, prefill logits and greedy tokens through K4 and
 through the plain versions, its first four blocks compress to the same
 bits on both, and every starcoder2-7b slot-engine request gets the same
-first token.
+first token. The parity process runs no engine in sync-debug mode: the
+first process counts those waits.
 
 Exits non-zero on any failed check, without a CUDA card, and outside a
 checkout of the repository. Prints the card, a JSON line of per-kernel
@@ -192,6 +202,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import functools
 import json
 import math
 import os
@@ -313,13 +324,15 @@ PROFILE_BLOCK = 1
 # the engines' parity bars (tests/test_torch_compress.py,
 # tests/test_torch_batched.py): per-layer loss, share of equal entries
 LOSS_BAR, AGREE_BAR = 1e-5, 0.999
-# the evaluation phase: llama2-7b at its published widths, 2 of its 32
-# layers; the compress CLI's defaults (4 calibration and 4 held-out batches
+# the evaluation phase: llama2-7b at its published widths, 1 of its 32
+# layers (2 until the training phase of the other families came: each
+# method's compression takes time in proportion to the depth, and the
+# script must finish inside its budget); the compress CLI's defaults (4 calibration and 4 held-out batches
 # of 8 x 64 tokens); the methods the port added and AWP prune, each at
 # ratio 0.5, 4 bits, group 128, with the kernels it launches in
 # compression (the four with packed artifacts add K4 in their packed
 # perplexity pass)
-METHODS_ARCH, METHODS_LAYERS = "llama2-7b", 2
+METHODS_ARCH, METHODS_LAYERS = "llama2-7b", 1
 EVAL_BATCH, EVAL_SEQ, EVAL_BATCHES = 8, 64, 4
 METHODS = {"rtn": (), "awq": ("quant_project",),
            "wanda_awq": ("quant_project",), "awq_wanda": ("quant_project",),
@@ -365,14 +378,15 @@ MICRO_BAR, MICRO_PARITY_BAR = 1e-3, 1e-5
 TRAIN_COMPRESS_PATH = ("awp_pgd_step", "awp_pgd_step_batched", "topk_row",
                        "quant_project")
 # the SSM phase: zamba2-1.2b and falcon-mamba-7b at full width, each with
-# one cut: falcon's depth 64 -> 4 layers (one block's AWP-int4 step is 2 x
+# one cut: falcon's depth 64 -> 2 layers (one block's AWP-int4 step is 2 x
 # 5.5e11 operations: 64 blocks on the kernels and again plain would take
-# over 10 minutes of the 1200 s limit); zamba2's 38 -> 12 Mamba-2 blocks
-# (two invocations of the shared attention block), which keeps the whole
+# over 10 minutes of the 1200 s limit; 4 layers until the training phase
+# of the other families came); zamba2's 38 -> 12 Mamba-2 blocks (two
+# invocations of the shared attention block), which keeps the whole
 # script under its time budget beside the frontends phase (PERF.md keeps
-# the 38-block numbers)
+# the 38- and 4-layer numbers)
 SSM_ARCHS = ("zamba2-1.2b", "falcon-mamba-7b")
-SSM_LAYERS = {"falcon-mamba-7b": 4, "zamba2-1.2b": 12}
+SSM_LAYERS = {"falcon-mamba-7b": 2, "zamba2-1.2b": 12}
 # the kernels each arch's mixed-policy compression and static decode run:
 # falcon-mamba-7b has no attention (nothing pruned, so no K2) and no two
 # linears of one shape (no K1b)
@@ -389,15 +403,17 @@ SSM_SCAN = "ssm_scan"
 # the frontends phase: musicgen-medium (audio: frame embeddings in place of
 # tokens) and internvl2-1b (vlm: 256 patch embeddings ahead of the tokens)
 # at full depth and width, and starcoder2-7b at full width with one cut,
-# depth 32 -> 4 layers (one block's compression is about 8e13 operations,
+# depth 32 -> 2 layers (one block's compression is about 8e13 operations,
 # 1.7 s on the kernels: 32 blocks on the kernels and again plain would take
-# about two minutes of the 1200 s limit). starcoder2-7b also serves the
-# slot engine (K5, and K6 at g = 9, D = 128)
+# about two minutes of the 1200 s limit; 4 layers until the training phase
+# of the other families came). starcoder2-7b also serves the slot engine
+# (K5, and K6 at g = 9, D = 128)
 FRONTEND_ARCHS = ("musicgen-medium", "internvl2-1b", "starcoder2-7b")
-FRONTEND_LAYERS = {"starcoder2-7b": 4}
+FRONTEND_LAYERS = {"starcoder2-7b": 2}
 ENGINE_ARCH = "starcoder2-7b"
-# the blocks the plain compression runs, held to the kernels' first blocks
-# (at the bars, and under unsplit cuBLAS bit for bit). Over all of
+# the blocks the plain compression runs (at most the arch's depth), held to
+# the kernels' first blocks (at the bars, and under unsplit cuBLAS bit for
+# bit). Over all of
 # musicgen-medium's 48 blocks the plain run takes 13.6 s (22.5 s under
 # unsplit cuBLAS), past the phase's budget; and under cuBLAS's default
 # (split-K) sums a pruned wo's mask parts by a few entries from block 5 on,
@@ -416,6 +432,26 @@ FRONTEND_K1B = ((3, 1536, 1536), (2, 128, 896), (2, 4864, 896),
 # K6 and K6p at starcoder2-7b's heads (H, Hk, D) at the engines' T and INT8
 # group: g = 9 at D = 128, the generic form
 STARCODER_HEADS = (36, 4, 128, 2048, 64)
+# the training phase of the other families: each arch through
+# make_train_step with the train CLI's recipe (batch 16 x 64, lr 1e-3,
+# warmup a tenth of the steps, remat on, seed 0) for FAMILY_STEPS steps
+# in sync-debug mode; the median step time over the steps from
+# FAMILY_WARMUP on. (arch, optimizer): qwen3-moe at MOE_LAYERS layers with
+# Adafactor (AdamW's moments would add 49.9 GB to 24.9 GB of params and as
+# much of gradients); zamba2-1.2b and falcon-mamba-7b at SSM_LAYERS' depth;
+# musicgen-medium and internvl2-1b at full depth (256 patches ahead of 64
+# tokens a row)
+TRAIN_FAMILIES = (("qwen3-moe-235b-a22b", "adafactor"),
+                  ("zamba2-1.2b", "adamw"), ("falcon-mamba-7b", "adamw"),
+                  ("musicgen-medium", "adamw"), ("internvl2-1b", "adamw"))
+FAMILY_STEPS, FAMILY_WARMUP = 12, 2
+# the archs whose microbatched gradient is held to the single batch's at
+# MICRO_BAR, and the one resumed: saved at step FAMILY_RESUME_K, restored
+# and continued to 2·FAMILY_RESUME_K (zamba2's state is 5.9 GB; the
+# others' 7-16 GB would cost the budget in disk writes)
+FAMILY_MICRO = ("qwen3-moe-235b-a22b", "zamba2-1.2b")
+FAMILY_RESUME, FAMILY_RESUME_K = "zamba2-1.2b", FAMILY_STEPS // 2
+FAMILY_RESUME_BOUND = 2 * TRAIN["lr"] * FAMILY_RESUME_K
 
 
 def k1_variant(torch, b: int, m: int, k: int) -> int:
@@ -2191,7 +2227,7 @@ def parity_moe(torch, dev):
     del run_p
     torch.cuda.empty_cache()
     phase_engine(torch, cfg, model, run_k["packed"], "parity moe ",
-                 exact_first=True, path=MOE_ENGINE_PATH)
+                 exact_first=True, path=MOE_ENGINE_PATH, count_waits=False)
     del run_k
     torch.cuda.empty_cache()
 
@@ -2410,10 +2446,11 @@ def check_methods_shapes(torch, dev):
 
 def phase_methods(torch, dev):
     """The paper's evaluation path on llama2-7b at its published widths
-    (two layers): the checkpoint round trip, perplexity before, then each
-    method of ``METHODS`` through the batched engine on the kernels (its
-    host waits counted a block in sync-debug mode, which is also the run
-    timed; only its kernels may launch) and through the plain versions,
+    (``METHODS_LAYERS`` layers): the checkpoint round trip, perplexity
+    before, then each method of ``METHODS`` through the batched engine on
+    the kernels (its host waits counted a block in sync-debug mode, which
+    is also the run timed; only its kernels may launch) and through the
+    plain versions,
     held to each other at the repo's bars, with its perplexity after; for
     the methods with packed artifacts the packed model's perplexity
     through K4, held to the dense Θ's. Then SparseGPT and GPTQ on the card
@@ -3327,13 +3364,15 @@ def k6_census_run(torch, model, packed, reqs, label, tokens, launches,
 
 
 def phase_engine(torch, cfg, model, packed, tag, exact_first,
-                 k6_census=False, path=ENGINE_PATH):
-    """The engine through the kernels (K4, K5 and K6 must launch), then
-    through the plain versions (nothing may launch), on the same packed
-    model and trace; with ``k6_census`` a third kernel run records K6's
-    census (:func:`k6_census_run`). Greedy tokens are compared; with
+                 k6_census=False, path=ENGINE_PATH, count_waits=True):
+    """The engine through the kernels (K4, K5 and K6 must launch), with
+    ``count_waits`` again in sync-debug mode, then through the plain
+    versions (nothing may launch), on the same packed model and trace;
+    with ``k6_census`` another kernel run records K6's census
+    (:func:`k6_census_run`). Greedy tokens are compared; with
     ``exact_first`` the first token of every request must be equal on both
-    paths."""
+    paths. The parity process passes ``count_waits=False``: the main
+    process counts the same run's waits."""
     from repro_torch import kernels
     reqs = engine_trace(cfg)
     plens = sorted(r.prompt_len for r in reqs)
@@ -3346,10 +3385,12 @@ def phase_engine(torch, cfg, model, packed, tag, exact_first,
     check_path(launches, path, f"the {tag}engine path")
     # the same run again, untimed by the numbers above, with every wait of
     # the host on the card counted (sync-debug mode)
-    _, tok_w, st_w, _, _ = run_engine(torch, model, packed, reqs,
-                                      f"{tag}engine kernels, waits counted",
-                                      watch_waits=True)
-    check(tok_w == tok_k, "the engine's tokens differ between two runs")
+    st_w = None
+    if count_waits:
+        _, tok_w, st_w, _, _ = run_engine(
+            torch, model, packed, reqs, f"{tag}engine kernels, waits counted",
+            watch_waits=True)
+        check(tok_w == tok_k, "the engine's tokens differ between two runs")
     k6 = (k6_census_run(torch, model, packed, reqs, f"{tag}engine", tok_k,
                         launches) if k6_census else [])
     with kernels.use_impl("reference"):
@@ -3420,14 +3461,15 @@ def check_spill_restore(torch, model, packed, reqs):
 
 
 def phase_paged_engine(torch, cfg, model, packed, tag, exact_first,
-                       slot_tokens=None, k6_census=False):
+                       slot_tokens=None, k6_census=False, count_waits=True):
     """The paged engine (``PAGED_ENGINE``) over ``paged_trace``: through
     the kernels (K4, K5 and K6p must launch, K6p once a layer a decode
-    step, nothing else), once more in sync-debug mode (one host wait a
-    decode step, prefill, chunked prompt and preemption), then through the
-    plain versions (nothing may launch), ``check_invariants`` after every
+    step, nothing else), with ``count_waits`` once more in sync-debug mode
+    (one host wait a decode step, prefill, chunked prompt and preemption;
+    the parity process leaves it to the main one), then through the plain
+    versions (nothing may launch), ``check_invariants`` after every
     step. It must preempt and resume, hit the prefix cache, end with no
-    page in use and count the same in all three runs. Its tokens are held
+    page in use and count the same in every run. Its tokens are held
     to the kernels' slot-engine run (``slot_tokens``) on the requests the
     two traces share; with ``exact_first`` every request's first token
     must equal on the kernel and plain paths; with ``k6_census`` a fourth
@@ -3446,10 +3488,12 @@ def phase_paged_engine(torch, cfg, model, packed, tag, exact_first,
     check(launches["decode_attn_paged"] == per_step,
           f"K6p launched {launches['decode_attn_paged']} times, expected "
           f"{per_step} (one a layer a decode step)")
-    _, tok_w, st_w, _, _ = run_engine(torch, model, packed, reqs,
-                                      f"{tag}paged kernels, waits counted",
-                                      watch_waits=True, ecfg=PAGED_ENGINE)
-    check(tok_w == tok_k, "the paged engine's tokens differ between runs")
+    st_w = None
+    if count_waits:
+        _, tok_w, st_w, _, _ = run_engine(
+            torch, model, packed, reqs, f"{tag}paged kernels, waits counted",
+            watch_waits=True, ecfg=PAGED_ENGINE)
+        check(tok_w == tok_k, "the paged engine's tokens differ between runs")
     k6 = (k6_census_run(torch, model, packed, reqs, f"{tag}paged", tok_k,
                         launches, ecfg=PAGED_ENGINE) if k6_census else [])
     with kernels.use_impl("reference"):
@@ -3466,7 +3510,8 @@ def phase_paged_engine(torch, cfg, model, packed, tag, exact_first,
     check(ps["pages_in_use"] == ps["prefix_cached_pages"],
           f"paged engine: {ps['pages_in_use']} pages in use at the end, "
           f"{ps['prefix_cached_pages']} held by the prefix cache")
-    check(st_w["page_stats"] == ps and st_p["page_stats"] == ps,
+    check((st_w is None or st_w["page_stats"] == ps)
+          and st_p["page_stats"] == ps,
           "page_stats differ between the paged engine's runs")
     same = [rid for rid in tok_k if tok_k[rid] == tok_p[rid]]
     parts = {rid: next(i for i, (a, b) in enumerate(zip(tok_k[rid],
@@ -3503,24 +3548,29 @@ def phase_paged_engine(torch, cfg, model, packed, tag, exact_first,
 # the training phase: llama32-1b at full width, then its compression
 # ---------------------------------------------------------------------------
 
-def train_flops(cfg, b: int, s: int) -> dict:
-    """Model operations of one train step on (b, s) tokens, counted apart:
-    the forward (every linear at 2 operations a weight and token, the head
-    over the padded vocabulary, and the chunked attention's full S × S
-    scores and P·V, 4·B·H·S²·D a layer), the backward (twice the forward)
-    and the remat recompute (the blocks' forward again, and each logit
-    chunk's head product)."""
+def train_flops(cfg, b: int, s: int, head_tokens=None) -> dict:
+    """Model operations of one train step on (b, s) positions, counted
+    apart: the forward (every linear at 2 operations a weight and
+    position, the head over the padded vocabulary at ``head_tokens``
+    positions (all of them by default; a vlm's text), and the chunked
+    attention's full S × S scores and P·V, 4·B·H·S²·D a layer), the
+    backward (twice the forward) and the remat recompute (the blocks'
+    forward again, and each logit chunk's head product). The MoE's FFN is
+    counted as the masked path computes it: every expert for every token
+    (E/k times the routed work) and the router."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
+    ffn = (3 if cfg.mlp_act == "silu" else 2) * d * cfg.d_ff
+    if cfg.family == "moe":
+        ffn = ffn * cfg.num_experts + d * cfg.num_experts
     lin = cfg.num_layers * (2 * d * cfg.num_heads * hd
-                            + 2 * d * cfg.num_kv_heads * hd
-                            + (3 if cfg.mlp_act == "silu" else 2) * d
-                            * cfg.d_ff)
+                            + 2 * d * cfg.num_kv_heads * hd + ffn)
     head = d * cfg.padded_vocab
     tokens = b * s
+    heads = tokens if head_tokens is None else head_tokens
     attn = cfg.num_layers * 4.0 * b * cfg.num_heads * s * s * hd
-    fwd = 2.0 * tokens * (lin + head) + attn
+    fwd = 2.0 * tokens * lin + 2.0 * heads * head + attn
     return dict(forward=fwd, backward=2.0 * fwd,
-                recompute=2.0 * tokens * lin + attn + 2.0 * tokens * head)
+                recompute=2.0 * tokens * lin + attn + 2.0 * heads * head)
 
 
 def _tree_clone(tree):
@@ -3911,6 +3961,248 @@ def phase_train(torch, dev, cfg):
     for n, c in t1_launches.items():
         launches[n] += c
     return launches, summary
+
+
+# ---------------------------------------------------------------------------
+# the training phase of the other families: MoE, SSM, hybrid, audio, vlm
+# ---------------------------------------------------------------------------
+
+def family_config(arch):
+    """``arch`` as the other phases run it: qwen3-moe at ``MOE_LAYERS``
+    layers, the SSM and hybrid archs at ``SSM_LAYERS``' depth, the rest
+    at full depth; every width as published."""
+    return moe_config() if arch == MOE_ARCH else cut_config(arch, SSM_LAYERS)
+
+
+def family_batches(torch, dev, cfg):
+    """Step i's batch of the train CLI's data (``ZipfMarkov``, batch 16 x
+    64): its tokens and labels; an audio config's frames and a vlm
+    config's patches from the port's ``make_batch`` (a generator on the
+    card seeded from ``SEED`` + i; bf16 standard normals) in their place
+    or ahead of them. Nothing is read on the host."""
+    from repro_torch.data import DataConfig, ZipfMarkov
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import make_batch
+    from repro_torch.models.transformer import FRONTEND_KEYS
+    gen = ZipfMarkov(DataConfig(vocab_size=cfg.vocab_size,
+                                seq_len=TRAIN["seq"],
+                                global_batch=TRAIN["batch"]))
+
+    def batch(i):
+        b = train_cli.device_batch(gen, i, dev)
+        if cfg.frontend is None:
+            return b
+        key = FRONTEND_KEYS[cfg.frontend]
+        tgen = torch.Generator(device=dev).manual_seed(SEED + i)
+        emb = make_batch(cfg, tgen, TRAIN["batch"],
+                         TRAIN["seq"] + cfg.num_patches, device=dev)[key]
+        if key == "frames":
+            return {"frames": emb, "labels": b["labels"]}
+        return dict(b, patches=emb)
+
+    return batch
+
+
+def hold_microbatches_streamed(torch, model, params, batch, bar, tag):
+    """:func:`hold_microbatches`' gradient check for a model whose params
+    and two gradient trees do not fit the card together (the MoE: 24.9 GB
+    each): the gradient as two interleaved microbatches comes first
+    (``compute_grads``), then the single batch's backward holds each leaf
+    to it as soon as that leaf's gradient is ready (a post-accumulate-grad
+    hook) and drops it. The loss within 1e-6 relative, every leaf's
+    |dg| / |g| within ``bar``."""
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.training.train_loop import TrainConfig, compute_grads
+    l2, g2 = compute_grads(model, TrainConfig(microbatches=2), params, batch)
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    rel, flat, hooks = {}, [], []
+    for (key, leaf), (_, want) in zip(_paths(leaves), _paths(g2)):
+        def hold(p, name="/".join(key), want=want):
+            rel[name] = float(torch.linalg.vector_norm(p.grad - want)
+                              / torch.linalg.vector_norm(p.grad))
+            p.grad = None
+        flat.append(leaf)
+        hooks.append(leaf.register_post_accumulate_grad_hook(hold))
+    with torch.enable_grad():
+        l1, _ = model.loss(leaves, batch)
+        torch.autograd.backward(l1, inputs=flat)
+    for h in hooks:
+        h.remove()
+    peak = torch.cuda.max_memory_allocated()
+    del g2, leaves, flat
+    check(len(rel) == len(hooks), f"{tag}: {len(hooks) - len(rel)} leaves "
+                                  f"got no gradient")
+    worst = max(rel.values())
+    l1 = l1.detach()
+    dl = abs(float(l1) - float(l2)) / abs(float(l1))
+    log(f"[{tag}] microbatches 2 against 1 on one batch (each leaf of the "
+        f"single batch's gradient held to the microbatched one as backward "
+        f"gives it): loss {float(l1):.6f} / {float(l2):.6f} (relative "
+        f"{dl:.2e}); |dg| / |g| per leaf "
+        + ", ".join(f"{k} {v:.2e}" for k, v in sorted(rel.items()))
+        + f" (bar {bar:.0e}); peak {peak / 1e9:.2f} GB allocated")
+    check(worst <= bar and dl <= 1e-6, f"{tag}: microbatched gradients "
+                                       f"differ beyond the bar: {worst:.2e}")
+    return dict(max_rel=worst, loss_rel=dl, per_leaf=rel, peak_bytes=peak)
+
+
+def train_family(torch, dev, arch, optimizer):
+    """One arch of :func:`phase_train_families`: ``FAMILY_STEPS`` steps of
+    ``make_train_step`` in sync-debug mode (the loss read at the first and
+    the last step only), then the microbatch check and the resume where
+    the arch takes them. Returns the arch's numbers."""
+    import argparse
+    import statistics
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+    cfg = family_config(arch)
+    t_arch = time.time()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, remat=True)
+    tcfg = train_cli.train_config(argparse.Namespace(
+        optimizer=optimizer, lr=TRAIN["lr"], steps=FAMILY_STEPS,
+        microbatches=1))
+    step_fn, _ = make_train_step(model, tcfg)
+    state = init_train_state(model, SEED, device=dev, tcfg=tcfg)
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    batch = family_batches(torch, dev, cfg)
+    steps, k = FAMILY_STEPS, FAMILY_RESUME_K
+    last = steps - 1
+    events, waits, losses = [], [], {}
+    ops.reset_launches()
+    ckpt = tempfile.TemporaryDirectory(prefix="chip_smoke_families_")
+    mgr = CheckpointManager(ckpt.name, keep_n=1)
+    resume = arch == FAMILY_RESUME
+    with host_waits(torch, True) as hw:
+        caught = hw["caught"]
+
+        def n_waits():
+            return sum(SYNC_WARNING in str(w.message) for w in caught)
+
+        torch.cuda.synchronize()
+        mark = n_waits()
+        t0 = time.time()
+        for i in range(steps):
+            state, m = step_fn(state, batch(i))
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            if i in (0, last):
+                losses[i] = float(m["loss"])
+            waits.append(n_waits() - mark)
+            if resume and i + 1 == k:
+                # the save's host copy waits on the card; not a step's wait
+                mgr.save_async(k, state)
+            mark = n_waits()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(ops.LAUNCHES)
+    check(not any(launches.values()),
+          f"{arch}: training launched a kernel: {launches}")
+    first, end = losses[0], losses[last]
+    check(math.isfinite(first) and math.isfinite(end) and end < first,
+          f"{arch}: the training loss did not fall: {losses}")
+    quiet = [w for i, w in enumerate(waits) if i not in (0, last)]
+    check(sum(quiet) == 0,
+          f"{arch}: train steps outside the print steps waited on the "
+          f"card: {waits}")
+    step_ms = [events[i - 1].elapsed_time(events[i])
+               for i in range(1, len(events))]
+    timed = step_ms[FAMILY_WARMUP - 1:]
+    med = statistics.median(timed)
+    positions = TRAIN["seq"] + cfg.num_patches
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    fl, share = None, None
+    if cfg.family in ("moe", "audio", "vlm"):
+        fl = train_flops(cfg, TRAIN["batch"], positions, head_tokens=tokens)
+        share = sum(fl.values()) / (med * 1e-3) / PEAK_F32_FLOPS
+    out = dict(
+        layers=cfg.num_layers, optimizer=optimizer, params=n_params,
+        steps=steps, loss_first=first, loss_last=end, step_ms=med,
+        step_ms_all=step_ms, tokens_per_s=tokens / med * 1e3,
+        positions_per_s=TRAIN["batch"] * positions / med * 1e3,
+        flops=fl, flop_share=share, peak_bytes=peak, waits=waits,
+        wall_s=wall)
+    log(f"[train families] {arch}: {cfg.num_layers} layers at full width, "
+        f"{n_params / 1e9:.3f}e9 f32 parameters from seed {SEED}, "
+        f"{optimizer}, batch {TRAIN['batch']} x {TRAIN['seq']}"
+        + (f" + {cfg.num_patches} patches" if cfg.num_patches else "")
+        + f", lr {TRAIN['lr']}, warmup {tcfg.optimizer.warmup_steps}, "
+        f"remat on; loss {first:.4f} at step 0 -> {end:.4f} at step {last};"
+        f" step {med:.2f} ms (median of steps {FAMILY_WARMUP}-{last}, CUDA "
+        f"events; min {min(timed):.2f}, max {max(timed):.2f}); "
+        f"{out['tokens_per_s']:.0f} tokens/s"
+        + (f" ({out['positions_per_s']:.0f} positions/s)"
+           if cfg.num_patches else "")
+        + (f"; model operations {sum(fl.values()) / 1e12:.2f}e12 a step = "
+           f"{share:.1%} of {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32"
+           if fl else "; model operations not counted (the scans are "
+                      "elementwise)")
+        + f"; peak {peak / 1e9:.2f} GB allocated; host waits a step "
+        f"{waits} (print steps 0 and {last})")
+    if arch in FAMILY_MICRO:
+        # (zamba2's save is written meanwhile)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mb, tag = batch(steps), f"train families {arch}"
+        hold = (hold_microbatches_streamed if cfg.family == "moe" else
+                functools.partial(hold_microbatches, tcfg=tcfg))
+        out["micro"] = hold(torch, model, params=state["params"], batch=mb,
+                            bar=MICRO_BAR, tag=tag)
+    if resume:
+        t0 = time.time()
+        mgr.wait()
+        restored, at = CheckpointManager(ckpt.name).restore_latest(state)
+        check(at == k and int(restored["step"]) == k,
+              f"{arch}: restored step {at}, expected {k}")
+        for i in range(k, steps):
+            restored, _ = step_fn(restored, batch(i))
+        out["resume"] = hold_states(torch, state, restored,
+                                    f"train families {arch} resume",
+                                    FAMILY_RESUME_BOUND)
+        out["resume"]["seconds"] = time.time() - t0
+        del restored
+    ckpt.cleanup()
+    state = None
+    torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t_arch
+    return out
+
+
+def phase_train_families(torch, dev):
+    """Training on the card for every family the reference trains beyond
+    the dense one: the MoE (qwen3-moe-235b-a22b, ``MOE_LAYERS`` layers,
+    Adafactor one layer at a time), the hybrid (zamba2-1.2b) and the SSM
+    (falcon-mamba-7b) at ``SSM_LAYERS``' depth, the audio
+    (musicgen-medium, frames in place of tokens) and vlm (internvl2-1b,
+    256 patches ahead of 64 tokens) frontends at full depth; every width
+    as published, weights from ``SEED``. Each arch takes ``FAMILY_STEPS``
+    steps of ``make_train_step`` with the train CLI's recipe in sync-debug
+    mode (:func:`train_family`): the loss at the first and last step,
+    finite and falling; no host wait outside those two steps; the median
+    step time from CUDA events, tokens/s, the model-FLOP share where the
+    work is counted, and peak memory. The MoE and zamba2 hold one batch's
+    gradient as two interleaved microbatches to the single batch's at
+    ``MICRO_BAR``; zamba2 resumes from a save at step ``FAMILY_RESUME_K``
+    and is held to the uninterrupted run. No kernel of the repo launches.
+    Returns each arch's numbers."""
+    t_phase = time.time()
+    out = {}
+    for arch, optimizer in TRAIN_FAMILIES:
+        out[arch] = train_family(torch, dev, arch, optimizer)
+    secs = time.time() - t_phase
+    log(f"[train families] {len(out)} archs in {secs:.1f}s: "
+        + "; ".join(f"{a} {r['step_ms']:.1f} ms a step, "
+                    f"{r['peak_bytes'] / 1e9:.1f} GB, {r['seconds']:.1f}s"
+                    for a, r in out.items()))
+    out["seconds"] = secs
+    return out
 
 
 class _FirstBlocks:
@@ -4486,14 +4778,14 @@ def frontend_run(torch, dev, cfg, model, data, label, count=False):
 
 def hold_plain_blocks(torch, dev, model, data, report, tag):
     """The mixed-policy compression of the first ``FRONTEND_PLAIN_BLOCKS``
-    blocks through the plain versions (weights from the seed, no kernel
-    launched), timed, and held to the same blocks of the kernels'
-    ``report`` at the bars with equal iterations. Returns the summary with
-    the plain run's seconds."""
+    blocks (at most the model's) through the plain versions (weights from
+    the seed, no kernel launched), timed, and held to the same blocks of
+    the kernels' ``report`` at the bars with equal iterations. Returns the
+    summary with the plain run's seconds and the block count."""
     from repro_torch import kernels
     from repro_torch.core.compress import CompressionReport, compress_model
     from repro_torch.kernels import ops
-    n = FRONTEND_PLAIN_BLOCKS
+    n = min(FRONTEND_PLAIN_BLOCKS, model.num_blocks())
     params = model.init(SEED, device=dev)
     ops.reset_launches()
     torch.cuda.synchronize()
@@ -4513,7 +4805,7 @@ def hold_plain_blocks(torch, dev, model, data, report, tag):
         artifacts={r.qualname: report.artifacts[r.qualname] for r in layers})
     held = hold_reports(torch, first, rep_p, f"{tag} layer",
                         n * len(model.block_linears(0)), iters_equal=True)
-    held["plain_s"] = secs
+    held.update(plain_s=secs, blocks=n)
     return held
 
 
@@ -4653,7 +4945,7 @@ def phase_frontends(torch, dev):
         summary[arch] = dict(
             layers=cfg.num_layers, n_params=run_k["n_params"],
             compress_s=run_k["compress_s"],
-            plain_blocks=FRONTEND_PLAIN_BLOCKS,
+            plain_blocks=held["blocks"],
             waits_per_block=run_k["waits"],
             peak_gb=run_k["peak_bytes"] / 1e9, loss=out_k["loss"],
             ppl=out_k["ppl"], dense_loss=run_k["dense_loss"],
@@ -4710,7 +5002,7 @@ def parity_frontends(torch, dev):
         held = hold_plain_blocks(torch, dev, model, data, run_k["report"],
                                  tag)
         log(f"[{tag}] kernels against plain over blocks 0-"
-            f"{FRONTEND_PLAIN_BLOCKS - 1}: "
+            f"{held['blocks'] - 1}: "
             + ("the same bits in every layer" if held["identical"] else
                f"{held['layers_differ']} layers differ, the first "
                f"{held['first_diff']}"))
@@ -4720,7 +5012,7 @@ def parity_frontends(torch, dev):
         torch.cuda.empty_cache()
         if packed is not None:
             phase_engine(torch, cfg, model, packed, f"parity {arch} ",
-                         exact_first=True)
+                         exact_first=True, count_waits=False)
             del packed
             torch.cuda.empty_cache()
 
@@ -4909,9 +5201,10 @@ def parity_main(torch, dev, cfg):
         torch.cuda.empty_cache()
     del data
     torch.cuda.empty_cache()
-    phase_engine(torch, cfg, model, packed, "parity ", exact_first=True)
+    phase_engine(torch, cfg, model, packed, "parity ", exact_first=True,
+                 count_waits=False)
     phase_paged_engine(torch, cfg, model, packed, "parity ",
-                       exact_first=True)
+                       exact_first=True, count_waits=False)
 
 
 def main() -> None:
@@ -4946,6 +5239,8 @@ def main() -> None:
         rows[name]["by_shape"] += entries
     torch.cuda.empty_cache()
     train_launches, train = phase_train(torch, dev, cfg)
+    torch.cuda.empty_cache()
+    train_families = phase_train_families(torch, dev)
     torch.cuda.empty_cache()
     ssm_shapes, ssm_launches, ssm_k4, ssm_k2, ssm, ssm_keep = phase_ssm(
         torch, dev)
@@ -5026,6 +5321,7 @@ def main() -> None:
     log(f"[moe] summary: {json.dumps(moe)}")
     log(f"[methods] summary: {json.dumps(methods)}")
     log(f"[train] summary: {json.dumps(train)}")
+    log(f"[train families] summary: {json.dumps(train_families)}")
     log(f"[ssm] summary: {json.dumps(ssm)}")
     log(f"[frontends] summary: {json.dumps(fe)}")
     log(f"[done] {time.time() - t_start:.1f}s; card {card}")

@@ -4,8 +4,9 @@ the families the port runs: dense ``llama32-1b``, ``llama2-7b``,
 ``starcoder2-15b`` and ``nemotron-4-340b``, audio ``musicgen-medium``
 (precomputed frame embeddings in place of tokens), vlm ``internvl2-1b``
 (precomputed patch embeddings ahead of the tokens), MoE
-``qwen3-moe-235b-a22b``, SSM ``falcon-mamba-7b`` (Mamba-1) and hybrid
-``zamba2-1.2b`` (Mamba-2 blocks and one shared attention block))."""
+``qwen3-moe-235b-a22b`` and ``grok-1-314b``, SSM ``falcon-mamba-7b``
+(Mamba-1) and hybrid ``zamba2-1.2b`` (Mamba-2 blocks and one shared
+attention block))."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,7 +16,8 @@ from typing import Optional
 _ARCH_IDS = ["llama32-1b", "llama2-7b", "llama2-13b", "llama31-8b",
              "granite-8b", "qwen3-moe-235b-a22b", "falcon-mamba-7b",
              "zamba2-1.2b", "musicgen-medium", "internvl2-1b",
-             "starcoder2-7b", "starcoder2-15b", "nemotron-4-340b"]
+             "starcoder2-7b", "starcoder2-15b", "nemotron-4-340b",
+             "grok-1-314b"]
 
 
 @dataclasses.dataclass(frozen=True)

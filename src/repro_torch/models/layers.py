@@ -49,11 +49,17 @@ def expert_apply(w, x: torch.Tensor, *, per_expert: bool = False
     K4x launch on the card (``QTensor.expert_matmul``). The reference's
     ``repro/models/layers.py::expert_apply``. The dense shared form runs
     one (T, d) × (d, f) product an expert into (E, T, f) storage and
-    returns its (T, E, f) view: no copy of the stack or of x is made."""
+    returns its (T, E, f) view: no copy of the stack or of x is made.
+    When a graph is being built (x or w requires grad) the same products
+    are stacked out of place, which autograd differentiates (``out=``
+    products it cannot), with the stack unbound once (its backward is
+    one stack, not a full-size write an expert)."""
     if isinstance(w, QTensor):
         return w.expert_matmul(x, per_expert).to(x.dtype)
     if per_expert:
         return torch.bmm(x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return torch.stack([x @ we for we in w.unbind(0)]).transpose(0, 1)
     y = x.new_empty((w.shape[0], x.shape[0], w.shape[2]))
     for e in range(w.shape[0]):
         torch.mm(x, w[e], out=y[e])

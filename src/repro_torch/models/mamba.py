@@ -21,6 +21,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -105,10 +106,31 @@ def _ssm_coeffs(p, xc: torch.Tensor, cfg: ModelConfig):
     return a, bu, cc
 
 
+def _scan_chunk(p, x_i: torch.Tensor, h: torch.Tensor, cfg: ModelConfig):
+    """One chunk of the scan: its coefficients, the state advanced token
+    by token from h, and the trajectory contracted with C. x_i: (B,
+    chunk, di) → y_i (B, chunk, di) f32 and the chunk's last state."""
+    a, bu, cc = _ssm_coeffs(p, x_i, cfg)
+    hs = []
+    for t in range(x_i.shape[1]):
+        h = torch.addcmul(bu[:, t], a[:, t], h)
+        hs.append(h)
+    del a, bu
+    return torch.einsum("bldn,bln->bld", torch.stack(hs, 1),
+                        cc.to(torch.float32)), h
+
+
 def _mamba_scan_y(p, xc: torch.Tensor, cfg: ModelConfig, h0: torch.Tensor,
                   chunk: int):
     """The selective scan, chunk by chunk. xc: (B, L, di) post-conv; h0:
     (B, di, N) f32. Returns y (B, L, di) f32 and the last state.
+
+    When a graph is being built each chunk runs under
+    ``torch.utils.checkpoint`` (the reference's ``@jax.checkpoint`` on the
+    scan body): backward keeps the carried h and the chunk's input, and
+    recomputes a, bu and the state trajectory, three (B, chunk, d_inner,
+    N) f32 tensors (537 MB each at falcon-mamba-7b's width and a 16 × 64
+    batch), one chunk at a time.
 
     As in the reference the last chunk is zero-padded to a whole chunk,
     and the padded tokens still advance the state: their dt is
@@ -121,16 +143,17 @@ def _mamba_scan_y(p, xc: torch.Tensor, cfg: ModelConfig, h0: torch.Tensor,
     pad = (-l) % chunk
     if pad:
         xc = F.pad(xc, (0, 0, 0, pad))
+    remat = T.needs_graph(p) or (torch.is_grad_enabled()
+                                 and xc.requires_grad)
     h, ys = h0, []
     for c0 in range(0, xc.shape[1], chunk):
-        a, bu, cc = _ssm_coeffs(p, xc[:, c0:c0 + chunk], cfg)
-        hs = []
-        for t in range(chunk):
-            h = torch.addcmul(bu[:, t], a[:, t], h)
-            hs.append(h)
-        del a, bu
-        ys.append(torch.einsum("bldn,bln->bld", torch.stack(hs, 1),
-                               cc.to(torch.float32)))
+        x_i = xc[:, c0:c0 + chunk]
+        if remat:
+            y_i, h = checkpoint(_scan_chunk, p, x_i, h, cfg,
+                                use_reentrant=False, preserve_rng_state=False)
+        else:
+            y_i, h = _scan_chunk(p, x_i, h, cfg)
+        ys.append(y_i)
     return torch.cat(ys, 1)[:, :l], h
 
 

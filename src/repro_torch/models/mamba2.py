@@ -81,11 +81,17 @@ def _ssd_chunked(xh, dtv, a_log, bc, cc, h0, chunk: int):
     cg = cc.reshape(b, nc, chunk, n)
 
     la = torch.cumsum(ag, dim=2)                       # (B,nc,cl,nh)
-    # intra-chunk: decay matrix per head, causal
+    # intra-chunk: decay matrix per head, causal. The reference takes
+    # where(causal, exp(seg), 0): above the diagonal seg is a sum of
+    # decays (≥ 0), whose exp overflows once a chunk's dt sums past 88,
+    # and the gradient there is 0·inf = NaN in every leaf. Masking seg
+    # to −inf before the exp gives the same forward bits and gradient
+    # wherever the reference's is finite.
     seg = la[:, :, :, None, :] - la[:, :, None, :, :]  # (B,nc,t,s,nh)
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                    device=xh.device))
-    lmat = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
+    lmat = torch.exp(seg.masked_fill(~causal[None, None, :, :, None],
+                                     float("-inf")))
     scores = torch.einsum("bctn,bcsn->bcts", cg, bg)   # (B,nc,t,s)
     m = scores[..., None] * lmat * dg[:, :, None, :, :]
     del seg, lmat
@@ -192,13 +198,19 @@ class Zamba2Model(T.DenseModel):
     def hidden_states(self, params, batch) -> torch.Tensor:
         h = self.embed(params, batch)
         positions = self._positions(h, 0)
-        remat = self.remat and T.needs_graph(params)
+        graph = T.needs_graph(params)
+        remat = self.remat and graph
+        # under a graph the stacked leaves are unbound once, as the dense
+        # model's are; the shared block is not recomputed (the reference
+        # remats the Mamba-2 bodies only)
+        blocks = T.unstack(params["blocks"], self.cfg.num_layers) \
+            if graph else None
         for lo, hi in self._groups():
             h, _ = T.block_apply(params["shared"], h, self.cfg,
                                  positions=positions,
                                  attn_chunk=self.attn_chunk)
             for i in range(lo, hi):
-                bp = self.block_slice(params, i)
+                bp = blocks[i] if graph else self.block_slice(params, i)
                 if remat:
                     h = checkpoint(self._block_out, bp, h,
                                    use_reentrant=False,

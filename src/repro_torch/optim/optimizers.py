@@ -189,6 +189,32 @@ def adafactor_init(params):
     return {"v": tree_map(leaf, params), "step": step}
 
 
+def _adafactor_leaf(g, v, p, scale, decay, lr, cfg: OptimizerConfig):
+    """One leaf's (or one layer's) update, in place: the factored second
+    moment over the last two dims (the full one for vectors), the update
+    clipped to RMS 1 and decayed weights."""
+    g = g.to(torch.float32) * scale
+    p32 = _f32_view(p)
+    g2 = g * g + 1e-30
+    if _factored(p):
+        vr = v["vr"].mul_(decay).add_((1 - decay) * g2.mean(dim=-1))
+        vc = v["vc"].mul_(decay).add_((1 - decay) * g2.mean(dim=-2))
+        denom = vr.mean(dim=-1, keepdim=True)[..., None]
+        vhat = torch.mul(vr[..., None], vc[..., None, :], out=g2)
+        vhat.div_(torch.clamp(denom, min=1e-30))
+    else:
+        vhat = v["v"].mul_(decay).add_((1 - decay) * g2)
+    del g2
+    update = g.div_(vhat.add(cfg.eps).sqrt_())
+    del vhat
+    # relative step clipping (adafactor d=1.0)
+    rms = torch.sqrt((update * update).mean())
+    update.div_(torch.clamp(rms, min=1.0))
+    decayed = (lr * cfg.weight_decay) * p32
+    p32.sub_(update.mul_(lr)).sub_(decayed)
+    return _write_back(p, p32), v
+
+
 def adafactor_update(grads, state, params, cfg: OptimizerConfig):
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
@@ -197,34 +223,15 @@ def adafactor_update(grads, state, params, cfg: OptimizerConfig):
     decay = 1.0 - torch.pow(step.to(torch.float32), -0.8)  # beta2 schedule
 
     def upd(g, v, p):
-        g = g.to(torch.float32) * scale
-        p32 = _f32_view(p)
-        g2 = g * g + 1e-30
-        # a stacked leaf (ndim ≥ 3) is updated layer by layer in the
-        # reference: every reduction below keeps its layer axis
-        per_layer = p.dim() >= 3
-        if _factored(p):
-            vr = v["vr"].mul_(decay).add_((1 - decay) * g2.mean(dim=-1))
-            vc = v["vc"].mul_(decay).add_((1 - decay) * g2.mean(dim=-2))
-            denom = vr.mean(dim=-1, keepdim=True)[..., None]
-            vhat = torch.mul(vr[..., None], vc[..., None, :], out=g2)
-            vhat.div_(torch.clamp(denom, min=1e-30))
-        else:
-            vhat = v["v"].mul_(decay).add_((1 - decay) * g2)
-            del g2
-        update = g.div_(torch.sqrt(vhat + cfg.eps))
-        # relative step clipping (adafactor d=1.0)
-        sq = update * update
-        if per_layer:
-            rms = torch.sqrt(sq.mean(dim=tuple(range(1, sq.dim())),
-                                     keepdim=True))
-        else:
-            rms = torch.sqrt(sq.mean())
-        del sq
-        update.div_(torch.clamp(rms, min=1.0))
-        decayed = (lr * cfg.weight_decay) * p32
-        p32.sub_(update.mul_(lr)).sub_(decayed)
-        return _write_back(p, p32), v
+        if p.dim() >= 3:
+            # the reference's lax.map over the layer axis of a stacked
+            # leaf: one layer's f32 temporaries at a time, its statistics
+            # and relative-step RMS its own
+            for i in range(p.shape[0]):
+                _adafactor_leaf(g[i], {k: t[i] for k, t in v.items()}, p[i],
+                                scale, decay, lr, cfg)
+            return p, v
+        return _adafactor_leaf(g, v, p, scale, decay, lr, cfg)
 
     out = tree_map(upd, grads, state["v"], params)
     return (_part(out, 0), {"v": _part(out, 1), "step": step},

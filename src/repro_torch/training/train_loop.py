@@ -56,14 +56,18 @@ def loss_and_grads(model, params, batch):
     """(loss, grads, metrics) of ``model.loss`` on one batch: the params
     are detached into leaves that require grad (the caller's tensors keep
     no grad flag and no graph), and the gradient comes back as a tree of
-    the params' structure."""
+    the params' structure. A leaf the loss never reads (the audio
+    frontend's ``embed``: frames stand in for tokens) gets a zero
+    gradient, as ``jax.value_and_grad`` gives it, so the optimizer still
+    decays it."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     flat = []
     tree_map(flat.append, leaves)
     with torch.enable_grad():
         loss, metrics = model.loss(leaves, batch)
-        grads = torch.autograd.grad(loss, flat)
-    it = iter(grads)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    it = iter(torch.zeros_like(p) if g is None else g
+              for p, g in zip(flat, grads))
     return (loss.detach(), tree_map(lambda _: next(it), leaves),
             {k: v.detach() for k, v in metrics.items()})
 
@@ -85,24 +89,60 @@ def compute_grads(model, tcfg: TrainConfig, params, batch):
     ``accum_dtype`` — each microbatch's gradient added in f32 and the sum
     rounded to ``accum_dtype`` — with the loss as Σ loss/n. Each
     microbatch's graph is freed before the next is built (memory = one
-    microbatch's activations)."""
+    microbatch's activations), and each leaf's gradient is added into the
+    accumulator as soon as backward has it and then dropped (a
+    post-accumulate-grad hook), so beside the params and the accumulator
+    the card holds one leaf's gradient at a time, not a second gradient
+    tree (24.9 GB for the MoE phase's 6.2e9 f32 parameters on the
+    card)."""
     n = tcfg.microbatches
     if n <= 1:
         loss, grads, _ = loss_and_grads(model, params, batch)
         return loss, grads
     acc_t = tcfg.accum_dtype
-    loss = None
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_t,
                                           device=p.device), params)
-    for mb in split_microbatches(batch, n):
-        part, grads, _ = loss_and_grads(model, params, mb)
-        gacc = tree_map(lambda a, g: (a.to(torch.float32)
-                                      + g.to(torch.float32) / n).to(acc_t),
-                        gacc, grads)
-        del grads
-        part = part / n
-        loss = part if loss is None else loss + part
+    flat, hooks = [], []
+
+    def hook_into(acc):
+        def hook(p):
+            _accumulate(acc, p.grad, n)
+            p.grad = None
+        return hook
+
+    def register(p, acc):
+        flat.append(p)
+        hooks.append(p.register_post_accumulate_grad_hook(hook_into(acc)))
+
+    tree_map(register, leaves, gacc)
+    loss = None
+    try:
+        for mb in split_microbatches(batch, n):
+            with torch.enable_grad():
+                part, _ = model.loss(leaves, mb)
+                torch.autograd.backward(part, inputs=flat)
+            part = part.detach() / n
+            loss = part if loss is None else loss + part
+    finally:
+        for h in hooks:
+            h.remove()
     return loss, gacc
+
+
+def _accumulate(a: torch.Tensor, g: torch.Tensor, n: int) -> None:
+    """a ← (a + g/n) rounded to a's dtype, the sum in f32 (the
+    reference's carry), written into ``a``. A stacked leaf (ndim ≥ 3) is
+    summed one layer at a time, so the f32 temporary is one layer's.
+    ``g`` is autograd's and is not written: it may be shared between
+    leaves or broadcast."""
+    for ai, gi in (zip(a.unbind(0), g.unbind(0)) if a.dim() >= 3
+                   else ((a, g),)):
+        part = gi.to(torch.float32) / n
+        if ai.dtype == torch.float32:
+            ai.add_(part)
+        else:
+            ai.copy_(ai.to(torch.float32) + part)
 
 
 def make_train_step(model, tcfg: TrainConfig):

@@ -58,7 +58,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "repro_torch.configs.zamba2_1p2b"} <= set(mods)
     assert {f"repro_torch.configs.{m}" for m in (
         "musicgen_medium", "internvl2_1b", "starcoder2_7b", "starcoder2_15b",
-        "nemotron_4_340b")} <= set(mods)
+        "nemotron_4_340b", "grok_1_314b")} <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}: __import__(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -140,6 +140,11 @@ def test_entry_points_raise_without_card(no_card, tmp_path):
                                              "2"]),
                   lambda a=arch: compress.main(["--tiny", "--arch", a,
                                                 "--out", str(tmp_path)])]
+    for arch in ("falcon-mamba-7b", "zamba2-1.2b", "qwen3-moe-235b-a22b",
+                 "grok-1-314b"):
+        calls += [lambda a=arch: train.main(["--tiny", "--arch", a, "--steps",
+                                             "1", "--ckpt-dir",
+                                             str(tmp_path)])]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

@@ -13,9 +13,11 @@ buckets Zamba2's {wz, wx}; packing keeps the shared block's 2-D leaves as
 QTensors; a packed checkpoint of JAX's read by the port gives JAX's
 prefill logits within 2e-5 (``tests/test_packed_serving.py``) and its
 greedy static tokens; the port's packed checkpoint read by JAX gives the
-same codes; the CLIs, and the continuous engine's and the train CLI's
-refusals.
+same codes; the CLIs and the continuous engine's refusal; the train CLI
+on these families and the MoE's, resumed from its checkpoint.
 """
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -319,8 +321,39 @@ def test_clis_on_cpu(arch, tmp_path):
                     "continuous", "--requests", "2", "--gen", "2"])
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_train_cli_refuses_the_family(arch, tmp_path):
-    with pytest.raises(SystemExit, match="later slice"):
+@pytest.mark.parametrize("arch", ARCHS + ["qwen3-moe-235b-a22b",
+                                          "grok-1-314b"])
+def test_train_cli_trains_and_resumes(arch, tmp_path, capsys):
+    """The train CLI on the SSM, hybrid and MoE families: 6 steps with a
+    checkpoint every 2; with the step-6 checkpoint removed, run again it
+    resumes from step 4 and ends on the uninterrupted run's bits."""
+    args = ["--arch", arch, "--tiny", "--device", "cpu", "--batch", "4",
+            "--seq", "16", "--ckpt-every", "2", "--steps", "6", "--ckpt-dir",
+            str(tmp_path)]
+    whole, _ = train.main(args)
+    assert "resumed" not in capsys.readouterr().out
+    shutil.rmtree(tmp_path / "step_00000006")
+    resumed, m = train.main(args)
+    assert "[train] resumed from step 4" in capsys.readouterr().out
+    assert int(resumed["step"]) == 6 and np.isfinite(float(m["loss"]))
+    for (k, a), (_, b) in zip(_paths(whole), _paths(resumed)):
+        assert torch.equal(a, b), k
+
+
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("arch,key", [("musicgen-medium", "frames"),
+                                      ("internvl2-1b", "patches")])
+def test_train_cli_names_the_missing_frontend_input(arch, key, tmp_path):
+    """The CLI feeds tokens only, as the reference's does: the audio and
+    vlm configs raise the model's ValueError naming the embeddings their
+    stub frontend reads."""
+    with pytest.raises(ValueError, match=key):
         train.main(["--arch", arch, "--tiny", "--device", "cpu", "--steps",
-                    "1", "--ckpt-dir", str(tmp_path)])
+                    "1", "--seq", "16", "--ckpt-dir", str(tmp_path)])
