@@ -41,8 +41,8 @@ CPU, held to each other; Fig. 1's loss trace of block 0's wo runs on the
 kernels and plain; and K1, K1b and K3 are held and timed at llama2-7b's
 linears (K2's and K4's new shapes join their censuses below, as the path
 ``methods``). Then the training phase (:func:`phase_train`): llama32-1b at
-full depth and width from the seed trains 200 AdamW steps (batch 16 x 64,
-lr 1e-3, 20 warmup steps, remat on; the train CLI's loop) in sync-debug
+full depth and width from the seed trains 100 AdamW steps (batch 16 x 64,
+lr 1e-3, 10 warmup steps, remat on; the train CLI's loop) in sync-debug
 mode, the loss printed every 20 steps and required to fall, with the step
 time, tokens/s, FLOP share, peak memory, host waits a step and the
 gradient/update split; a save at step 10 restored by a fresh manager and
@@ -52,16 +52,17 @@ path on the kernels and plain (held at the bars, each layer's PGD
 iterations printed) and pruned by the Table-1 policy on blocks 0-1, with
 perplexity at init, trained and compressed. Then the training phase of
 the other families (:func:`phase_train_families`): qwen3-moe-235b-a22b
-(2 layers, Adafactor), zamba2-1.2b (12 blocks), falcon-mamba-7b (2
-layers), musicgen-medium and internvl2-1b (full depth) at full width
+(2 layers, Adafactor), zamba2-1.2b (6 blocks), falcon-mamba-7b (2
+layers), musicgen-medium (24 layers) and internvl2-1b (full depth) at
+full width
 from the seed, 12 steps each of the train step with the CLI's recipe in
 sync-debug mode: the loss falling from step 0 to step 11, no host wait
 between, the step time, tokens/s, FLOP share and peak memory; the MoE's
 and zamba2's gradient as two microbatches against one; zamba2 resumed
 from a save at step 6 and held to the uninterrupted run. Then the SSM
-phase (:func:`phase_ssm`): zamba2-1.2b at full width over 12 of its 38
-Mamba-2 blocks (and one shared attention + MLP block invoked before every
-6 of them) and falcon-mamba-7b at full width over 2 of its 64 Mamba-1
+phase (:func:`phase_ssm`): zamba2-1.2b at full width over 6 of its 38
+Mamba-2 blocks (and the shared attention + MLP block invoked before
+them) and falcon-mamba-7b at full width over 2 of its 64 Mamba-1
 layers (0.747e9 f32 parameters from the seed), each through the main
 path: the mixed-policy compression with the batched engine on the
 kernels in sync-debug mode (its host waits a block counted, only its path's
@@ -75,9 +76,10 @@ SSM linears; an ``ssm`` path in K4's and K2's censuses; and, after every
 timed run of the process, one ``torch.profiler`` window over a prefill
 and four decode steps of each arch (:func:`phase_ssm_profile`) splitting
 the device time into the scans, K4 and the rest. Then the frontends
-phase (:func:`phase_frontends`): musicgen-medium (audio: 48 layers,
-frame embeddings in place of tokens) and internvl2-1b (vlm: 24 layers,
-256 patch embeddings ahead of the tokens) at full depth and width, and
+phase (:func:`phase_frontends`): musicgen-medium (audio: 24 of its 48
+layers, frame embeddings in place of tokens) and internvl2-1b (vlm: 12
+of its 24 layers, 256 patch embeddings ahead of the tokens) at full
+width, and
 starcoder2-7b at full width over 2 of its 32 layers, each calibrated on
 16,384 positions from the port's ``make_batch`` and through the main
 path on the kernels (the compression in sync-debug mode with its waits
@@ -157,9 +159,29 @@ kernel events at their launch counts; ``[profile]`` lines print the
 device idle share of decode-only and admission steps, busy ms and kernels
 a step, the top device and host ops, the longest idle gaps and what the
 host was in at each; then one batched compression with block 1 in a
-``trace_window``, whose codes and masks must equal the timed run's. This
-first process, with every time in its JSON line, runs cuBLAS in its
-default configuration, as the port's CLIs do.
+``trace_window``, whose codes and masks must equal the timed run's. Then
+sampled tokens (:func:`check_sampling`): the reference's probe tokens
+from the card's Threefry-2x32 sampler, and the slot and paged engines on
+a sampled trace with every ``sample_tokens`` call held to the same
+function on the CPU over a host copy of its inputs (a differing token
+fails unless the card's top-two margin is under 1e-5, relative; near-ties
+are counted). Last, the multi-device phase (:func:`phase_distributed`),
+after every timed host-bound run: one one-rank NCCL process group on the
+card (NCCL refuses two ranks on one device, so every collective is the
+identity; no fallback to gloo), a (1, 1) ("data", "model") mesh, the
+row-sharded AWP loop at llama32-1b's wd shape (K1, K2) bit-equal to the
+unsharded loop, the column-sharded loop (K2) bit-equal to the unsharded
+plain loop, ``calib_c_distributed`` held to XᵀX/n, and llama32-1b at full
+width for 3 steps each of the plain step, ``make_train_step_ddp`` (plain
+sync bit-equal to the plain step; int8 sync bit-equal to the plain step
+fed int8 round-tripped gradients) and the DTensor-sharded step (within
+tests/test_distribution.py's bars), with step times. The MoE phase adds
+``moe_apply_a2a`` on one qwen3-moe layer of its packed model, with its own
+one-rank NCCL group: packed experts through K4x and the experts
+dequantized once, each held to the masked dense path within 2e-4, no
+token dropped. These launches (K1, K2, K4x) are the ``distributed`` path
+of ``launches_by_path``. This first process, with every time in its JSON
+line, runs cuBLAS in its default configuration, as the port's CLIs do.
 
 cuBLAS splits K for short products (measured on the H100: 256-, 512- and
 1024-row f32 products), so the plain K1 sums each output in another order
@@ -253,6 +275,10 @@ K4_NK = ((2048, 2048), (512, 2048), (8192, 2048), (2048, 8192))
 # and K4x's row in the JSON line: the slot engine's decode (M = 8) at wg/wu,
 # shared x
 MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 2
+# the parity process's repeat of the MoE main path and slot engine: one
+# layer (its 2 layers cost about 30 s there; 2 until the multi-device
+# phase came)
+PARITY_MOE_LAYERS = 1
 K4X_E = (8, 128)
 K4X_M = (1, 4, 8, 64, 512)
 K4X_NK = ((1536, 4096), (4096, 1536))
@@ -354,9 +380,10 @@ PPL_BAR, TRACE_BAR, TRACE_RISE = 1e-4, 2e-4, 1e-4
 NEMOTRON_HEADS = (96, 8, 192, 2048, 64)
 # the training phase: llama32-1b at full width with the train CLI's
 # defaults (batch 16 x 64, AdamW) and benchmarks/common.py's recipe (lr
-# 1e-3, 20 warmup steps, 200 steps); the loss printed every 20 steps; the
-# median step time over the steps from TRAIN_WARMUP on
-TRAIN = dict(steps=200, batch=16, seq=64, lr=1e-3, log_every=20)
+# 1e-3, a tenth of the steps to warm up), cut from the recipe's 200 steps
+# to 100 to make room for the multi-device phase; the loss printed every
+# 20 steps; the median step time over the steps from TRAIN_WARMUP on
+TRAIN = dict(steps=100, batch=16, seq=64, lr=1e-3, log_every=20)
 TRAIN_WARMUP = 5
 # the resume check: save at step RESUME_K, RESUME_K more steps after the
 # restore against 2·RESUME_K uninterrupted ones. Bit-equal is the goal; if
@@ -381,12 +408,12 @@ TRAIN_COMPRESS_PATH = ("awp_pgd_step", "awp_pgd_step_batched", "topk_row",
 # one cut: falcon's depth 64 -> 2 layers (one block's AWP-int4 step is 2 x
 # 5.5e11 operations: 64 blocks on the kernels and again plain would take
 # over 10 minutes of the 1200 s limit; 4 layers until the training phase
-# of the other families came); zamba2's 38 -> 12 Mamba-2 blocks (two
-# invocations of the shared attention block), which keeps the whole
-# script under its time budget beside the frontends phase (PERF.md keeps
-# the 38- and 4-layer numbers)
+# of the other families came); zamba2's 38 -> 6 Mamba-2 blocks (one
+# invocation of the shared attention block; 12 until the multi-device
+# phase came), which keeps the whole script under its time budget beside
+# the frontends phase (PERF.md keeps the 38-, 12- and 4-layer numbers)
 SSM_ARCHS = ("zamba2-1.2b", "falcon-mamba-7b")
-SSM_LAYERS = {"falcon-mamba-7b": 2, "zamba2-1.2b": 12}
+SSM_LAYERS = {"falcon-mamba-7b": 2, "zamba2-1.2b": 6}
 # the kernels each arch's mixed-policy compression and static decode run:
 # falcon-mamba-7b has no attention (nothing pruned, so no K2) and no two
 # linears of one shape (no K1b)
@@ -402,14 +429,17 @@ SSM_PROFILE_STEPS = 4
 SSM_SCAN = "ssm_scan"
 # the frontends phase: musicgen-medium (audio: frame embeddings in place of
 # tokens) and internvl2-1b (vlm: 256 patch embeddings ahead of the tokens)
-# at full depth and width, and starcoder2-7b at full width with one cut,
+# at full width, at 24 of 48 and 12 of 24 layers since the multi-device
+# phase came (full depth before), and starcoder2-7b at full width with one
+# cut,
 # depth 32 -> 2 layers (one block's compression is about 8e13 operations,
 # 1.7 s on the kernels: 32 blocks on the kernels and again plain would take
 # about two minutes of the 1200 s limit; 4 layers until the training phase
 # of the other families came). starcoder2-7b also serves the slot engine
 # (K5, and K6 at g = 9, D = 128)
 FRONTEND_ARCHS = ("musicgen-medium", "internvl2-1b", "starcoder2-7b")
-FRONTEND_LAYERS = {"starcoder2-7b": 2}
+FRONTEND_LAYERS = {"starcoder2-7b": 2, "musicgen-medium": 24,
+                   "internvl2-1b": 12}
 ENGINE_ARCH = "starcoder2-7b"
 # the blocks the plain compression runs (at most the arch's depth), held to
 # the kernels' first blocks (at the bars, and under unsplit cuBLAS bit for
@@ -439,12 +469,17 @@ STARCODER_HEADS = (36, 4, 128, 2048, 64)
 # FAMILY_WARMUP on. (arch, optimizer): qwen3-moe at MOE_LAYERS layers with
 # Adafactor (AdamW's moments would add 49.9 GB to 24.9 GB of params and as
 # much of gradients); zamba2-1.2b and falcon-mamba-7b at SSM_LAYERS' depth;
-# musicgen-medium and internvl2-1b at full depth (256 patches ahead of 64
-# tokens a row)
+# musicgen-medium at 24 of its 48 layers and internvl2-1b at full depth
+# (256 patches ahead of 64 tokens a row)
 TRAIN_FAMILIES = (("qwen3-moe-235b-a22b", "adafactor"),
                   ("zamba2-1.2b", "adamw"), ("falcon-mamba-7b", "adamw"),
                   ("musicgen-medium", "adamw"), ("internvl2-1b", "adamw"))
 FAMILY_STEPS, FAMILY_WARMUP = 12, 2
+# the families' depths: the SSM phase's, and musicgen-medium at the
+# frontends phase's 24 of 48 layers (full depth until the multi-device
+# phase came)
+FAMILY_LAYERS = {**SSM_LAYERS,
+                 "musicgen-medium": FRONTEND_LAYERS["musicgen-medium"]}
 # the archs whose microbatched gradient is held to the single batch's at
 # MICRO_BAR, and the one resumed: saved at step FAMILY_RESUME_K, restored
 # and continued to 2·FAMILY_RESUME_K (zamba2's state is 5.9 GB; the
@@ -452,6 +487,31 @@ FAMILY_STEPS, FAMILY_WARMUP = 12, 2
 FAMILY_MICRO = ("qwen3-moe-235b-a22b", "zamba2-1.2b")
 FAMILY_RESUME, FAMILY_RESUME_K = "zamba2-1.2b", FAMILY_STEPS // 2
 FAMILY_RESUME_BOUND = 2 * TRAIN["lr"] * FAMILY_RESUME_K
+
+
+# sampled tokens on the card (:func:`check_sampling`): the reference's
+# probe tokens (logits default_rng(0) (8, 1000) x 3, temperature 1, seeds
+# and steps 0-7); a sampled trace for both engines, its (temperature,
+# top-k) cycled over the requests (one greedy); a token the card samples
+# differently from the CPU on the same logits fails the run unless the
+# card's top-two margin is under NEAR_TIE, relative
+SAMPLE_PROBE = [403, 615, 175, 801, 251, 427, 83, 543]
+SAMPLED_TRACE = dict(num_requests=12, max_prompt=256, max_new=16,
+                     seed=SEED + 3)
+SAMPLED_PARAMS = ((0.8, 40), (1.0, 0), (1.3, 8), (0.0, 0), (0.7, 1))
+NEAR_TIE = 1e-5
+# the multi-device phase (:func:`phase_distributed`): one one-rank NCCL
+# group after the profile phase. Sharded AWP at llama32-1b's wd shape
+# (d_out 2048, d_in 8192, k = d_in / 2, C from 4096 seeded activations);
+# DIST_STEPS steps of each train step at full width, the sharded one held
+# to the plain one at tests/test_distribution.py's bars; the MoE phase's
+# a2a check on one layer, 4 x 128 tokens, capacity factor 8 (no token
+# dropped), held to the masked dense path at A2A_BAR
+DIST_AWP = dict(d_out=2048, d_in=8192, tokens=4096, iters=20)
+DIST_STEPS = 3
+DIST_LOSS_BAR, DIST_RTOL, DIST_ATOL = 2e-4, 2e-3, 2e-4
+DIST_PATH = ("awp_pgd_step", "topk_row", "dequant_matmul_experts")
+A2A_TOKENS, A2A_CAPACITY, A2A_BAR = (4, 128), 8.0, 2e-4
 
 
 def k1_variant(torch, b: int, m: int, k: int) -> int:
@@ -2156,6 +2216,7 @@ def phase_moe(torch, dev):
     for run in ("kernels", "waits_counted", "plain"):
         eng[run].pop("k4x")
     moe_engine_check(launches_e, eng["kernels"], "the MoE engine")
+    a2a_launches, a2a = check_a2a_moe(torch, dev, cfg, model, packed)
     del packed, run_k["packed"]
     torch.cuda.empty_cache()
     census = phase_k4x_census(torch, dev, {"static": run_k["k4x"],
@@ -2166,7 +2227,8 @@ def phase_moe(torch, dev):
         f"{run_k['compress_s']:.1f}s")
     summary = dict(seconds=secs, compress_s=run_k["compress_s"],
                    compress_plain_s=plain_s, decode=run_k["decode"],
-                   kernels_vs_plain=held, engine=eng)
+                   kernels_vs_plain=held, engine=eng, a2a=a2a,
+                   a2a_launches=a2a_launches)
     return row, {"moe_compress_decode": run_k["launches"],
                  "moe_engine": launches_e}, summary
 
@@ -2180,6 +2242,7 @@ def parity_moe(torch, dev):
     bits and static tokens if the compressions agree bit for bit (else the
     first differing layer is printed and the pair held to the bars), and
     every slot-engine request the same first token."""
+    import dataclasses
     from repro_torch import kernels
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
@@ -2206,7 +2269,7 @@ def parity_moe(torch, dev):
     log(f"[parity K4x] tile bit-equal to the plain version at all {checked} "
         f"(shape, form, variant) triples; GEMV entries differing (a record): "
         + ", ".join(f"{key}: {d}" for key, d in gemv.items()))
-    cfg = moe_config()
+    cfg = dataclasses.replace(moe_config(), num_layers=PARITY_MOE_LAYERS)
     model, calib, prompts = model_setup(torch, dev, cfg)
     run_k = moe_run(torch, dev, cfg, model, calib, prompts,
                     "parity moe kernels", count=True)
@@ -2449,9 +2512,11 @@ def phase_methods(torch, dev):
     (``METHODS_LAYERS`` layers): the checkpoint round trip, perplexity
     before, then each method of ``METHODS`` through the batched engine on
     the kernels (its host waits counted a block in sync-debug mode, which
-    is also the run timed; only its kernels may launch) and through the
-    plain versions,
-    held to each other at the repo's bars, with its perplexity after; for
+    is also the run timed; only its kernels may launch) and, where its
+    compression launches a kernel, through the plain versions, held to
+    each other at the repo's bars (RTN, SparseGPT and GPTQ launch none, so
+    their plain run would be the same code: they run once),
+    with its perplexity after; for
     the methods with packed artifacts the packed model's perplexity
     through K4, held to the dense Θ's. Then SparseGPT and GPTQ on the card
     against the CPU, Fig. 1's trace, and K1, K1b and K3 at llama2-7b's
@@ -2534,24 +2599,30 @@ def phase_methods(torch, dev):
         del cp
         torch.cuda.empty_cache()
         ops.reset_launches()
-        with kernels.use_impl("reference"):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            cp_p, rep_p = compress_model(model, params, calib, policy)
-            torch.cuda.synchronize()
-            row["plain_s"] = time.time() - t0
-            row["perplexity_plain"] = perplexity(model, cp_p, evals)
-        check(not any(ops.LAUNCHES.values()), f"{method}'s plain run "
-                                              f"launched a kernel")
-        del cp_p
-        torch.cuda.empty_cache()
-        row["kernels_vs_plain"] = hold_reports(
-            torch, rep_k, rep_p, f"methods {method}", n_layers,
-            iters_equal=False, show_all=True)
+        if kernels_used:
+            with kernels.use_impl("reference"):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                cp_p, rep_p = compress_model(model, params, calib, policy)
+                torch.cuda.synchronize()
+                row["plain_s"] = time.time() - t0
+                row["perplexity_plain"] = perplexity(model, cp_p, evals)
+            check(not any(ops.LAUNCHES.values()), f"{method}'s plain run "
+                                                  f"launched a kernel")
+            del cp_p
+            torch.cuda.empty_cache()
+            row["kernels_vs_plain"] = hold_reports(
+                torch, rep_k, rep_p, f"methods {method}", n_layers,
+                iters_equal=False, show_all=True)
+        else:
+            row["plain_s"], row["perplexity_plain"] = t_k, after
         check(math.isfinite(after) and math.isfinite(row["perplexity_plain"]),
               f"{method}: perplexity {after} / {row['perplexity_plain']}")
         log(f"[methods] {method}: compression on the kernels {t_k:.2f}s "
-            f"(sync-debug mode), plain {row['plain_s']:.2f}s; sparsity "
+            f"(sync-debug mode), plain "
+            + (f"{row['plain_s']:.2f}s" if kernels_used else
+               "the same code (no kernel launched)")
+            + f"; sparsity "
             f"{row['sparsity']:.4f}, mean loss {row['mean_loss']:.6f}; "
             f"perplexity {before:.3f} -> {after:.3f} (plain "
             f"{row['perplexity_plain']:.3f}"
@@ -3704,7 +3775,7 @@ def phase_train(torch, dev, cfg):
     llama32-1b at full depth and width from seed 0 (1.237e9 f32
     parameters, about 20 GB with gradients and AdamW's state), AdamW with
     the train CLI's defaults and ``benchmarks/common.py``'s recipe: batch
-    16 × 64, lr 1e-3, 20 warmup steps, 200 steps, remat on. The loss is
+    16 × 64, lr 1e-3, 10 warmup steps, 100 steps, remat on. The loss is
     printed at step 0, every 20 steps and at the end, and must fall. Every
     step runs in PyTorch's sync-debug mode, its waits counted apart from
     the print's reads (and from the checkpoint's host copy): none is
@@ -3744,7 +3815,8 @@ def phase_train(torch, dev, cfg):
     recipe = argparse.Namespace(optimizer="adamw", lr=TRAIN["lr"],
                                 steps=TRAIN["steps"], microbatches=1)
     tcfg = train_cli.train_config(recipe)
-    check(tcfg.optimizer.warmup_steps == 20, "the recipe's warmup")
+    check(tcfg.optimizer.warmup_steps == TRAIN["steps"] // 10,
+          "the recipe's warmup")
     step_fn, _ = make_train_step(model, tcfg)
     state = init_train_state(model, SEED, device=dev, tcfg=tcfg)
     gen = ZipfMarkov(DataConfig(vocab_size=cfg.vocab_size,
@@ -3969,9 +4041,11 @@ def phase_train(torch, dev, cfg):
 
 def family_config(arch):
     """``arch`` as the other phases run it: qwen3-moe at ``MOE_LAYERS``
-    layers, the SSM and hybrid archs at ``SSM_LAYERS``' depth, the rest
-    at full depth; every width as published."""
-    return moe_config() if arch == MOE_ARCH else cut_config(arch, SSM_LAYERS)
+    layers, the SSM and hybrid archs and musicgen-medium at
+    ``FAMILY_LAYERS``' depth, internvl2-1b at full depth; every width as
+    published."""
+    return moe_config() if arch == MOE_ARCH else cut_config(arch,
+                                                            FAMILY_LAYERS)
 
 
 def family_batches(torch, dev, cfg):
@@ -4180,8 +4254,9 @@ def phase_train_families(torch, dev):
     the dense one: the MoE (qwen3-moe-235b-a22b, ``MOE_LAYERS`` layers,
     Adafactor one layer at a time), the hybrid (zamba2-1.2b) and the SSM
     (falcon-mamba-7b) at ``SSM_LAYERS``' depth, the audio
-    (musicgen-medium, frames in place of tokens) and vlm (internvl2-1b,
-    256 patches ahead of 64 tokens) frontends at full depth; every width
+    (musicgen-medium, frames in place of tokens, 24 layers) and vlm
+    (internvl2-1b, 256 patches ahead of 64 tokens, full depth) frontends;
+    every width
     as published, weights from ``SEED``. Each arch takes ``FAMILY_STEPS``
     steps of ``make_train_step`` with the train CLI's recipe in sync-debug
     mode (:func:`train_family`): the loss at the first and last step,
@@ -5055,6 +5130,442 @@ def check_busy_floor(engines, k4_census, k6_census):
         summary["profile"]["census_floor_ms"] = floor
 
 
+# ---------------------------------------------------------------------------
+# sampled tokens on the card, and the multi-device phase
+# ---------------------------------------------------------------------------
+
+def _near_tie_report(torch, args, row, tok_card, tok_cpu, tag):
+    """A token the card and the CPU sampled differently from the same
+    logits: both devices' scores of the two tokens and the card's top-two
+    margin (relative). A near-tie is a margin under ``NEAR_TIE``."""
+    from repro_torch.serving.sampling import sample_scores
+    logits, temps, top_ks, seeds, steps, kk = args
+    one = [t[row:row + 1] for t in (logits, temps, top_ks, seeds, steps)]
+    s_cpu = sample_scores(*one, max_top_k=kk)[0]
+    s_card = sample_scores(*(t.cuda() for t in one), max_top_k=kk)[0].cpu()
+    if float(temps[row]) <= 0.0:          # greedy rows: the logits
+        s_cpu = s_card = logits[row].to(torch.float32)
+    top2 = torch.topk(s_card, 2).values
+    margin = float((top2[0] - top2[1]).abs()
+                   / top2[0].abs().clamp(min=1e-30))
+    log(f"[sampling {tag}] row {row}: card token {tok_card} (scores card "
+        f"{float(s_card[tok_card])!r}, CPU {float(s_cpu[tok_card])!r}), CPU "
+        f"token {tok_cpu} (card {float(s_card[tok_cpu])!r}, CPU "
+        f"{float(s_cpu[tok_cpu])!r}); card top-two margin {margin:.3e}")
+    return margin < NEAR_TIE
+
+
+def hold_samples(torch, calls, tag):
+    """Every recorded ``sample_tokens`` call's card tokens against the
+    same function on the CPU over a host copy of the same inputs. Returns
+    (tokens, differing, the near-ties' (call, row) pairs); a difference
+    that is not a near-tie fails the run."""
+    from repro_torch.serving.sampling import sample_tokens
+    n = differ = 0
+    ties = []
+    for i, (args, out) in enumerate(calls):
+        cpu = sample_tokens(*args[:5], max_top_k=args[5])
+        for row in torch.nonzero(cpu != out).flatten().tolist():
+            differ += 1
+            tie = _near_tie_report(torch, args, row, int(out[row]),
+                                   int(cpu[row]), tag)
+            check(tie, f"sampling {tag}: row {row} parts from the CPU's "
+                       f"token outside a near-tie")
+            ties.append((i, row))
+        n += out.numel()
+    log(f"[sampling {tag}] {n} rows from {len(calls)} calls: {differ} "
+        f"differ from the CPU's, {len(ties)} of them near-ties")
+    return n, differ, ties
+
+
+def check_sampling(torch, dev, cfg, model, packed):
+    """Sampled tokens on the card (Threefry-2x32, JAX's categorical):
+    the probe (``default_rng(0)`` logits × 3, seeds and steps 0–7) gives
+    the reference's tokens; then the slot and paged engines serve a
+    sampled trace on the packed llama32-1b (temperatures 0.7–1.3, top-k
+    0–40, one greedy request), every ``sample_tokens`` call recorded and
+    held to the CPU's on a host copy of its inputs. Untimed; after every
+    timed engine run."""
+    import dataclasses
+    import numpy as np
+    import repro_torch.serving.engine as engine_mod
+    from repro_torch.launch.serve import build_trace
+    from repro_torch.serving import Engine, EngineConfig, sample_tokens
+    t0 = time.time()
+    logits = torch.from_numpy((np.random.default_rng(0).standard_normal(
+        (8, 1000)) * 3).astype(np.float32))
+    probe_args = (logits, torch.ones(8), torch.zeros(8, dtype=torch.int64),
+                  torch.arange(8), torch.arange(8))
+    card = sample_tokens(*(t.to(dev) for t in probe_args)).cpu()
+    cpu = sample_tokens(*probe_args).tolist()
+    check(cpu == SAMPLE_PROBE, f"sampling probe on the CPU: {cpu}, the "
+                               f"reference's {SAMPLE_PROBE}")
+    _, _, ties = hold_samples(torch, [(probe_args + (64,), card)], "probe")
+    tie_rows = {row for _, row in ties}
+    for row, (a, b) in enumerate(zip(card.tolist(), SAMPLE_PROBE)):
+        check(a == b or row in tie_rows, f"sampling probe row {row}: "
+                                         f"{a}, the reference's {b}")
+    log(f"[sampling probe] {card.tolist()} (the reference's {SAMPLE_PROBE})")
+    reqs = [dataclasses.replace(r, sampling=dataclasses.replace(
+        r.sampling, temperature=t, top_k=k))
+        for r, (t, k) in zip(build_trace(cfg, **SAMPLED_TRACE),
+                             SAMPLED_PARAMS * SAMPLED_TRACE["num_requests"])]
+    real = engine_mod.sample_tokens
+    out = {"probe": card.tolist()}
+    for name, ecfg in (("slot", ENGINE), ("paged", PAGED_ENGINE)):
+        calls = []
+
+        def recording(logits, temps, top_ks, seeds, steps, *, max_top_k=64):
+            tok = real(logits, temps, top_ks, seeds, steps,
+                       max_top_k=max_top_k)
+            calls.append((tuple(t.detach().cpu() for t in
+                                (logits, temps, top_ks, seeds, steps))
+                          + (max_top_k,), tok.detach().cpu()))
+            return tok
+        engine_mod.sample_tokens = recording
+        try:
+            eng = Engine(model, packed, EngineConfig(**ecfg))
+            for r in reqs:
+                eng.submit(dataclasses.replace(r))
+            done = eng.run()
+        finally:
+            engine_mod.sample_tokens = real
+        check(len(done) == len(reqs) and all(r.ok for r in done),
+              f"sampled {name} engine: not every request completed")
+        n, differ, ties = hold_samples(torch, calls, name)
+        out[name] = dict(rows=n, differ=differ, near_ties=len(ties))
+    out["seconds"] = time.time() - t0
+    log(f"[sampling] {json.dumps(out)}")
+    return out
+
+
+@contextlib.contextmanager
+def nccl_group(torch, tag):
+    """A one-rank NCCL process group on card 0 (a ``FileStore`` rendezvous
+    in a temporary directory), destroyed on the way out. NCCL refuses two
+    ranks on one device, so one card holds one rank, and every collective
+    is the identity. No fallback: without NCCL, or if its init fails, the
+    run fails."""
+    import torch.distributed as dist
+    check(dist.is_available() and dist.is_nccl_available(),
+          f"{tag}: torch.distributed has no NCCL")
+    check(not dist.is_initialized(), f"{tag}: a process group is up")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(d, "store"), 1), rank=0, world_size=1)
+        try:
+            check(dist.get_backend() == "nccl", f"{tag}: backend "
+                                                f"{dist.get_backend()}")
+            probe = torch.ones(4, device="cuda")
+            dist.all_reduce(probe)
+            torch.cuda.synchronize()
+            check(float(probe.sum()) == 4.0, f"{tag}: all_reduce")
+            log(f"[{tag}] one-rank NCCL group (NCCL "
+                f"{'.'.join(map(str, torch.cuda.nccl.version()))}) up in "
+                f"{time.time() - t0:.2f}s")
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def _event_ms(torch, fn):
+    """(result, ms) of one call of ``fn`` between CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _saved_counts(ops):
+    return {k: getattr(ops, k).copy() for k in
+            ("LAUNCHES", "K4_CENSUS", "K4X_CENSUS", "K2_CENSUS", "K6_CENSUS")}
+
+
+def _restore_counts(ops, saved):
+    for k, v in saved.items():
+        held = getattr(ops, k)
+        held.clear()
+        if isinstance(held, dict):
+            held.update(v)
+        else:
+            held.extend(v)
+
+
+def check_a2a_moe(torch, dev, cfg, model, packed):
+    """``moe_apply_a2a`` on layer 0 of the MoE phase's packed model (128
+    experts of d_ff 1536 at d_model 4096, top-8) on a one-rank NCCL group,
+    4 × 128 tokens from the seed: its packed experts through K4x (one
+    launch for each of wg, wu and wd, counted as the ``distributed``
+    path) and its experts dequantized once (9.7 GB) as dense stacks, each
+    held to the masked dense path on the same weights within
+    ``A2A_BAR``. The capacity factor ``A2A_CAPACITY`` drops no token; the
+    count dropped is printed. Returns the launches and the numbers."""
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding import ShardingRules
+    acfg = dataclasses.replace(cfg, capacity_factor=A2A_CAPACITY)
+    p_packed = model.block_slice(packed, 0)["moe"]
+
+    def dense(qt):     # stacked (E, d_out, d_in) codes -> (E, d_in, d_out)
+        return torch.stack([qt.map(lambda t, e=e: t[e]).dequant()
+                            for e in range(qt.packed.shape[0])]
+                           ).transpose(1, 2).contiguous()
+    p_dense = dict(p_packed, **{k: dense(p_packed[k])
+                                for k in ("wg", "wu", "wd")})
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    x = torch.randn(A2A_TOKENS + (cfg.d_model,), generator=gen, device=dev)
+    saved = _saved_counts(ops)
+    out = {}
+    with nccl_group(torch, "moe a2a"):
+        rules = ShardingRules.for_mesh(
+            make_mesh((1, 1), ("data", "model"), device=dev))
+        for kind, p in (("dense", p_dense), ("packed", p_packed)):
+            # one untimed call of each first (NCCL's all-to-all
+            # communicator and cuBLAS's handles are made on first use)
+            moe.moe_apply_dense(p, x, acfg)
+            moe.moe_apply_a2a(p, x, acfg, rules)
+            ref, ref_ms = _event_ms(
+                torch, lambda: moe.moe_apply_dense(p, x, acfg))
+            ops.reset_launches()
+            y, ms = _event_ms(
+                torch, lambda: moe.moe_apply_a2a(p, x, acfg, rules))
+            launches = dict(ops.LAUNCHES)
+            err = float((y - ref).abs().max())
+            dropped = moe.a2a_dropped(p, x, acfg, rules)
+            log(f"[moe a2a {kind}] {A2A_TOKENS[0]} x {A2A_TOKENS[1]} tokens "
+                f"on a (1, 1) mesh: a2a {ms:.3f} ms, masked dense "
+                f"{ref_ms:.3f} ms, max |a2a - dense| {err:.3e}, "
+                f"{dropped} of {A2A_TOKENS[0] * A2A_TOKENS[1] * cfg.experts_per_token}"
+                f" assignments dropped (capacity factor {A2A_CAPACITY}); "
+                f"launches {launches}")
+            check(torch.isfinite(y).all(), f"moe a2a {kind}: not finite")
+            check(torch.allclose(y, ref, rtol=A2A_BAR, atol=A2A_BAR),
+                  f"moe a2a {kind}: {err:.3e} from the masked dense path")
+            check(dropped == 0, f"moe a2a {kind}: {dropped} dropped")
+            out[kind] = dict(a2a_ms=ms, dense_ms=ref_ms, max_abs_err=err,
+                             dropped=dropped)
+            if kind == "packed":
+                check(launches["dequant_matmul_experts"] == 3
+                      and sum(launches.values()) == 3,
+                      f"moe a2a packed: launches {launches}, expected K4x "
+                      f"three times")
+                dist_launches = launches
+            else:
+                check(not any(launches.values()),
+                      f"moe a2a dense launched {launches}")
+    _restore_counts(ops, saved)
+    del p_dense
+    torch.cuda.empty_cache()
+    return dist_launches, out
+
+
+def dist_awp(torch, dev, rules, card):
+    """Sharded AWP at llama32-1b's wd shape on the one-rank mesh: C from
+    seeded activations by ``calib_c_distributed`` (held to XᵀX/n), the
+    row-sharded loop (K1, K2) bit-equal to the compression path's own
+    unsharded loop (``core.awp.pgd`` with the prune projection, tol 0) on
+    the kernels, the column-sharded loop (K2, the partial product in
+    ``torch.matmul``, as the reference's is outside any kernel) bit-equal
+    to that loop through the plain versions, and the two unsharded loops
+    held to each other (mask agreement). Returns the sharded loops'
+    launches and the numbers."""
+    from repro_torch import kernels
+    from repro_torch.core import awp
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import ops
+    a = DIST_AWP
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    w = torch.randn((a["d_out"], a["d_in"]), generator=gen, device=dev)
+    acts = torch.randn((a["tokens"], a["d_in"]), generator=gen, device=dev)
+    c, c_ms = _event_ms(torch, lambda: D.calib_c_distributed(acts, rules))
+    c_ref = acts.T @ acts / a["tokens"]
+    c_err = float(((c - c_ref).abs().max() / c_ref.abs().max()))
+    log(f"[dist calib] C = XᵀX/n from {a['tokens']} x {a['d_in']} "
+        f"activations: {c_ms:.3f} ms, max relative difference to XᵀX/n "
+        f"{c_err:.3e}{' (the same bits)' if torch.equal(c, c_ref) else ''}")
+    check(c_err <= 1e-6, f"calib_c_distributed: {c_err:.3e} from XᵀX/n")
+    k, iters = a["d_in"] // 2, a["iters"]
+    eta = float(awp._eta(c, 2.0))
+    loop = awp.PGDConfig(max_iters=iters, tol=0.0, eta_scale=2.0)
+
+    def unsharded():
+        theta0 = kernels.impl("topk_row")(w, k)
+        return awp.pgd(w, c, awp.prune_projection(k), theta0, loop).theta
+    ops.reset_launches()
+    theta_u, u_ms = _event_ms(torch, unsharded)
+    ops.reset_launches()
+    theta_r, r_ms = _event_ms(
+        torch, lambda: D.awp_prune_rowsharded(w, c, k, eta, iters, rules))
+    row_launches = dict(ops.LAUNCHES)
+    with kernels.use_impl("reference"):
+        theta_p, p_ms = _event_ms(torch, unsharded)
+    ops.reset_launches()
+    col = D.awp_prune_colsharded_fn(k, eta, iters, rules)
+    theta_c, c_loop_ms = _event_ms(torch, lambda: col(w, c))
+    col_launches = dict(ops.LAUNCHES)
+    agree = float(((theta_u != 0) == (theta_p != 0)).float().mean())
+    log(f"[dist awp] ({a['d_out']}, {a['d_in']}), k {k}, {iters} iterations "
+        f"on a (1, 1) mesh: unsharded (K1, K2) {u_ms:.2f} ms, row-sharded "
+        f"{r_ms:.2f} ms (launches {row_launches}), unsharded plain "
+        f"{p_ms:.2f} ms, column-sharded {c_loop_ms:.2f} ms (launches "
+        f"{col_launches}); row-sharded == unsharded: "
+        f"{torch.equal(theta_r, theta_u)}, column-sharded == unsharded "
+        f"plain: {torch.equal(theta_c, theta_p)}; kernels against plain: "
+        f"{agree:.6f} of the mask equal; {card}")
+    check(torch.equal(theta_r, theta_u), "row-sharded AWP parts from the "
+                                         "unsharded loop at one rank")
+    check(torch.equal(theta_c, theta_p), "column-sharded AWP parts from the "
+                                         "unsharded plain loop at one rank")
+    check(agree >= AGREE_BAR, f"AWP kernels against plain: {agree:.6f} of "
+                              f"the mask equal")
+    check(row_launches["awp_pgd_step"] == iters
+          and row_launches["topk_row"] == iters + 1
+          and col_launches["topk_row"] == iters + 1
+          and col_launches["awp_pgd_step"] == 0,
+          f"sharded AWP launches: row {row_launches}, column {col_launches}")
+    launches = {n: row_launches[n] + col_launches[n] for n in row_launches}
+    return launches, dict(calib_ms=c_ms, calib_rel_err=c_err,
+                          unsharded_ms=u_ms, rowsharded_ms=r_ms,
+                          plain_ms=p_ms, colsharded_ms=c_loop_ms,
+                          mask_agree=agree)
+
+
+def dist_train(torch, dev, cfg, rules, card):
+    """llama32-1b at full width from the seed, ``DIST_STEPS`` steps each of
+    the plain train step, ``make_train_step_ddp`` with ``compress=None``
+    (bit-equal to the plain step at one rank), the plain step fed
+    gradients through ``int8_compress``/``int8_decompress`` and
+    ``make_train_step_ddp`` with ``"int8"`` (bit-equal to it), and the
+    DTensor-sharded step (``shard_train_state`` + ``sharded_step``, held
+    to the plain step within the reference's bars). Step times from CUDA
+    events. Returns the numbers."""
+    import argparse
+    import statistics
+    from repro_torch.data import DataConfig, ZipfMarkov
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+    from repro_torch.optim.grad_compress import int8_compress, int8_decompress
+    from repro_torch.optim.optimizers import make_optimizer, tree_map
+    from repro_torch.sharding import NamedSharding, distribute, full_tensor
+    from repro_torch.training.train_loop import (
+        compute_grads, init_train_state, make_train_step,
+        make_train_step_ddp, shard_train_state, sharded_step)
+    model = build_model(cfg, remat=True)
+    tcfg = train_cli.train_config(argparse.Namespace(
+        optimizer="adamw", lr=TRAIN["lr"], steps=TRAIN["steps"],
+        microbatches=1))
+    state0 = init_train_state(model, SEED, device=dev, tcfg=tcfg)
+    gen = ZipfMarkov(DataConfig(vocab_size=cfg.vocab_size,
+                                seq_len=TRAIN["seq"],
+                                global_batch=TRAIN["batch"]))
+    batches = [train_cli.device_batch(gen, i, dev) for i in range(DIST_STEPS)]
+
+    def run(step_fn, state, feed):
+        losses, ms = [], []
+        for b in feed:
+            (state, m), t = _event_ms(torch, lambda: step_fn(state, b))
+            losses.append(m["loss"])
+            ms.append(t)
+        return state, [float(full_tensor(v)) for v in losses], ms
+
+    _, opt_update = make_optimizer(tcfg.optimizer)
+
+    def int8_ref_step(state, batch):
+        loss, grads = compute_grads(model, tcfg, state["params"], batch)
+        grads = tree_map(lambda g: int8_decompress(*int8_compress(g)), grads)
+        params, opt, om = opt_update(grads, state["opt"], state["params"])
+        return ({"params": params, "opt": opt, "step": state["step"] + 1},
+                {"loss": loss, **om})
+
+    out, held = {}, {}
+    plain, _ = make_train_step(model, tcfg)
+    st, out["plain_loss"], out["plain_ms"] = run(plain, _tree_clone(state0),
+                                                 batches)
+    plain_params = st["params"]
+    del st
+    ddp, _ = make_train_step_ddp(model, tcfg, rules, compress=None)
+    st, out["ddp_loss"], out["ddp_ms"] = run(ddp, _tree_clone(state0),
+                                             batches)
+    held["ddp"] = hold_states(torch, plain_params, st["params"],
+                              "dist ddp against plain", 0.0)
+    check(out["ddp_loss"] == out["plain_loss"], "DDP losses part")
+    del st
+    st, out["int8_ref_loss"], _ = run(int8_ref_step, _tree_clone(state0),
+                                      batches)
+    ref_params = st["params"]
+    del st
+    ddp8, _ = make_train_step_ddp(model, tcfg, rules, compress="int8")
+    st, out["int8_loss"], out["int8_ms"] = run(ddp8, _tree_clone(state0),
+                                               batches)
+    held["int8"] = hold_states(torch, ref_params, st["params"],
+                               "dist ddp int8 against plain+int8", 0.0)
+    check(out["int8_loss"] == out["int8_ref_loss"], "DDP int8 losses part")
+    del st, ref_params
+    torch.cuda.empty_cache()
+    m_sh = build_model(cfg, rules, remat=True)
+    step_s, _ = make_train_step(m_sh, tcfg)
+    st = shard_train_state(_tree_clone(state0), m_sh, rules)
+    del state0
+    feed = [{k: distribute(v, NamedSharding(
+        rules.mesh, rules.spec(("batch", None), v.shape)))
+        for k, v in b.items()} for b in batches]
+    st, out["sharded_loss"], out["sharded_ms"] = run(sharded_step(step_s),
+                                                     st, feed)
+    worst = 0.0
+    for (key, a), (_, b) in zip(_paths(plain_params), _paths(st["params"])):
+        b = full_tensor(b)
+        check(torch.allclose(b, a, rtol=DIST_RTOL, atol=DIST_ATOL),
+              f"sharded step: {'/'.join(key)} outside the bars")
+        worst = max(worst, float((b - a).abs().max()))
+    loss_d = max(abs(x - y) for x, y in zip(out["sharded_loss"],
+                                            out["plain_loss"]))
+    check(loss_d < DIST_LOSS_BAR, f"sharded step loss {loss_d:.3e} off")
+    held["sharded"] = dict(max_abs_diff=worst, loss_diff=loss_d)
+    del st, plain_params
+    torch.cuda.empty_cache()
+    med = {k: statistics.median(out[f"{k}_ms"][1:]) for k in
+           ("plain", "ddp", "int8", "sharded")}
+    log(f"[dist train] {cfg.name} at full width, batch {TRAIN['batch']} x "
+        f"{TRAIN['seq']}, {DIST_STEPS} steps each on a (1, 1) mesh; median "
+        f"step (steps 2-{DIST_STEPS}) plain {med['plain']:.2f} ms, ddp "
+        f"{med['ddp']:.2f} ms, ddp int8 {med['int8']:.2f} ms, DTensor "
+        f"sharded {med['sharded']:.2f} ms (first step "
+        f"{out['sharded_ms'][0]:.2f} ms); losses plain {out['plain_loss']}, "
+        f"sharded {out['sharded_loss']}; ddp bit-equal "
+        f"{held['ddp']['same_bits']}, int8 bit-equal "
+        f"{held['int8']['same_bits']}, sharded max |diff| {worst:.3e}, loss "
+        f"{loss_d:.3e}; {card}")
+    return dict(out, median_ms=med, held=held)
+
+
+def phase_distributed(torch, dev, cfg, card):
+    """The multi-device slice on one card: one one-rank NCCL group, a
+    (1, 1) ("data", "model") mesh, sharded AWP and ``calib_c_distributed``
+    (:func:`dist_awp`) and the DDP and DTensor train steps
+    (:func:`dist_train`). After every timed host-bound run and the profile
+    phase, so NCCL's threads slow none of them; the group is destroyed at
+    the end. Returns the sharded AWP loops' launches and the numbers."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import ShardingRules
+    t0 = time.time()
+    with nccl_group(torch, "dist"):
+        rules = ShardingRules.for_mesh(
+            make_mesh((1, 1), ("data", "model"), device=dev))
+        launches, awp = dist_awp(torch, dev, rules, card)
+        torch.cuda.empty_cache()
+        train = dist_train(torch, dev, cfg, rules, card)
+    secs = time.time() - t0
+    log(f"[dist] phase {secs:.1f}s")
+    return launches, dict(seconds=secs, awp=awp, train=train)
+
+
 def phase_parity():
     """Both paths again in a second process with unsplit cuBLAS, where
     they must agree bit for bit (see the module docstring)."""
@@ -5287,7 +5798,14 @@ def main() -> None:
          "paged": (paged_tokens, paged["kernels"])})
     check_busy_floor({"slot": eng, "paged": paged}, k4_census, k6_census)
     ssm["profile"] = phase_ssm_profile(torch, dev, ssm_keep)
+    sampling = check_sampling(torch, dev, cfg, model, packed)
     del data, model, packed, report, ssm_keep
+    torch.cuda.empty_cache()
+    dist_launches, dist = phase_distributed(torch, dev, cfg, card)
+    a2a_launches = moe.pop("a2a_launches")
+    dist_launches = {n: dist_launches[n] + a2a_launches[n]
+                     for n in dist_launches}
+    check_path(dist_launches, DIST_PATH, "the distributed path")
     torch.cuda.empty_cache()
     phase_parity()
 
@@ -5302,7 +5820,8 @@ def main() -> None:
                    "methods": methods_launches[name],
                    "train_compress": train_launches[name],
                    "ssm": ssm_launches[name],
-                   "frontends": fe_launches[name]}
+                   "frontends": fe_launches[name],
+                   "distributed": dist_launches[name]}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -5324,6 +5843,8 @@ def main() -> None:
     log(f"[train families] summary: {json.dumps(train_families)}")
     log(f"[ssm] summary: {json.dumps(ssm)}")
     log(f"[frontends] summary: {json.dumps(fe)}")
+    log(f"[sampling] summary: {json.dumps(sampling)}")
+    log(f"[dist] summary: {json.dumps(dist)}")
     log(f"[done] {time.time() - t_start:.1f}s; card {card}")
     log(json.dumps({"kernels": out}))
     log(card)

@@ -17,6 +17,12 @@ stacked packed QTensor only when every slice of it is uniformly quantized
 and unmasked (:func:`_packable_groups`); other packed layers are
 materialized densely. Writes are atomic (``step_<N>.tmp`` then
 ``os.rename``); :class:`CheckpointManager` keeps the newest ``keep_n``.
+
+Sharded trees: a tree of DTensors is saved whole — every rank gathers each
+leaf, rank 0 writes — and a restore with ``shardings`` (a tree of
+:class:`repro_torch.sharding.NamedSharding`, or the target's own DTensor
+placements) reads each leaf whole and places it on the target mesh, which
+may differ from the one that saved it (elastic restart).
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import json
 import os
 import shutil
 import threading
+import types
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -33,6 +40,33 @@ import torch
 from repro_torch.core.compress import resolve_path, set_linear
 from repro_torch.device import resolve_device
 from repro_torch.quant import QTensor
+
+
+def _is_dtensor(t) -> bool:
+    return hasattr(t, "full_tensor") and hasattr(t, "placements")
+
+
+def _gathered(tree):
+    """``tree`` with every DTensor leaf gathered whole (a collective: every
+    rank calls it), and whether there was one."""
+    found = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if _is_dtensor(node):
+            found.append(True)
+            return node.full_tensor()
+        return node
+    out = walk(tree)
+    return out, bool(found)
+
+
+def _writes() -> bool:
+    """False on ranks other than 0 of an initialized process group."""
+    import torch.distributed as dist
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_rank() != 0)
 
 
 def _np(t) -> np.ndarray:
@@ -89,8 +123,18 @@ def _write_step_dir(directory: str, step: int, tree: Any, *,
 
 
 def save_checkpoint(directory: str, step: int, tree: Any) -> str:
-    """Atomic dense save; returns the final path."""
-    return _write_step_dir(directory, step, tree)
+    """Atomic dense save; returns the final path. A tree with DTensor
+    leaves is gathered on every rank and written by rank 0; the ranks meet
+    at a barrier after the write."""
+    tree, sharded = _gathered(tree)
+    if not sharded:
+        return _write_step_dir(directory, step, tree)
+    import torch.distributed as dist
+    path = os.path.join(directory, f"step_{step:08d}")
+    if _writes():
+        path = _write_step_dir(directory, step, tree)
+    dist.barrier()
+    return path
 
 
 def restore_checkpoint(path: str, target: Any,
@@ -101,16 +145,15 @@ def restore_checkpoint(path: str, target: Any,
     """Restore into the structure of ``target`` (nested dicts of tensors):
     every leaf comes back with the target leaf's dtype, on its device.
 
-    ``shardings`` places leaves on a device mesh in the reference; one
-    card has no mesh, so only None is taken. A packed checkpoint is
+    ``shardings`` (a tree of :class:`~repro_torch.sharding.NamedSharding`
+    mirroring ``target``; None leaves stay plain) places each leaf, read
+    whole, on its mesh as a DTensor; a DTensor target leaf without one
+    keeps its own mesh and placements. A packed checkpoint is
     refused (its dense arrays hold zeroed holes where the codes live):
     load it with :func:`load_packed_checkpoint`. ``_skip_keys`` (for the
     packed loader) names leaves whose stored arrays are not read; the
     target's own leaf stands in for the caller to replace; ``_device``
     places every leaf there instead of on its target leaf's device."""
-    if shardings is not None:
-        raise ValueError("restore_checkpoint: shardings need a device mesh; "
-                         "the port restores onto one device (pass None)")
     if not _allow_packed:
         man_path = os.path.join(path, "manifest.json")
         if os.path.exists(man_path):
@@ -130,8 +173,25 @@ def restore_checkpoint(path: str, target: Any,
         if key not in data:
             raise KeyError(f"checkpoint missing leaf {key}")
         arr = torch.from_numpy(data[key])
+        sh = None
+        if shardings is not None:
+            try:
+                sh = _leaf_at(shardings, key_path)
+            except (KeyError, TypeError):
+                raise ValueError(
+                    f"restore_checkpoint: shardings has no entry for leaf "
+                    f"{key}; give a NamedSharding (a mesh and a spec) or "
+                    f"None for every leaf of the target") from None
+        if sh is None and _is_dtensor(leaf):
+            sh = types.SimpleNamespace(mesh=leaf.device_mesh,
+                                       placements=list(leaf.placements))
         if isinstance(leaf, torch.Tensor):
-            arr = arr.to(device=_device or leaf.device, dtype=leaf.dtype)
+            arr = arr.to(dtype=leaf.dtype)
+            if sh is None:
+                arr = arr.to(device=_device or leaf.device)
+        if sh is not None:
+            from repro_torch.sharding import distribute
+            arr = distribute(arr, sh)
         _set_leaf(out, key_path, arr)
     return out
 
@@ -374,12 +434,18 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any):
         save_checkpoint(self.directory, step, tree)
-        self._rotate()
+        if _writes():
+            self._rotate()
 
     def save_async(self, step: int, tree: Any):
         """Non-blocking save: a host snapshot now, written on a worker
-        thread (one save in flight; an earlier one is waited for)."""
+        thread (one save in flight; an earlier one is waited for). A
+        sharded tree is gathered now on every rank and written by rank 0
+        alone."""
         self.wait()
+        tree, sharded = _gathered(tree)
+        if sharded and not _writes():
+            return
         host_tree = _host_copy(tree)
         self._thread = threading.Thread(
             target=lambda: (save_checkpoint(self.directory, step, host_tree),

@@ -39,6 +39,18 @@ def update(stats: CalibStats, acts: torch.Tensor) -> CalibStats:
                       abs_sum=stats.abs_sum + a.abs().sum(dim=0))
 
 
+def cross_replica(stats: CalibStats, mesh, axes) -> CalibStats:
+    """Sum the sufficient statistics across data-parallel mesh dim(s)
+    ``axes`` (a name or a tuple of names) of ``mesh``: one all-reduce of
+    every field a dim, in place. Call once after all local batches are
+    folded."""
+    import torch.distributed as dist
+    for ax in ((axes,) if isinstance(axes, str) else tuple(axes)):
+        for x in stats:
+            dist.all_reduce(x, group=mesh.get_group(ax))
+    return stats
+
+
 def covariance(stats: CalibStats, damp: float = 0.0) -> torch.Tensor:
     """C = (1/n) Σ xᵀx, damped by ``damp·mean(diag(C))·I`` when ``damp``.
     Broadcasts over leading batch dims: stacked stats give (B, d_in, d_in)."""
@@ -73,5 +85,5 @@ def slice_stats(stats: CalibStats, i) -> CalibStats:
     return CalibStats(*(x[i] for x in stats))
 
 
-__all__ = ["CalibStats", "init", "update", "covariance", "act_mean_abs",
+__all__ = ["CalibStats", "init", "update", "cross_replica", "covariance", "act_mean_abs",
            "col_l2", "stack_stats", "slice_stats"]

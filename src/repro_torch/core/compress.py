@@ -40,7 +40,36 @@ from repro_torch.device import to_device, to_host
 from repro_torch.obs import (ITER_BUCKETS, RESIDUAL_BUCKETS, MetricsRegistry,
                              default_registry, trace_window)
 
-PolicyLike = Union[Policy, CompressSpec]
+@dataclasses.dataclass
+class CompressionConfig:
+    """Legacy flat config — one method/ratio/bits for every linear.
+
+    Kept as a thin front-end: it converts to a single-rule :class:`Policy`
+    (``as_policy``). New code should build Policy/specs directly.
+    """
+    method: str = "awp_prune"
+    ratio: float = 0.5           # pruning ratio p (fraction zeroed)
+    bits: int = 4
+    group_size: int = 128
+    damp: float = 0.01           # covariance damping (MoE low-token guard)
+    skip: tuple = ()             # linear-name substrings to leave dense
+
+    def spec(self) -> CompressSpec:
+        cls = registry.spec_cls_for(self.method)
+        fields = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {k: getattr(self, k)
+                  for k in ("ratio", "bits", "group_size", "damp")
+                  if k in fields}
+        return cls(method=self.method, **kwargs)
+
+    def as_policy(self) -> Policy:
+        # alias_only: legacy skip substrings match the SHORT layer name only
+        # ("o" must hit "wo", not the "o" in "blocks.0.…")
+        return Policy([(f"*{s}*", None, True) for s in self.skip],
+                      default=self.spec())
+
+
+PolicyLike = Union[Policy, CompressSpec, CompressionConfig]
 
 
 def as_policy(policy: PolicyLike) -> Policy:
@@ -48,7 +77,20 @@ def as_policy(policy: PolicyLike) -> Policy:
         return policy
     if isinstance(policy, CompressSpec):
         return Policy(default=policy)
-    raise TypeError(f"expected Policy/CompressSpec, got {type(policy).__name__}")
+    if isinstance(policy, CompressionConfig):
+        return policy.as_policy()
+    raise TypeError(f"expected Policy/CompressSpec/CompressionConfig, "
+                    f"got {type(policy).__name__}")
+
+
+def compress_weight(w_paper: torch.Tensor, stats: calib.CalibStats,
+                    cfg: Union[CompressSpec, CompressionConfig]) -> torch.Tensor:
+    """Legacy single-weight entry point: dense compressed weight only."""
+    spec = cfg.spec() if isinstance(cfg, CompressionConfig) else cfg
+    if not isinstance(spec, CompressSpec):
+        raise TypeError(f"compress_weight takes one spec/config, "
+                        f"got {type(cfg).__name__}")
+    return compress_layer(w_paper, stats, spec).theta
 
 
 def compress_layer(w_paper: torch.Tensor, stats: calib.CalibStats,
@@ -487,6 +529,7 @@ def compress_model(model, params, calib_batches: List[dict],
     return params, report
 
 
-__all__ = ["CompressionReport", "LayerArtifact", "LayerReport", "as_policy",
-           "compress_layer", "compress_model", "get_linear", "resolve_path",
+__all__ = ["CompressionConfig", "CompressionReport", "LayerArtifact",
+           "LayerReport", "as_policy", "compress_layer", "compress_model",
+           "compress_weight", "get_linear", "resolve_path",
            "set_linear"]

@@ -35,25 +35,23 @@ from repro_torch.checkpoint import (CheckpointManager, save_checkpoint,
                                     save_packed_checkpoint)
 from repro_torch.configs import get_config, get_tiny_config, list_archs
 from repro_torch.core import metrics, registry
-from repro_torch.core.compress import compress_model
+from repro_torch.core.compress import CompressionConfig, compress_model
 from repro_torch.core.specs import Policy
 from repro_torch.data import DataConfig, ZipfMarkov, calibration_batches
 from repro_torch.models import build_model
 from repro_torch.obs import MetricsRegistry
 
 
-def build_policy(args) -> Policy:
+def build_policy(args) -> "Policy | CompressionConfig":
     if args.policy:
         text = args.policy
         if text.startswith("@"):
             with open(text[1:]) as f:
                 text = f.read()
         return Policy.from_dict(json.loads(text))
-    cls = registry.spec_cls_for(args.method)
-    fields = {f for f in ("ratio", "bits", "group_size")
-              if hasattr(cls, f)}
-    return Policy(default=cls(method=args.method,
-                              **{f: getattr(args, f) for f in fields}))
+    return CompressionConfig(method=args.method, ratio=args.ratio,
+                             bits=args.bits, group_size=args.group_size,
+                             skip=tuple(args.skip))
 
 
 def perplexity(model, params, batches) -> float:
@@ -73,6 +71,8 @@ def main(argv=None):
     ap.add_argument("--ratio", type=float, default=0.5)
     ap.add_argument("--bits", type=int, default=4)
     ap.add_argument("--group-size", type=int, default=128)
+    ap.add_argument("--skip", nargs="*", default=(),
+                    help="layer-name patterns to leave dense")
     ap.add_argument("--policy", default="",
                     help="per-layer policy as JSON (or @file.json); "
                          "overrides --method/--ratio/--bits")

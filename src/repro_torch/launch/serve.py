@@ -36,8 +36,9 @@ packed QTensor checkpoint (written by
 ``repro.launch.compress --save-packed``; the format is shared). Quantized
 leaves stay packed ``QTensor`` leaves of the params, and every packed
 linear reads its codes through the fused dequant-matmul kernel K4 on the
-card. Token selection happens right after each step, so only the chosen
-tokens leave the device.
+card (``--materialize`` restores the legacy path: quantized layers are
+expanded to dense floats at load). Token selection happens right after
+each step, so only the chosen tokens leave the device.
 """
 from __future__ import annotations
 
@@ -297,15 +298,17 @@ def _load_params(args, model):
             params = restored["params"]
             print(f"[serve] loaded checkpoint step {step}")
         return params
-    params, qts, manifest = mgr.restore_latest_packed(params,
-                                                      device=args.device)
+    params, qts, manifest = mgr.restore_latest_packed(
+        params, materialize=args.materialize, device=args.device)
     if params is None:
         raise SystemExit(f"[serve] no checkpoint under {args.ckpt}")
     packed_b = sum(qt.nbytes() for qt in qts.values())
     dense_b = sum(int(np.prod(qt.shape)) * 4 for qt in qts.values())
     print(f"[serve] loaded packed checkpoint step {manifest['step']}: "
           f"{len(qts)} QTensor layers, {dense_b / 1e6:.1f}MB dense -> "
-          f"{packed_b / 1e6:.1f}MB packed")
+          f"{packed_b / 1e6:.1f}MB packed"
+          + (" (materialized dense — legacy path)" if args.materialize
+             else ""))
     return params
 
 
@@ -339,6 +342,9 @@ def main(argv=None):
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--packed", action="store_true",
                     help="--ckpt is a packed QTensor checkpoint")
+    ap.add_argument("--materialize", action="store_true",
+                    help="with --packed: expand quantized layers to dense "
+                         "floats (legacy path) instead of serving packed")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random init (and of the load target)")
     ap.add_argument("--device", default="cuda")

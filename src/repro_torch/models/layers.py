@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.quant import QTensor
+from repro_torch.sharding import NO_RULES, ShardingRules, hint
 from repro_torch.serving.kv_cache import (QuantizedKV, fused_decode_attn,
                                           kv_dequantize, kv_quantize,
                                           kv_update, paged_view)
@@ -374,7 +375,8 @@ def _write_dense(cache: torch.Tensor, new: torch.Tensor, cache_pos,
         cache[:, pos:pos + s] = new.to(cache.dtype)
 
 
-def attn_apply(p, x, cfg, *, positions=None, capture=None, kv_cache=None,
+def attn_apply(p, x, cfg, rules: ShardingRules = NO_RULES, *,
+               positions=None, capture=None, kv_cache=None,
                cache_pos=0, attend_cache: bool = False, block_table=None,
                fused_decode: bool = False, attn_chunk: int = 1024):
     """Pre-norm attention block (residual added by the caller).
@@ -424,6 +426,8 @@ def attn_apply(p, x, cfg, *, positions=None, capture=None, kv_cache=None,
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    q = hint(q, rules, ("batch", None, "tp", None))
+    k = hint(k, rules, ("batch", None, None, None))
 
     if kv_cache is None:
         out = flash_attention(q, k, v, causal=True, q_chunk=attn_chunk,
@@ -487,13 +491,14 @@ def attn_apply(p, x, cfg, *, positions=None, capture=None, kv_cache=None,
             out = decode_attention(q, k_r, v_r, positions)
         new_kv = (k_cache, v_cache)
 
+    out = hint(out, rules, ("batch", None, "tp", None))
     out = out.reshape(b, s, h * hd)
     if capture is not None:
         capture["attn_out_in"] = out
     return linear_apply(p["wo"], out).to(x.dtype), new_kv
 
 
-def mlp_apply(p, x, cfg, *, capture=None):
+def mlp_apply(p, x, cfg, rules: ShardingRules = NO_RULES, *, capture=None):
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)
     if capture is not None:
         capture["mlp_in"] = xn
@@ -501,6 +506,7 @@ def mlp_apply(p, x, cfg, *, capture=None):
         hdn = mlp_act(linear_apply(p["wg"], xn), "silu") * linear_apply(p["wu"], xn)
     else:
         hdn = mlp_act(linear_apply(p["wu"], xn), cfg.mlp_act)
+    hdn = hint(hdn, rules, ("batch", None, "tp"))
     if capture is not None:
         capture["mlp_down_in"] = hdn
     return linear_apply(p["wd"], hdn).to(x.dtype)

@@ -27,6 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import NO_RULES, ShardingRules, hint
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -76,6 +77,19 @@ def mamba_params(gen, cfg: ModelConfig, *, lead=(), dtype=torch.float32,
         "D": torch.ones(lead + (di,), dtype=dtype, device=device),
         "out_proj": L.dense_init(gen, di, d, **kw),
     }
+
+
+def mamba_logical_axes(cfg: ModelConfig):
+    return {"norm": (None, None),
+            "in_proj": (None, "fsdp", "tp"),
+            "conv_w": (None, None, "tp"),
+            "conv_b": (None, "tp"),
+            "x_proj": (None, "tp", None),
+            "dt_proj": (None, None, "tp"),
+            "dt_bias": (None, "tp"),
+            "A_log": (None, "tp", None),
+            "D": (None, "tp"),
+            "out_proj": (None, "tp", "fsdp")}
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -157,7 +171,8 @@ def _mamba_scan_y(p, xc: torch.Tensor, cfg: ModelConfig, h0: torch.Tensor,
     return torch.cat(ys, 1)[:, :l], h
 
 
-def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig, *, capture=None,
+def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig,
+                rules: ShardingRules = NO_RULES, *, capture=None,
                 state=None, chunk: int = 256):
     """Full-sequence Mamba-1 block (residual added by the caller).
 
@@ -170,6 +185,7 @@ def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig, *, capture=None,
         capture["mamba_in"] = xn
     xz = L.linear_apply(p["in_proj"], xn)
     xs, z = torch.chunk(xz, 2, dim=-1)                # (B, L, di) each
+    xs = hint(xs, rules, ("batch", None, "tp"))
     if state is not None:
         hist = torch.cat([state["conv"].to(xs.dtype), xs], dim=1)
         new_conv = hist[:, -(cfg.ssm_conv - 1):]
@@ -211,13 +227,28 @@ class MambaModel(T.DenseModel):
 
     FAMILY = "ssm"
     scan_chunk = 256
+    # carry sharded on d_model, not the sequence: the selective scan's
+    # time axis stays local, channels are elementwise
+    CARRY_AXES = ("batch", None, "tp")
 
     def _block_params(self, gen, lead, dtype, dev):
         return mamba_params(gen, self.cfg, lead=lead, dtype=dtype, device=dev)
 
+    def param_logical_axes(self):
+        ax = {"embed": (None, "tp"), "final_norm": (None,),
+              "blocks": mamba_logical_axes(self.cfg)}
+        if not self.cfg.tie_embeddings:
+            ax["lm_head"] = ("fsdp", "tp")
+        return ax
+
+    def cache_logical_axes(self):
+        return {"conv": (None, "batch", None, "tp"),
+                "ssm": (None, "batch", "tp", None),
+                "pos": ()}
+
     def _block(self, p, x, *, capture=None, state=None, **_):
-        y, st = mamba_apply(p, x, self.cfg, capture=capture, state=state,
-                            chunk=self.scan_chunk)
+        y, st = mamba_apply(p, x, self.cfg, self.rules, capture=capture,
+                            state=state, chunk=self.scan_chunk)
         return x + y, st
 
     # -- serving: recurrent state cache -------------------------------------
@@ -228,11 +259,12 @@ class MambaModel(T.DenseModel):
         state does not grow)."""
         cfg = self.cfg
         dev = resolve_device(device)
-        return {"conv": torch.zeros((cfg.num_layers, batch, cfg.ssm_conv - 1,
-                                     cfg.d_inner), dtype=dtype, device=dev),
-                "ssm": torch.zeros((cfg.num_layers, batch, cfg.d_inner,
-                                    cfg.ssm_state), dtype=torch.float32,
-                                   device=dev),
+        conv = torch.zeros((cfg.num_layers, batch, cfg.ssm_conv - 1,
+                            cfg.d_inner), dtype=dtype, device=dev)
+        ssm = torch.zeros((cfg.num_layers, batch, cfg.d_inner,
+                           cfg.ssm_state), dtype=torch.float32, device=dev)
+        return {"conv": hint(conv, self.rules, (None, "batch", None, "tp")),
+                "ssm": hint(ssm, self.rules, (None, "batch", "tp", None)),
                 "pos": 0}
 
     def _cached_pass(self, params, h, cache, positions, *,
@@ -250,5 +282,5 @@ class MambaModel(T.DenseModel):
                 ("out_proj", ("blocks", "out_proj"), "mamba_out_in")]
 
 
-__all__ = ["MambaModel", "cached_block", "mamba_apply", "mamba_params",
-           "softplus"]
+__all__ = ["MambaModel", "cached_block", "mamba_apply", "mamba_logical_axes",
+           "mamba_params", "softplus"]

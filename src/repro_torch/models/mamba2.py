@@ -27,6 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import NO_RULES, ShardingRules, hint
 from repro_torch.models.mamba import (_causal_conv, cached_block, conv_init,
                                       dt_bias_init, softplus)
 
@@ -113,7 +114,17 @@ def _ssd_chunked(xh, dtv, a_log, bc, cc, h0, chunk: int):
     return y[:, :l], h
 
 
-def mamba2_apply(p, x: torch.Tensor, cfg: ModelConfig, *, capture=None,
+def mamba2_logical_axes(cfg: ModelConfig):
+    return {"norm": (None, None), "wz": (None, "fsdp", "tp"),
+            "wx": (None, "fsdp", "tp"), "wbc": (None, "fsdp", None),
+            "wdt": (None, "fsdp", None), "dt_bias": (None, None),
+            "conv_w": (None, None, "tp"), "conv_b": (None, "tp"),
+            "A_log": (None, None), "D": (None, None),
+            "out_norm": (None, "tp"), "out_proj": (None, "tp", "fsdp")}
+
+
+def mamba2_apply(p, x: torch.Tensor, cfg: ModelConfig,
+                 rules: ShardingRules = NO_RULES, *, capture=None,
                  state=None, chunk: int = 128):
     """Full-sequence Mamba-2 block (residual added by the caller), with the
     gated RMSNorm before ``out_proj``. ``state`` as in
@@ -129,6 +140,7 @@ def mamba2_apply(p, x: torch.Tensor, cfg: ModelConfig, *, capture=None,
         capture["mamba2_in"] = xn
     z = L.linear_apply(p["wz"], xn)
     xs = L.linear_apply(p["wx"], xn)
+    xs = hint(xs, rules, ("batch", None, "tp"))
     bc_all = xn @ p["wbc"]
     bcv, ccv = bc_all[..., :n], bc_all[..., n:]
     dtv = softplus(xn @ p["wdt"] + p["dt_bias"])       # (B,L,nh)
@@ -166,6 +178,7 @@ class Zamba2Model(T.DenseModel):
 
     FAMILY = "hybrid"
     scan_chunk = 128
+    CARRY_AXES = ("batch", None, "tp")   # d_model-sharded; seq stays local
 
     def init(self, seed: int = 0, *, device="cuda", dtype=torch.float32):
         """The dense model's init over Mamba-2 blocks, plus the shared
@@ -178,13 +191,32 @@ class Zamba2Model(T.DenseModel):
                             "mlp": L.mlp_params(gen, self.cfg, **kw)}
         return params
 
+    def param_logical_axes(self):
+        dense_ax = T.DenseModel.param_logical_axes(self)
+        shared = {k: v[1:] for k, v in
+                  dense_ax["blocks"]["attn"].items()}   # unstacked
+        shared_mlp = {k: v[1:] for k, v in dense_ax["blocks"]["mlp"].items()}
+        ax = {"embed": (None, "tp"), "final_norm": (None,),
+              "blocks": mamba2_logical_axes(self.cfg),
+              "shared": {"attn": shared, "mlp": shared_mlp}}
+        if not self.cfg.tie_embeddings:
+            ax["lm_head"] = ("fsdp", "tp")
+        return ax
+
+    def cache_logical_axes(self):
+        return {"conv": (None, "batch", None, "tp"),
+                "ssm": (None, "batch", None, None, None),
+                "k": (None, "batch", "seq_kv", None, None),
+                "v": (None, "batch", "seq_kv", None, None),
+                "pos": ()}
+
     def _block_params(self, gen, lead, dtype, dev):
         return mamba2_params(gen, self.cfg, lead=lead, dtype=dtype,
                              device=dev)
 
     def _block(self, p, x, *, capture=None, state=None, **_):
-        y, st = mamba2_apply(p, x, self.cfg, capture=capture, state=state,
-                             chunk=self.scan_chunk)
+        y, st = mamba2_apply(p, x, self.cfg, self.rules, capture=capture,
+                             state=state, chunk=self.scan_chunk)
         return x + y, st
 
     def _groups(self):
@@ -207,8 +239,9 @@ class Zamba2Model(T.DenseModel):
             if graph else None
         for lo, hi in self._groups():
             h, _ = T.block_apply(params["shared"], h, self.cfg,
-                                 positions=positions,
+                                 rules=self.rules, positions=positions,
                                  attn_chunk=self.attn_chunk)
+            h = hint(h, self.rules, self.CARRY_AXES)
             for i in range(lo, hi):
                 bp = blocks[i] if graph else self.block_slice(params, i)
                 if remat:
@@ -231,14 +264,14 @@ class Zamba2Model(T.DenseModel):
         nh = cfg.d_inner // cfg.ssm_head_dim
         kv = (len(self._groups()), batch, max_len, cfg.num_kv_heads,
               cfg.resolved_head_dim)
+        k = hint(torch.zeros(kv, dtype=dtype, device=dev), self.rules,
+                 (None, "batch", "seq_kv", None, None))
         return {"conv": torch.zeros((cfg.num_layers, batch, cfg.ssm_conv - 1,
                                      cfg.d_inner), dtype=dtype, device=dev),
                 "ssm": torch.zeros((cfg.num_layers, batch, nh,
                                     cfg.ssm_head_dim, cfg.ssm_state),
                                    dtype=torch.float32, device=dev),
-                "k": torch.zeros(kv, dtype=dtype, device=dev),
-                "v": torch.zeros(kv, dtype=dtype, device=dev),
-                "pos": 0}
+                "k": k, "v": torch.zeros_like(k), "pos": 0}
 
     def _cached_pass(self, params, h, cache, positions, *,
                      attend_cache: bool = False):
@@ -276,4 +309,5 @@ class Zamba2Model(T.DenseModel):
                 for name, path, key in super().block_linears(i)]
 
 
-__all__ = ["Zamba2Model", "mamba2_apply", "mamba2_params"]
+__all__ = ["Zamba2Model", "mamba2_apply", "mamba2_logical_axes",
+           "mamba2_params"]

@@ -13,6 +13,7 @@ from repro_torch.models.mamba import MambaModel
 from repro_torch.models.mamba2 import Zamba2Model
 from repro_torch.models.moe import MoEModel
 from repro_torch.models.transformer import DenseModel
+from repro_torch.sharding import NO_RULES, ShardingRules
 
 _FAMILY = {"dense": DenseModel, "audio": DenseModel, "vlm": DenseModel,
            "moe": MoEModel, "ssm": MambaModel, "hybrid": Zamba2Model}
@@ -23,13 +24,16 @@ TOKEN_DTYPE = torch.int64
 EMBED_DTYPE = torch.bfloat16
 
 
-def build_model(cfg: ModelConfig, remat: bool = True):
-    """The model of ``cfg``'s family; ``remat`` recomputes each block in
-    backward (the reference's ``build_model(cfg, remat=...)``)."""
+def build_model(cfg: ModelConfig, rules: ShardingRules = NO_RULES,
+                remat: bool = True):
+    """The model of ``cfg``'s family; ``rules`` places its logical-axis
+    hints on a mesh (no-ops with ``NO_RULES``); ``remat`` recomputes each
+    block in backward (the reference's ``build_model(cfg, rules,
+    remat=...)``)."""
     if cfg.family not in _FAMILY:
         raise ValueError(f"family {cfg.family!r} is not ported; ported: "
                          f"{', '.join(_FAMILY)}")
-    return _FAMILY[cfg.family](cfg, remat=remat)
+    return _FAMILY[cfg.family](cfg, remat=remat, rules=rules)
 
 
 def batch_specs(cfg: ModelConfig, batch: int,

@@ -36,6 +36,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.quant import QTensor
 from repro_torch.serving.kv_cache import QuantizedKV
+from repro_torch.sharding import NO_RULES, ShardingRules, hint
 
 Params = Dict[str, Any]
 
@@ -55,17 +56,18 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def block_apply(p, x, cfg, *, positions=None, capture=None, kv_cache=None,
+def block_apply(p, x, cfg, rules: ShardingRules = NO_RULES, *,
+                positions=None, capture=None, kv_cache=None,
                 cache_pos=0, attend_cache: bool = False, block_table=None,
                 fused_decode: bool = False, attn_chunk: int = 1024):
-    a, new_kv = L.attn_apply(p["attn"], x, cfg, positions=positions,
+    a, new_kv = L.attn_apply(p["attn"], x, cfg, rules, positions=positions,
                              capture=capture, kv_cache=kv_cache,
                              cache_pos=cache_pos, attend_cache=attend_cache,
                              block_table=block_table,
                              fused_decode=fused_decode,
                              attn_chunk=attn_chunk)
     x = x + a
-    x = x + L.mlp_apply(p["mlp"], x, cfg, capture=capture)
+    x = x + L.mlp_apply(p["mlp"], x, cfg, rules, capture=capture)
     return x, new_kv
 
 
@@ -112,14 +114,21 @@ class DenseModel(nn.Module):
     reference, and the serving engine sets it per
     ``EngineConfig.use_fused_decode``. ``remat`` recomputes each block in
     backward (the reference's ``DenseModel.remat``); it only acts when a
-    graph is built.
+    graph is built. ``rules`` (:mod:`repro_torch.sharding`) places the
+    reference's logical-axis constraints on the activations: with
+    ``NO_RULES`` or plain tensors they are no-ops; with DTensor params on
+    a mesh each :func:`~repro_torch.sharding.hint` redistributes.
     """
 
     FAMILY = "dense"
     LOGIT_CHUNK = 512
+    # the block carry's logical axes (the reference's sequence-parallel
+    # carry; the SSM families keep the sequence local and shard channels)
+    CARRY_AXES = ("batch", "tp", None)
 
     def __init__(self, cfg: ModelConfig, *, attn_chunk: int = 1024,
-                 use_fused_decode: bool = False, remat: bool = True):
+                 use_fused_decode: bool = False, remat: bool = True,
+                 rules: ShardingRules = NO_RULES):
         super().__init__()
         plain = cfg.family == self.FAMILY and cfg.frontend is None
         stub = (self.FAMILY == "dense" and cfg.frontend is not None
@@ -135,6 +144,7 @@ class DenseModel(nn.Module):
         self.attn_chunk = attn_chunk
         self.use_fused_decode = use_fused_decode
         self.remat = remat
+        self.rules = rules
 
     # -- params ------------------------------------------------------------
     def init(self, seed: int = 0, *, device="cuda",
@@ -164,7 +174,36 @@ class DenseModel(nn.Module):
 
     def _block(self, p, x, **kw):
         """One block of this family (:func:`block_apply` here)."""
-        return block_apply(p, x, self.cfg, **kw)
+        return block_apply(p, x, self.cfg, self.rules, **kw)
+
+    def param_logical_axes(self):
+        """Logical axis names per param (stacked blocks lead with
+        layer=None), the reference's."""
+        cfg = self.cfg
+        ax = {
+            "embed": (None, "tp"),          # vocab replicated, d_model TP
+            "final_norm": (None,),
+            "blocks": {
+                "attn": {"wq": (None, "fsdp", "tp"),
+                         "wk": (None, "fsdp", "tp"),
+                         "wv": (None, "fsdp", "tp"),
+                         "wo": (None, "tp", "fsdp"),
+                         "norm": (None, None)},
+                "mlp": {"wu": (None, "fsdp", "tp"),
+                        "wd": (None, "tp", "fsdp"),
+                        "norm": (None, None)},
+            },
+        }
+        if cfg.mlp_act == "silu":
+            ax["blocks"]["mlp"]["wg"] = (None, "fsdp", "tp")
+        if not cfg.tie_embeddings:
+            ax["lm_head"] = ("fsdp", "tp")  # vocab TP for chunked loss
+        return ax
+
+    def cache_logical_axes(self):
+        return {"k": (None, "batch", "seq_kv", None, None),
+                "v": (None, "batch", "seq_kv", None, None),
+                "pos": ()}
 
     # -- forward -----------------------------------------------------------
     def embed(self, params: Params, batch: Dict[str, torch.Tensor]):
@@ -177,7 +216,7 @@ class DenseModel(nn.Module):
         h = params["embed"][batch["tokens"].to(torch.int64)]
         if frontend == "vision_patches":
             h = torch.cat([self._frontend_input(batch).to(h.dtype), h], dim=1)
-        return h
+        return hint(h, self.rules, ("batch", None, None))
 
     def _frontend_input(self, batch) -> torch.Tensor:
         key = FRONTEND_KEYS[self.cfg.frontend]
@@ -206,7 +245,8 @@ class DenseModel(nn.Module):
         return self._mask_pad(L.linear_apply(self._head_w(params), h))
 
     def _block_out(self, p, h):
-        return self._block(p, h, attn_chunk=self.attn_chunk)[0]
+        return hint(self._block(p, h, attn_chunk=self.attn_chunk)[0],
+                    self.rules, self.CARRY_AXES)
 
     def hidden_states(self, params, batch) -> torch.Tensor:
         h = self.embed(params, batch)
@@ -238,7 +278,7 @@ class DenseModel(nn.Module):
             h = h[:, self.cfg.num_patches:, :]     # the text positions only
         nll, cnt = chunked_xent(h, self._head_w(params), batch["labels"],
                                 chunk=self.LOGIT_CHUNK,
-                                vocab=self.cfg.vocab_size)
+                                vocab=self.cfg.vocab_size, rules=self.rules)
         return (nll / torch.clamp(cnt.to(torch.float32), min=1.0),
                 {"sum_nll": nll, "tokens": cnt})
 
@@ -249,9 +289,9 @@ class DenseModel(nn.Module):
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
                  cfg.resolved_head_dim)
         dev = resolve_device(device)
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev),
-                "pos": 0}
+        k = hint(torch.zeros(shape, dtype=dtype, device=dev), self.rules,
+                 (None, "batch", "seq_kv", None, None))
+        return {"k": k, "v": torch.zeros_like(k), "pos": 0}
 
     def _cached_pass(self, params, h, cache, positions, *,
                      attend_cache: bool = False):
@@ -359,14 +399,16 @@ class DenseModel(nn.Module):
 
 
 def chunked_xent(h: torch.Tensor, w_head, labels: torch.Tensor, *,
-                 chunk: int = 512, vocab: int = 0):
+                 chunk: int = 512, vocab: int = 0,
+                 rules: ShardingRules = NO_RULES):
     """(Σ NLL, token count) over (B, S) without building (B, S, V) logits,
     in the reference's order: the sequence in chunks of ``chunk``, each
     chunk's NLL summed and added to an f32 running sum. ``labels == -1``
     are padding and ignored; with ``vocab`` the padded head columns get
     −1e30 inside the logsumexp. The head goes through
     :func:`~repro_torch.models.layers.linear_apply` (K4 for a packed head);
-    the gold logit is an iota-compare sum, as in the reference."""
+    the gold logit is an iota-compare sum, as in the reference. Each
+    chunk's logits are vocab-sharded over the TP axis (``rules``)."""
     b, s, _ = h.shape
     chunk = min(chunk, s)
     pad = (-s) % chunk
@@ -385,19 +427,20 @@ def chunked_xent(h: torch.Tensor, w_head, labels: torch.Tensor, *,
         lx = labels[:, i:i + chunk].to(torch.int64)
         hx = h[:, i:i + chunk]
         if remat:
-            nll, cnt = checkpoint(_xent_chunk, hx, w32, lx, vocab,
+            nll, cnt = checkpoint(_xent_chunk, hx, w32, lx, vocab, rules,
                                   use_reentrant=False,
                                   preserve_rng_state=False)
         else:
-            nll, cnt = _xent_chunk(hx, w32, lx, vocab)
+            nll, cnt = _xent_chunk(hx, w32, lx, vocab, rules)
         nll_acc = nll_acc + nll
         cnt_acc = cnt_acc + cnt
     return nll_acc, cnt_acc
 
 
-def _xent_chunk(hx, w32, lx, vocab: int):
+def _xent_chunk(hx, w32, lx, vocab: int, rules: ShardingRules = NO_RULES):
     """One chunk's (Σ NLL, valid count)."""
-    logits = L.linear_apply(w32, hx.to(torch.float32))
+    logits = hint(L.linear_apply(w32, hx.to(torch.float32)), rules,
+                  ("batch", None, "tp"))
     iota = torch.arange(logits.shape[-1], device=logits.device)
     if vocab and logits.shape[-1] != vocab:
         logits = logits.masked_fill(iota >= vocab, -1e30)

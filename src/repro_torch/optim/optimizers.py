@@ -121,8 +121,8 @@ def _write_back(p: torch.Tensor, p32: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def adamw_init(params):
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
+    zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
     step = torch.zeros((), dtype=torch.int32,
                        device=next(tree_leaves(params)).device)
     return {"m": zeros, "v": tree_map(torch.clone, zeros), "step": step}

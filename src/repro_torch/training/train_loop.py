@@ -14,16 +14,22 @@ counter: the reference's CLI donates its state to the jitted step, so
 nothing keeps the old one, and one copy of the state is held instead of
 two. A caller that needs the state before a step clones it.
 
-The data-parallel step with compressed gradient all-reduce
-(``make_train_step_ddp``) comes with the multi-device slice.
+:func:`make_train_step_ddp` is the explicit data-parallel step: params
+and optimizer state replicated, each rank its slice of the batch, the
+gradients synced by a mean all-reduce or the int8-compressed
+``grad_compress.int8_psum``. The sharded (pjit-counterpart) step is
+:func:`make_train_step` itself on DTensor params and batch
+(``repro_torch.sharding``); the model's ``hint`` calls and the DTensor ops
+carry the partitioning.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.optim import grad_compress
 from repro_torch.optim.optimizers import (OptimizerConfig, make_optimizer,
                                           tree_map)
 
@@ -66,10 +72,19 @@ def loss_and_grads(model, params, batch):
     with torch.enable_grad():
         loss, metrics = model.loss(leaves, batch)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    it = iter(torch.zeros_like(p) if g is None else g
+    it = iter(torch.zeros_like(p) if g is None else _like_param(g, p)
               for p, g in zip(flat, grads))
     return (loss.detach(), tree_map(lambda _: next(it), leaves),
             {k: v.detach() for k, v in metrics.items()})
+
+
+def _like_param(g, p):
+    """A DTensor gradient in its param's placements (autograd may give it
+    another, e.g. a pending sum), so the optimizer's in-place update
+    sees one layout; a plain tensor as it is."""
+    if hasattr(g, "placements") and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def split_microbatches(batch, n: int) -> list:
@@ -101,8 +116,7 @@ def compute_grads(model, tcfg: TrainConfig, params, batch):
         return loss, grads
     acc_t = tcfg.accum_dtype
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_t,
-                                          device=p.device), params)
+    gacc = tree_map(lambda p: torch.zeros_like(p, dtype=acc_t), params)
     flat, hooks = [], []
 
     def hook_into(acc):
@@ -160,5 +174,88 @@ def make_train_step(model, tcfg: TrainConfig):
     return train_step, opt_init
 
 
+def shard_train_state(state, model, rules, opt_name: str = "adamw"):
+    """A train state of plain tensors (every rank holds it whole) as
+    DTensors on ``rules.mesh``: params placed by the model's
+    ``param_logical_axes``, optimizer state by ``opt_logical_axes``, the
+    step counters replicated (the reference's ``tree_shardings`` +
+    ``device_put``)."""
+    from repro_torch.sharding import (distribute_tree, opt_logical_axes,
+                                      tree_shardings)
+    axes = model.param_logical_axes()
+    params = state["params"]
+    p_sh = tree_shardings(rules, axes, params)
+    o_sh = tree_shardings(rules, opt_logical_axes(opt_name, axes, params),
+                          state["opt"])
+    return {"params": distribute_tree(params, p_sh),
+            "opt": distribute_tree(state["opt"], o_sh),
+            "step": distribute_tree(state["step"],
+                                    tree_shardings(rules, (),
+                                                   state["step"]))}
+
+
+def sharded_step(step_fn):
+    """``step_fn`` (a :func:`make_train_step` step) for DTensor states:
+    the plain tensors the step makes itself (the optimizer's scalars, the
+    loss's accumulators) count as replicated."""
+    def run(state, batch):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        with implicit_replication():
+            return step_fn(state, batch)
+    return run
+
+
+def make_train_step_ddp(model, tcfg: TrainConfig, rules, *,
+                        compress: Optional[str] = None):
+    """Explicit data-parallel train step (the reference's shard_map
+    variant): params and optimizer state replicated on every rank of the
+    batch axes, each rank takes its slice of the global batch (dim 0, in
+    rank order), and the gradients are synced with a mean all-reduce
+    (``compress=None``) or ``int8_psum`` (``"int8"``); the loss too (a
+    mean). Then every rank runs the same optimizer update. Returns
+    ``(train_step, opt_init)``; metrics ``{"loss", "grad_norm"}`` as the
+    reference's. Any other ``compress`` raises ``ValueError``."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import axes_group, full_tensor, mesh_coord
+    if compress not in (None, "int8"):
+        raise ValueError(f"compress={compress!r}: the data-parallel step "
+                         f"syncs gradients with None (mean) or 'int8'")
+    assert rules.mesh is not None
+    mesh, dp = rules.mesh, tuple(rules.batch_axes)
+    opt_init, opt_update = make_optimizer(tcfg.optimizer)
+
+    def step_fn(state, batch):
+        group = axes_group(mesh, dp)
+        n = dist.get_world_size(group)
+        i = mesh_coord(mesh, dp)
+
+        def local(x):
+            x = full_tensor(x)
+            m = x.shape[0] // n
+            return x[i * m:(i + 1) * m]
+
+        loss, grads, _ = loss_and_grads(model, state["params"],
+                                        {k: local(v)
+                                         for k, v in batch.items()})
+        if compress == "int8":
+            grads = tree_map(lambda g: grad_compress.int8_psum(g, group),
+                             grads)
+        else:
+            def pmean(g):
+                dist.all_reduce(g, group=group)
+                return g / n
+            grads = tree_map(pmean, grads)
+        dist.all_reduce(loss, group=group)
+        loss = loss / n
+        params, opt, om = opt_update(grads, state["opt"], state["params"])
+        new_state = {"params": params, "opt": opt, "step": state["step"] + 1}
+        return new_state, {"loss": loss, "grad_norm": om["grad_norm"]}
+
+    return step_fn, opt_init
+
+
 __all__ = ["TrainConfig", "compute_grads", "init_train_state",
-           "loss_and_grads", "make_train_step", "split_microbatches"]
+           "loss_and_grads", "make_train_step", "make_train_step_ddp",
+           "shard_train_state", "sharded_step", "split_microbatches"]

@@ -1520,3 +1520,133 @@ def test_packed_frontend_model_on_the_kernels_matches_plain(cuda, arch):
         want = run()
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the multi-device slice on one card: a one-rank NCCL group (NCCL refuses
+# two ranks on one device, so every collective is the identity)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl(cuda, tmp_path):
+    """A one-rank NCCL group and a (1, 1) ("data", "model") mesh on card
+    0; destroyed after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import ShardingRules
+    if not dist.is_nccl_available():
+        pytest.skip("torch.distributed has no NCCL")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield ShardingRules.for_mesh(make_mesh((1, 1), ("data", "model"),
+                                               device=cuda))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_awp_on_one_rank_matches_unsharded(cuda, nccl):
+    """Row-sharded AWP (K1, K2) gives the bits of the compression path's
+    own unsharded loop (``core.awp.pgd``); the column-sharded loop (K2)
+    that loop's through the plain versions."""
+    from repro_torch import kernels
+    from repro_torch.core import awp
+    from repro_torch.core import distributed as D
+    rng = np.random.default_rng(0)
+    w = _randn(rng, (64, 256), cuda)
+    x = _randn(rng, (512, 256), cuda)
+    c = D.calib_c_distributed(x, nccl)
+    torch.testing.assert_close(c, x.T @ x / 512, rtol=1e-6, atol=1e-6)
+    eta = float(awp._eta(c, 2.0))
+
+    def unsharded():
+        theta0 = kernels.impl("topk_row")(w, 128)
+        return awp.pgd(w, c, awp.prune_projection(128), theta0,
+                       awp.PGDConfig(max_iters=5, tol=0.0)).theta
+    before = dict(ops.LAUNCHES)
+    row = D.awp_prune_rowsharded(w, c, 128, eta, 5, nccl)
+    assert ops.LAUNCHES["awp_pgd_step"] == before["awp_pgd_step"] + 5
+    assert ops.LAUNCHES["topk_row"] == before["topk_row"] + 6
+    assert torch.equal(row, unsharded())
+    col = D.awp_prune_colsharded_fn(128, eta, 5, nccl)(w, c)
+    with kernels.use_impl("reference"):
+        plain = unsharded()
+    assert torch.equal(col, plain)
+
+
+def test_ddp_and_sharded_steps_on_one_rank(cuda, nccl):
+    """On the tiny llama32: the DDP step (plain sync) is the plain step's
+    bits, and the DTensor step is within the reference's bars."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.sharding import NamedSharding, distribute, full_tensor
+    from repro_torch.training.train_loop import (
+        TrainConfig, init_train_state, make_train_step, make_train_step_ddp,
+        shard_train_state, sharded_step)
+    cfg = get_tiny_config("llama32-1b")
+    tcfg = TrainConfig(optimizer=OptimizerConfig(lr=1e-3))
+    model = build_model(cfg, remat=False)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 16), generator=g,
+                              device=cuda) for k in ("tokens", "labels")}
+    outs = []
+    for make in (lambda: make_train_step(model, tcfg)[0],
+                 lambda: make_train_step_ddp(model, tcfg, nccl)[0]):
+        state = init_train_state(model, 0, device=cuda, tcfg=tcfg)
+        outs.append(make()(state, batch))
+    (s1, m1), (s2, m2) = outs
+    assert float(m1["loss"]) == float(m2["loss"])
+    for a, b in zip(s1["params"]["blocks"]["attn"].values(),
+                    s2["params"]["blocks"]["attn"].values()):
+        assert torch.equal(a, b)
+    m_sh = build_model(cfg, nccl, remat=False)
+    step, _ = make_train_step(m_sh, tcfg)
+    st = shard_train_state(init_train_state(model, 0, device=cuda, tcfg=tcfg),
+                           m_sh, nccl)
+    sb = {k: distribute(v, NamedSharding(nccl.mesh, nccl.spec(
+        ("batch", None), v.shape))) for k, v in batch.items()}
+    s3, m3 = sharded_step(step)(st, sb)
+    assert abs(float(full_tensor(m3["loss"])) - float(m1["loss"])) < 2e-4
+    torch.testing.assert_close(full_tensor(s3["params"]["embed"]),
+                               s1["params"]["embed"], rtol=2e-3, atol=2e-4)
+
+
+def test_moe_a2a_packed_experts_on_one_rank(cuda, nccl):
+    """The a2a MoE FFN on packed experts launches K4x three times and
+    equals the masked dense path within 2e-4 (tiny qwen3-moe, capacity 8)."""
+    import dataclasses
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import moe
+    from repro_torch.quant import QTensor
+    cfg = dataclasses.replace(get_tiny_config("qwen3-moe-235b-a22b"),
+                              capacity_factor=8.0)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    p = moe.moe_params(g, cfg, device=cuda)
+
+    def pack(w):
+        qts = [QTensor.from_dense(w[e].T.contiguous(), bits=4, group_size=32)
+               for e in range(w.shape[0])]
+        return qts[0]._replace(**{f: torch.stack([getattr(q, f) for q in qts])
+                                  for f in ("packed", "scale", "zero")})
+    pq = dict(p, **{k: pack(p[k]) for k in ("wg", "wu", "wd")})
+    x = torch.randn((2, 64, cfg.d_model), generator=g, device=cuda)
+    before = ops.LAUNCHES["dequant_matmul_experts"]
+    y = moe.moe_apply_a2a(pq, x, cfg, nccl)
+    assert ops.LAUNCHES["dequant_matmul_experts"] == before + 3
+    torch.testing.assert_close(y, moe.moe_apply_dense(pq, x, cfg),
+                               rtol=2e-4, atol=2e-4)
+    assert moe.a2a_dropped(pq, x, cfg, nccl) == 0
+
+
+def test_sampler_on_the_card_matches_the_probe(cuda):
+    """The reference's probe tokens from the card's Threefry and Gumbel
+    map (logits default_rng(0) (8, 1000) × 3, seeds and steps 0–7)."""
+    from repro_torch.serving import sample_tokens
+    logits = torch.from_numpy((np.random.default_rng(0).standard_normal(
+        (8, 1000)) * 3).astype(np.float32)).to(cuda)
+    got = sample_tokens(logits, torch.ones(8, device=cuda),
+                        torch.zeros(8, dtype=torch.int64, device=cuda),
+                        torch.arange(8, device=cuda),
+                        torch.arange(8, device=cuda))
+    assert got.tolist() == [403, 615, 175, 801, 251, 427, 83, 543]

@@ -41,7 +41,7 @@ def _port_modules():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     mods = _port_modules()
-    assert "repro_torch.kernels.ops" in mods and len(mods) >= 57
+    assert "repro_torch.kernels.ops" in mods and len(mods) >= 60
     assert {"repro_torch.core.metrics", "repro_torch.configs.llama2_7b",
             "repro_torch.configs.llama2_13b", "repro_torch.configs.llama31_8b",
             "repro_torch.configs.granite_8b"} | {
@@ -68,6 +68,31 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True, timeout=120)
     assert out.stdout.strip() == "0 []", out.stdout + out.stderr
+
+
+MULTI_DEVICE = ("repro_torch.sharding", "repro_torch.core.distributed",
+                "repro_torch.launch.mesh")
+
+
+def test_multi_device_modules_import_alone_without_a_group():
+    """The multi-device slice's modules are among those checked above, and
+    each imports alone without JAX, the JAX package or a process group
+    (meshes are made by functions, never at import); the tests' rank
+    harness imports neither JAX nor the JAX package either."""
+    assert set(MULTI_DEVICE) <= set(_port_modules())
+    code = ("import sys, torch.distributed as dist\n"
+            f"for m in {MULTI_DEVICE!r}: __import__(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro']\n"
+            "print(len(bad), bad, dist.is_initialized())\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == "0 [] False", out.stdout + out.stderr
+    harness = os.path.join(REPO, "tests", "torch_dist_util.py")
+    assert not [m for m in _imports(harness)
+                if m == "jax" or m.startswith(("jax.", "repro."))
+                or m == "repro"]
 
 
 def _imports(path):

@@ -481,7 +481,12 @@ def test_train_cli_resumes_and_beats(tmp_path, capsys):
 
 
 def test_train_cli_refuses_a_mesh():
-    with pytest.raises(ValueError, match="multi-device"):
+    """A mesh the launch cannot hold is refused before any process group
+    is joined: the reference's 16 x 16 needs 256 ranks, this launch is one
+    process (meshes that fit run under torchrun:
+    tests/test_torch_train_mesh.py)."""
+    with pytest.raises(ValueError, match=r"\(16, 16\) needs 256 ranks; "
+                                         r"the launch has 1"):
         train_cli.main(["--tiny", "--device", "cpu", "--mesh", "single",
                         "--steps", "1"])
 
