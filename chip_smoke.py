@@ -151,7 +151,8 @@ and table); every decode step's lengths are then replayed on the kernel,
 and each path's K6/K6p device seconds printed. Every engine run holds its
 ``metrics_snapshot()`` (the port's ``repro_torch.obs`` registry) to its
 counters and prints it on an ``[obs]`` line. Last, after every timed run
-and census, the profile phase: a fourth kernel run of each engine, timed
+and census, the profile phase: a fourth kernel run of the slot engine
+(the paged engine's profiled run was cut for the dry-run phase), timed
 by nothing, inside the port's ``StepTraceWindow`` (``torch.profiler``,
 CPU and CUDA activity) from its first step to its last, whose tokens must
 equal the timed run's and whose trace must hold K4's and K6's (K6p's)
@@ -165,7 +166,17 @@ from the card's Threefry-2x32 sampler, and the slot and paged engines on
 a sampled trace with every ``sample_tokens`` call held to the same
 function on the CPU over a host copy of its inputs (a differing token
 fails unless the card's top-two margin is under 1e-5, relative; near-ties
-are counted). Last, the multi-device phase (:func:`phase_distributed`),
+are counted). Then the dry-run phase (:func:`phase_dryrun`):
+``repro_torch.launch.dryrun`` on this host (a fake process group, meta
+tensors) predicts llama32-1b's bf16 train step at 8 × 1024 on one rank,
+and the same step runs on the card: its FlopCounterMode count must equal
+the prediction and its peak memory be within 1% of it; the step time is
+printed beside the roofline's bound, and the cheapest production cell
+(granite-8b decode_32k on 256 ranks) runs on this host too. Right after
+the kernel checks ``awp_prune_fused`` (K1 then K2, 20 iterations at
+llama32-1b's wd) is held to its plain loop, bit for bit in the parity
+process; its launches are the ``prune_fused`` path. Last, the
+multi-device phase (:func:`phase_distributed`),
 after every timed host-bound run: one one-rank NCCL process group on the
 card (NCCL refuses two ranks on one device, so every collective is the
 identity; no fallback to gloo), a (1, 1) ("data", "model") mesh, the
@@ -511,6 +522,21 @@ DIST_AWP = dict(d_out=2048, d_in=8192, tokens=4096, iters=20)
 DIST_STEPS = 3
 DIST_LOSS_BAR, DIST_RTOL, DIST_ATOL = 2e-4, 2e-3, 2e-4
 DIST_PATH = ("awp_pgd_step", "topk_row", "dequant_matmul_experts")
+# awp_prune_fused (K1 then K2 an iteration) at llama32-1b's wd, as the
+# reference's test_kernels.py holds it against its plain loop
+FUSED_SHAPE, FUSED_ITERS = (2048, 8192), 20
+FUSED_PATH = ("awp_pgd_step", "topk_row")
+# the dry run on the card's host: llama32-1b's train_4k cell cut to a
+# batch and sequence one card holds (one rank, a (1, 1) mesh), bf16
+# params, AdamW, remat, one microbatch; then the same step for real
+DRYRUN_BATCH, DRYRUN_SEQ, DRYRUN_STEPS = 8, 1024, 3
+# the production cell run on the card's host (the cheapest decode cell)
+DRYRUN_PRODUCTION = ("granite-8b", "decode_32k", "single")
+# the card's peak over the predicted total: +0.0013 measured (one H100 at
+# 700 W); the gap is the caching allocator's rounding of each block and
+# the cuBLAS workspace the first product allocates, which the meta run
+# has not got
+DRYRUN_MEM_TOL = 0.01
 A2A_TOKENS, A2A_CAPACITY, A2A_BAR = (4, 128), 8.0, 2e-4
 
 
@@ -903,6 +929,55 @@ def check_k1(torch, randn, m, k):
     return dict(shape=f"M={m},K={k}", variant=chosen, ms=ms, plain_ms=plain,
                 bound_ms=bnd, bound_by=by, library_ms=lib_ms,
                 max_abs_err=err, variant_ms=times)
+
+
+def check_prune_fused(torch, dev):
+    """``ops.awp_prune_fused`` (the reference's fused pruning loop: K1's
+    step then K2's top-k, ``FUSED_ITERS`` times from Θ₀ = topk(W)) at
+    llama32-1b's wd against its plain loop (``use_pallas=False``) on the
+    same inputs: under default cuBLAS the plain loop's split-K sums may
+    put a few row entries on the other side of the k-th magnitude, so the
+    two are held at the reference's per-layer loss bar (the Fig.-1 loss
+    within 1e-5 relative) and the differing mask entries are printed; the
+    parity process holds the bits (:func:`parity_kernels`). Returns the
+    kernel loop's K1 and K2 launches."""
+    from repro_torch.core.awp import activation_loss
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    m, k = FUSED_SHAPE
+    w, c, eta, keep = fused_inputs(torch, dev, gen, m, k)
+    theta0 = ops.topk_row(w, keep)
+    before = dict(ops.LAUNCHES)
+    th, ms = _event_ms(torch, lambda: ops.awp_prune_fused(
+        w, c, keep, eta, FUSED_ITERS, theta0=theta0))
+    launches = {n: ops.LAUNCHES[n] - before[n] for n in ops.LAUNCHES}
+    th_p, plain = _event_ms(torch, lambda: ops.awp_prune_fused(
+        w, c, keep, eta, FUSED_ITERS, theta0=ref.topk_row(w, keep),
+        use_pallas=False))
+    check_path(launches, FUSED_PATH, "awp_prune_fused")
+    check(launches["awp_pgd_step"] == FUSED_ITERS
+          and launches["topk_row"] == FUSED_ITERS,
+          f"awp_prune_fused launched {launches}")
+    loss, loss_p = (float(activation_loss(w, t, c)) for t in (th, th_p))
+    rel = abs(loss - loss_p) / loss_p
+    n_mask = int(((th != 0) != (th_p != 0)).sum())
+    check(rel <= 1e-5 and bool((th != 0).sum(-1).eq(keep).all()),
+          f"awp_prune_fused: loss {loss:.9f} against the plain loop's "
+          f"{loss_p:.9f} ({rel:.2e} relative)")
+    log(f"[K1+K2] awp_prune_fused {FUSED_SHAPE} x {FUSED_ITERS} iterations:"
+        f" {ms:.2f} ms (plain loop {plain:.2f} ms), loss {loss:.9f} against "
+        f"the plain loop's {loss_p:.9f} ({rel:.2e} relative), {n_mask} of "
+        f"{th.numel()} mask entries differ; launches {launches}")
+    return launches
+
+
+def fused_inputs(torch, dev, gen, m, k):
+    """W, C (a scaled XᵀX), η = 2/‖C‖_F and k = d_in / 2 of the fused
+    loop's check."""
+    w = torch.randn((m, k), generator=gen, device=dev)
+    x = torch.randn((2 * k, k), generator=gen, device=dev)
+    c = x.T @ x / (2 * k)
+    return w, c, 2.0 / torch.linalg.matrix_norm(c), k // 2
 
 
 def check_k3(torch, randn, r, d, bits):
@@ -5093,10 +5168,11 @@ def parity_frontends(torch, dev):
 
 
 def phase_profile(torch, cfg, data, report, packed, timed):
-    """The profile phase: each engine's fourth kernel run in a
-    ``StepTraceWindow`` (:func:`profile_engine`; ``timed``: each layout's
-    tokens and stats from its timed run), then one compression with a
-    profiled block (:func:`profile_compression`). It comes after every
+    """The profile phase: the slot engine's fourth kernel run in a
+    ``StepTraceWindow`` (:func:`profile_engine`; ``timed``: its tokens and
+    stats from its timed run), then one compression with a profiled block
+    (:func:`profile_compression`). The paged engine's profiled run, the
+    longest, was cut to give the dry-run phase its time. It comes after every
     timed run and census of this process: a ``torch.profiler`` session
     with CUDA activity slows the later host-bound runs of the same process
     (``PERF.md``), so nothing this process times follows it; the parity
@@ -5104,11 +5180,8 @@ def phase_profile(torch, cfg, data, report, packed, timed):
     model = data[0]
     slot = profile_engine(torch, model, packed, engine_trace(cfg), "engine",
                           *timed["slot"], "decode_attn")
-    paged = profile_engine(torch, model, packed, paged_trace(cfg), "paged",
-                           *timed["paged"], "decode_attn_paged",
-                           ecfg=PAGED_ENGINE)
     comp = profile_compression(torch, data, report, 7 * cfg.num_layers)
-    return slot, paged, comp
+    return slot, comp
 
 
 def check_busy_floor(engines, k4_census, k6_census):
@@ -5566,6 +5639,123 @@ def phase_distributed(torch, dev, cfg, card):
     return launches, dict(seconds=secs, awp=awp, train=train)
 
 
+def dryrun_cell(arch, shape, mesh, out_dir, extra=()):
+    """The dry run of one cell in its own process (``python -m
+    repro_torch.launch.dryrun``; a fake process group, meta tensors, no
+    device), started and returned unwaited."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--results-dir", out_dir,
+         *extra], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def dryrun_result(proc, out_dir, arch, shape, mesh, tag):
+    """The JSON a :func:`dryrun_cell` process wrote, once it has ended."""
+    out, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"{tag}: the dry run of {arch} {shape} "
+                                f"{mesh} failed:\n{out[-2000:]}{err[-3000:]}")
+    with open(Path(out_dir) / mesh / f"{arch}__{shape}.json") as f:
+        return json.load(f)
+
+
+def phase_dryrun(torch, dev, card):
+    """The dry run (``repro_torch.launch.dryrun``) against the card.
+
+    llama32-1b's ``train_4k`` cell cut to ``DRYRUN_BATCH`` ×
+    ``DRYRUN_SEQ`` on one rank (a (1, 1) mesh), bf16 params, AdamW, remat,
+    runs in its own process on the card's host while the same step runs
+    for real on the card (plain tensors, the train CLI's step): the real
+    step's FlopCounterMode count must equal the dry run's fitted count,
+    and the card's peak (``max_memory_allocated`` over the step, less what
+    other phases left allocated) must be within ``DRYRUN_MEM_TOL`` of the
+    dry run's ``total_per_device_bytes``. The measured step time (CUDA
+    events, the median of ``DRYRUN_STEPS`` steps after the first) is
+    printed beside the roofline's ``t_bound``. Beside them the cheapest
+    production decode cell (``DRYRUN_PRODUCTION``, 256 ranks) runs on this
+    host's PyTorch, which has no JAX."""
+    import tempfile
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import local_bytes
+    from repro_torch.models import build_model, make_batch
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+    t0 = time.time()
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    cut = ("--batch", str(DRYRUN_BATCH), "--seq", str(DRYRUN_SEQ))
+    one = dryrun_cell(ARCH, "train_4k", "1x1", out_dir, cut)
+    prod = dryrun_cell(*DRYRUN_PRODUCTION, out_dir)
+
+    cfg = get_config(ARCH)
+    model = build_model(cfg, remat=True)
+    step, opt_init = make_train_step(model, TrainConfig(
+        optimizer=OptimizerConfig(name="adamw")))
+    params = model.init(SEED, device=dev, dtype=torch.bfloat16)
+    state = {"params": params, "opt": opt_init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batch = make_batch(cfg, gen, DRYRUN_BATCH, DRYRUN_SEQ, device=dev)
+    args = float(local_bytes((state, batch)))
+    torch.cuda.synchronize()
+    others = torch.cuda.memory_allocated() - args
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    flops = fc.get_total_flops()
+    peak = torch.cuda.max_memory_allocated() - others
+    times = []
+    for _ in range(DRYRUN_STEPS):
+        (state, _), ms = _event_ms(torch, lambda: step(state, batch))
+        times.append(ms)
+    step_ms = sorted(times)[len(times) // 2]
+    del state, params, batch
+    torch.cuda.empty_cache()
+
+    pred = dryrun_result(one, out_dir, ARCH, "train_4k", "1x1", "dryrun")
+    prodr = dryrun_result(prod, out_dir, *DRYRUN_PRODUCTION, "dryrun")
+    pf = pred["cost_fit"]["flops"]
+    mem = pred["memory"]["total_per_device_bytes"]
+    gap = (peak - mem) / mem
+    roof = pred["roofline"]
+    t_bound = max(roof["t_compute_s"], roof["t_memory_s"],
+                  roof["t_collective_s"]) * 1e3
+    log(f"[dryrun] {ARCH} train {DRYRUN_BATCH}x{DRYRUN_SEQ} on one rank: "
+        f"flops counted on the card {flops} against the dry run's "
+        f"{pf:.1f} (fit over depths {pred['cost_fit']['fit_depths']}); "
+        f"peak {peak / 1e9:.3f} GB (arguments {args / 1e9:.3f} GB) against "
+        f"the dry run's {mem / 1e9:.3f} GB (arguments "
+        f"{pred['memory']['argument_size_in_bytes'] / 1e9:.3f} GB, "
+        f"transient {pred['memory']['temp_size_in_bytes'] / 1e9:.3f} GB), "
+        f"gap {gap:+.4f}; step {step_ms:.2f} ms (steps {times}) against "
+        f"t_bound {t_bound:.2f} ms ({roof['bottleneck']}-bound, "
+        f"{roof['t_compute_s'] * 1e3:.2f} ms compute at 989 TFLOP/s bf16; "
+        f"a bound from published peaks); card {card}")
+    check(flops == round(pf), f"dryrun: the card's step counted {flops} "
+                              f"flops, the dry run {pf}")
+    check(abs(gap) <= DRYRUN_MEM_TOL,
+          f"dryrun: peak {peak} B against the predicted {mem} B "
+          f"({gap:+.4f}, tolerance {DRYRUN_MEM_TOL})")
+    pm, pr = prodr["memory"], prodr["roofline"]
+    log(f"[dryrun] production cell {' '.join(DRYRUN_PRODUCTION)} "
+        f"({prodr['chips']} ranks) on this host: "
+        f"{pm['total_per_device_bytes'] / 1e9:.3f} GB/device, bounds "
+        f"compute {pr['t_compute_s']:.6f} s memory {pr['t_memory_s']:.6f} "
+        f"s collective {pr['t_collective_s']:.6f} s -> {pr['bottleneck']} "
+        f"(in {prodr['compile_seconds']:.1f}s)")
+    secs = time.time() - t0
+    log(f"[dryrun] phase {secs:.1f}s")
+    return dict(seconds=secs, flops=flops, flops_predicted=pf,
+                peak_bytes=peak, predicted_bytes=mem, gap=gap,
+                step_ms=step_ms, t_bound_ms=t_bound,
+                production=dict(cell=list(DRYRUN_PRODUCTION),
+                                total_per_device_bytes=pm[
+                                    "total_per_device_bytes"],
+                                roofline=pr))
+
+
 def phase_parity():
     """Both paths again in a second process with unsplit cuBLAS, where
     they must agree bit for bit (see the module docstring)."""
@@ -5625,6 +5815,27 @@ def parity_kernels(torch, dev):
         f"first differing shape {first} (shape, differing entries, "
         f"entries); held to 1e-5 of max|Z| instead"))
     parity_k4(torch, dev, gen, randn)
+    parity_prune_fused(torch, dev)
+
+
+def parity_prune_fused(torch, dev):
+    """Under unsplit cuBLAS, ``awp_prune_fused`` on the kernels gives its
+    plain loop's bits (K1's Z is the plain version's, so every top-k sees
+    the same row)."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    m, k = FUSED_SHAPE
+    w, c, eta, keep = fused_inputs(torch, dev, gen, m, k)
+    th = ops.awp_prune_fused(w, c, keep, eta, FUSED_ITERS,
+                             theta0=ops.topk_row(w, keep))
+    th_p = ops.awp_prune_fused(w, c, keep, eta, FUSED_ITERS,
+                               theta0=ref.topk_row(w, keep),
+                               use_pallas=False)
+    n_diff = int((th != th_p).sum())
+    check(n_diff == 0, f"awp_prune_fused: {n_diff} entries of theta differ "
+                       f"from the plain loop under unsplit cuBLAS")
+    log(f"[parity K1+K2] awp_prune_fused {FUSED_SHAPE} x {FUSED_ITERS}: "
+        f"theta bit-equal to the plain loop")
 
 
 def parity_k4(torch, dev, gen, randn):
@@ -5741,6 +5952,7 @@ def main() -> None:
     card = phase_card(torch)
     phase_build()
     rows = phase_kernels(torch, dev)
+    fused_launches = check_prune_fused(torch, dev)
     rows["dequant_matmul_experts"], moe_launches, moe = phase_moe(torch, dev)
     torch.cuda.empty_cache()
     shapes, methods_launches, methods_k4, methods_k2, methods = \
@@ -5777,7 +5989,7 @@ def main() -> None:
     model = data[0]
     eng_launches, slot_tokens, eng, slot_census, slot_k6 = phase_engine(
         torch, cfg, model, packed, "", exact_first=False, k6_census=True)
-    paged_launches, paged, paged_census, paged_k6, paged_tokens = \
+    paged_launches, paged, paged_census, paged_k6, _ = \
         phase_paged_engine(torch, cfg, model, packed, "", exact_first=False,
                            slot_tokens=slot_tokens, k6_census=True)
     k6_census = phase_k6_census(torch, dev, {"slot": slot_k6,
@@ -5792,14 +6004,15 @@ def main() -> None:
     rows["topk_row"]["census"] = phase_k2_census(
         torch, dev, {**k2_main, **k2_prune, "methods": methods_k2,
                      "ssm": ssm_k2, "frontends": fe_k2})
-    eng["profile"], paged["profile"], comp["profile"] = phase_profile(
+    eng["profile"], comp["profile"] = phase_profile(
         torch, cfg, data, report, packed,
-        {"slot": (slot_tokens, eng["kernels"]),
-         "paged": (paged_tokens, paged["kernels"])})
-    check_busy_floor({"slot": eng, "paged": paged}, k4_census, k6_census)
+        {"slot": (slot_tokens, eng["kernels"])})
+    check_busy_floor({"slot": eng}, k4_census, k6_census)
     ssm["profile"] = phase_ssm_profile(torch, dev, ssm_keep)
     sampling = check_sampling(torch, dev, cfg, model, packed)
     del data, model, packed, report, ssm_keep
+    torch.cuda.empty_cache()
+    dryrun = phase_dryrun(torch, dev, card)
     torch.cuda.empty_cache()
     dist_launches, dist = phase_distributed(torch, dev, cfg, card)
     a2a_launches = moe.pop("a2a_launches")
@@ -5821,7 +6034,8 @@ def main() -> None:
                    "train_compress": train_launches[name],
                    "ssm": ssm_launches[name],
                    "frontends": fe_launches[name],
-                   "distributed": dist_launches[name]}
+                   "distributed": dist_launches[name],
+                   "prune_fused": fused_launches[name]}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -5845,6 +6059,7 @@ def main() -> None:
     log(f"[frontends] summary: {json.dumps(fe)}")
     log(f"[sampling] summary: {json.dumps(sampling)}")
     log(f"[dist] summary: {json.dumps(dist)}")
+    log(f"[dryrun] summary: {json.dumps(dryrun)}")
     log(f"[done] {time.time() - t_start:.1f}s; card {card}")
     log(json.dumps({"kernels": out}))
     log(card)

@@ -18,6 +18,10 @@ _ARCH_IDS = ["llama32-1b", "llama2-7b", "llama2-13b", "llama31-8b",
              "zamba2-1.2b", "musicgen-medium", "internvl2-1b",
              "starcoder2-7b", "starcoder2-15b", "nemotron-4-340b",
              "grok-1-314b"]
+_PRODUCTION_IDS = ["qwen3-moe-235b-a22b", "grok-1-314b", "nemotron-4-340b",
+                   "starcoder2-15b", "starcoder2-7b", "granite-8b",
+                   "falcon-mamba-7b", "musicgen-medium", "zamba2-1.2b",
+                   "internvl2-1b"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +112,33 @@ class ModelConfig:
         return int(L * (self._attn_params() + mlp) + 2 * d * self.vocab_size)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k":   ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+# archs whose attention is full/quadratic skip long_500k
+SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
+
+
+def shapes_for(cfg: ModelConfig):
+    """The production shapes of the dry run for ``cfg`` (the
+    reference's): all of :data:`SHAPES`, less ``long_500k`` where the
+    attention is quadratic."""
+    return [s for s in SHAPES.values()
+            if s.name != "long_500k" or cfg.family in SUBQUADRATIC_FAMILIES]
+
+
 def _module_name(arch_id: str) -> str:
     return "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "p")
 
@@ -128,8 +159,14 @@ def get_tiny_config(arch_id: str) -> ModelConfig:
     return importlib.import_module(_module_name(arch_id)).TINY
 
 
-def list_archs():
-    return list(_ARCH_IDS)
+def list_archs(include_paper: bool = True):
+    """Every ported arch; without ``include_paper`` the ten production
+    archs in the reference's order (the dry run's), less the paper's own
+    evaluation models."""
+    if include_paper:
+        return list(_ARCH_IDS)
+    return list(_PRODUCTION_IDS)
 
 
-__all__ = ["ModelConfig", "get_config", "get_tiny_config", "list_archs"]
+__all__ = ["ModelConfig", "SHAPES", "SUBQUADRATIC_FAMILIES", "ShapeConfig",
+           "get_config", "get_tiny_config", "list_archs", "shapes_for"]

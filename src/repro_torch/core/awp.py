@@ -279,6 +279,14 @@ def activation_loss(w: torch.Tensor, theta: torch.Tensor,
                  c.to(torch.float32))
 
 
+def activation_loss_batched(w_b: torch.Tensor, theta_b: torch.Tensor,
+                            c_b: torch.Tensor) -> torch.Tensor:
+    """Per-item Fig.-1 loss over a (B, d_out, d_in) stack (the reference's
+    ``activation_loss_batched``; :func:`activation_loss` takes stacks
+    too)."""
+    return activation_loss(w_b, theta_b, c_b)
+
+
 # ---------------------------------------------------------------------------
 # Beyond-paper extension: AWP-S — PGD in an AWQ-style scaled space. With a
 # per-input-channel scale s, W' = W·diag(s) and C' = diag(1/s)·C·diag(1/s)
@@ -427,4 +435,5 @@ def _awp_joint(w, stats, spec):
 __all__ = ["AWPResult", "PGDConfig", "PGD_CHUNK_ITERS", "PRUNE_CONFIG", "pgd",
            "pgd_batched", "prune", "prune_projection", "quantize", "joint",
            "joint_projection", "joint_finish", "activation_loss",
+           "activation_loss_batched",
            "alpha_grid", "channel_scale", "select_min", "quantize_scaled"]

@@ -181,6 +181,18 @@ def quant_project(z: torch.Tensor, bits: int,
     return dequant(quant_params(z, bits, group_size), dtype=z.dtype)
 
 
+def joint_project(z: torch.Tensor, keep_ratio, bits: int,
+                  group_size: int = 128) -> torch.Tensor:
+    """Joint prune+quant projection of §4.3: Proj_INTb(Proj_row(Z)) (the
+    reference's ``joint_project``). Prune first to get the support,
+    quantize the pruned matrix, then re-apply the mask (quantizing can
+    move pruned zeros off zero because the group zero-point is not
+    exactly representable)."""
+    pruned = topk_row_dynamic(z, keep_ratio)
+    return quant_project(pruned, bits, group_size) * (pruned != 0)
+
+
 __all__ = ["QuantParams", "inv_qmax", "topk_row", "topk_row_mask",
            "topk_matrix", "prune_n_m", "n_m_keep", "ramp_ratio", "ramp_keep_k",
-           "topk_row_dynamic", "quant_params", "dequant", "quant_project"]
+           "topk_row_dynamic", "quant_params", "dequant", "quant_project",
+           "joint_project"]

@@ -655,12 +655,30 @@ def decode_attn_paged(q, k_pool, v_pool, table, lengths, k_scale=None,
     return out
 
 
+def awp_prune_fused(w, c, k: int, eta, iters: int, theta0=None,
+                    use_pallas: bool = True):
+    """The whole AWP pruning loop on the kernels (the reference's
+    ``kernels/ops.py::awp_prune_fused``, its ``lax.scan`` as a loop): each
+    iteration K1's step Z = Θ + η (W − Θ) C, then K2's row top-k of Z;
+    ``iters`` iterations from ``theta0`` (default W itself). A CPU tensor
+    takes the plain versions, as every wrapper does; ``use_pallas=False``
+    takes them on any device."""
+    step, topk = ((awp_pgd_step, topk_row) if use_pallas
+                  else (ref.awp_pgd_step, ref.topk_row))
+    theta = w if theta0 is None else theta0
+    for _ in range(iters):
+        z, _ = step(w, theta, c, eta)
+        theta = topk(z, k)
+    return theta
+
+
 __all__ = ["AWP_PGD_TILES", "DECODE_BLOCKS_PER_SM", "DECODE_MAX_ACCUMULATORS",
            "DECODE_MAX_SPLITS",
            "DEQUANT_SPLITS", "DEQUANT_TILES", "GEMV_COLS", "GEMV_MAX_M",
            "K2_CENSUS", "K4_CENSUS", "K4X_CENSUS", "K6_CENSUS", "KERNELS", "LAUNCHES",
            "TILE_COST", "TILE_SHARE", "TOPK_FORMS", "arm_k6_census",
            "awp_pgd_grid", "awp_pgd_step", "awp_pgd_tiles",
+           "awp_prune_fused",
            "awp_pgd_vector_copies", "decode_attn", "decode_attn_paged",
            "decode_attn_splits", "decode_attn_supported", "dequant_matmul",
            "dequant_matmul_experts",

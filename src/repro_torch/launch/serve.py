@@ -52,6 +52,48 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_tiny_config, list_archs
 from repro_torch.data import DataConfig, ZipfMarkov
 from repro_torch.models import build_model
+from repro_torch.quant import QTensor
+
+
+def _tree_leaves(tree) -> list:
+    """Leaves of nested dicts and lists in ``jax.tree.leaves``' order
+    (dict keys sorted), a QTensor counting as one leaf."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, QTensor):
+        return [x for t in tree for x in _tree_leaves(t)]
+    return [tree]
+
+
+def qtensor_leaves(params) -> list:
+    """The QTensor leaves of a params tree; a stacked leaf counts once
+    (its children carry the block/expert dims)."""
+    return [leaf for leaf in _tree_leaves(params)
+            if isinstance(leaf, QTensor)]
+
+
+def dense_itemsize(params) -> int:
+    """Bytes per element of the tree's dense serving dtype: the first
+    floating dense leaf decides (bf16 trees → 2, f32 → 4; QTensor children
+    are skipped — their f32 scales are not the serving dtype). 4 when the
+    tree has no dense float leaf."""
+    for leaf in _tree_leaves(params):
+        if isinstance(leaf, torch.Tensor) and leaf.is_floating_point():
+            return leaf.element_size()
+    return 4
+
+
+def packed_weight_bytes(params) -> tuple:
+    """(packed_bytes, dense_equiv_bytes) over the QTensor leaves of params.
+    The dense equivalent is counted at the tree's actual dense dtype (a
+    bf16 serving tree compares against 2-byte floats)."""
+    itemsize = dense_itemsize(params)
+    packed = dense = 0
+    for leaf in qtensor_leaves(params):
+        packed += leaf.nbytes()
+        nibble = leaf.bits == 4 and leaf.packed.shape[-1] * 2 == leaf.shape[1]
+        dense += leaf.packed.numel() * (2 if nibble else 1) * itemsize
+    return packed, dense
 
 
 def make_step_fns(model):

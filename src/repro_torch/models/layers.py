@@ -20,7 +20,8 @@ from typing import Optional
 import torch
 
 from repro_torch.quant import QTensor
-from repro_torch.sharding import NO_RULES, ShardingRules, hint
+from repro_torch.sharding import (NO_RULES, ShardingRules, hint, is_dtensor,
+                                  merge_last, split_last, splittable)
 from repro_torch.serving.kv_cache import (QuantizedKV, fused_decode_attn,
                                           kv_dequantize, kv_quantize,
                                           kv_update, paged_view)
@@ -38,6 +39,9 @@ def linear_apply(w, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
         y = w.matmul_dispatch(x.reshape(-1, x.shape[-1]))
         return y.reshape(*lead, y.shape[-1]).to(x.dtype)
+    if x.dtype != w.dtype:                  # jnp's promotion (bf16 params)
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
     return x @ w
 
 
@@ -59,6 +63,8 @@ def expert_apply(w, x: torch.Tensor, *, per_expert: bool = False
         return w.expert_matmul(x, per_expert).to(x.dtype)
     if per_expert:
         return torch.bmm(x, w)
+    if is_dtensor(w):              # experts sharded on a mesh: no unbind
+        return torch.einsum("td,edf->tef", x, w)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return torch.stack([x @ we for we in w.unbind(0)]).transpose(0, 1)
     y = x.new_empty((w.shape[0], x.shape[0], w.shape[2]))
@@ -70,6 +76,12 @@ def expert_apply(w, x: torch.Tensor, *, per_expert: bool = False
 # ---------------------------------------------------------------------------
 # init helpers (torch.Generator streams; not the JAX package's numbers)
 # ---------------------------------------------------------------------------
+
+def generator(dev: torch.device) -> torch.Generator:
+    """The init stream's generator on ``dev``; on the CPU for ``meta``
+    (no such generator there), whose tensors hold no numbers."""
+    return torch.Generator(device="cpu" if dev.type == "meta" else dev)
+
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, lead=(),
                dtype=torch.float32, device="cpu") -> torch.Tensor:
@@ -158,7 +170,15 @@ def flash_attention(q: torch.Tensor, k, v, *, causal: bool = True,
     inner step gathers only its own pages (sentinel entries clip to page
     P − 1, past every live query's causal mask); a quantized pool expands
     each gathered tile through :func:`kv_dequantize` (K5 on the card).
+
+    DTensor q, k and v (a mesh) run on each rank's own batch rows and
+    query heads (:func:`_flash_local`).
     """
+    if kv_pages is None and is_dtensor(q):
+        out = _flash_local(q, k, v, causal=causal, q_offset=q_offset,
+                           q_chunk=q_chunk, kv_chunk=kv_chunk)
+        if out is not None:
+            return out
     b, sq, h, d = q.shape
     if kv_pages is not None:
         table, page_size = kv_pages
@@ -238,11 +258,55 @@ def flash_attention(q: torch.Tensor, k, v, *, causal: bool = True,
     return torch.cat(chunks, dim=1)[:, :sq0].to(q.dtype)
 
 
+def _flash_local(q, k, v, **kw):
+    """:func:`flash_attention` of DTensors on each rank's local block:
+    attention is independent over batch rows and heads, so each rank runs
+    the plain loop on its own rows and query heads, with the KV heads
+    those heads read, and the output keeps q's placements. (DTensor's
+    einsum would fold the batch and head dims into one, which it cannot
+    keep sharded over two mesh dims, and gather every head.) The KV
+    gradient is a partial sum over the ranks that split the heads. None
+    when q's sequence or head dim is split another way, or its heads do
+    not tile the KV groups: the caller then runs the loop on the
+    DTensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = q.device_mesh
+    pl = list(q.placements)
+    if any(isinstance(p, Shard) and p.dim % 4 not in (0, 2) for p in pl) \
+            or any(isinstance(p, Partial) for p in pl):
+        return None
+    h, hk = q.shape[2], k.shape[2]
+    g = h // hk
+    head_dims = [i for i, p in enumerate(pl) if p == Shard(2)]
+    r, m = 0, 1
+    for i in head_dims:
+        r, m = r * mesh.size(i) + mesh.get_local_rank(i), m * mesh.size(i)
+    hl = h // m
+    if hl % g == 0:
+        lo, n = r * hl // g, hl // g
+    elif g % hl == 0:
+        lo, n = r * hl // g, 1
+    else:
+        return None
+    kv_pl = [p if p == Shard(0) else Replicate() for p in pl]
+    grad_pl = [Partial() if i in head_dims else p
+               for i, p in enumerate(kv_pl)]
+
+    def local_kv(t):
+        t = t if is_dtensor(t) else DTensor.from_local(
+            t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        t = t.redistribute(mesh, kv_pl).to_local(grad_placements=grad_pl)
+        return t[:, :, lo:lo + n]
+    out = flash_attention(q.to_local(), local_kv(k), local_kv(v), **kw)
+    return DTensor.from_local(out, mesh, pl, run_check=False,
+                              shape=q.shape, stride=q.stride())
+
+
 def _scores(q: torch.Tensor, k: torch.Tensor, g: int) -> torch.Tensor:
     """(B, Sq, H, D) × (B, Skv, Hk, D) → (B, H, Sq, Skv), GQA groups."""
     b, sq, h, d = q.shape
     hk = k.shape[2]
-    qh = q.reshape(b, sq, hk, g, d).to(torch.float32)
+    qh = splittable(q, 2, hk).reshape(b, sq, hk, g, d).to(torch.float32)
     s = torch.einsum("bqkgd,bnkd->bkgqn", qh, k.to(torch.float32))
     return s.reshape(b, h, sq, k.shape[1])
 
@@ -251,6 +315,7 @@ def _pv(p: torch.Tensor, v: torch.Tensor, g: int) -> torch.Tensor:
     """(B, H, Sq, Skv) × (B, Skv, Hk, D) → (B, H, Sq, D), f32."""
     b, h, sq, skv = p.shape
     hk = h // g
+    p = splittable(p, 1, hk)
     out = torch.einsum("bkgqn,bnkd->bkgqd", p.reshape(b, hk, g, sq, skv),
                        v.to(torch.float32))
     return out.reshape(b, h, sq, v.shape[-1])
@@ -360,6 +425,8 @@ def _write_dense(cache: torch.Tensor, new: torch.Tensor, cache_pos,
     so the block fits, as ``dynamic_update_slice`` does."""
     b, s = new.shape[0], new.shape[1]
     t = cache.shape[1]
+    if is_dtensor(cache):
+        return _write_dense_sharded(cache, new, cache_pos, attend_cache)
     if torch.is_tensor(cache_pos) and cache_pos.dim() == 1:
         if s != 1:
             raise ValueError("per-slot cache writes are one token per step")
@@ -373,6 +440,42 @@ def _write_dense(cache: torch.Tensor, new: torch.Tensor, cache_pos,
     else:
         pos = max(0, min(pos, t - s))
         cache[:, pos:pos + s] = new.to(cache.dtype)
+
+
+def _write_dense_sharded(cache, new, cache_pos, attend_cache: bool) -> None:
+    """:func:`_write_dense` into a DTensor cache (B, T, Hk, D) whose batch
+    and sequence dims may be sharded (``"batch"``, ``"seq_kv"``): each
+    rank writes the columns of [pos, pos + s) that fall in its own block,
+    into its local shard in place, from ``new`` laid out with the cache's
+    batch split and whole along the sequence. (Slicing a sharded dim of a
+    DTensor would gather it into a copy and write the copy.) A host-int
+    position only: the per-slot form is the engine's, which runs on one
+    card."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    if torch.is_tensor(cache_pos):
+        raise NotImplementedError(
+            "per-slot writes into a sharded cache: the engine runs on one "
+            "card")
+    b, s, t = new.shape[0], new.shape[1], cache.shape[1]
+    pos = int(cache_pos)
+    if attend_cache:
+        n = max(0, min(s, t - pos))
+    else:
+        pos, n = max(0, min(pos, t - s)), s
+    mesh = cache.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in cache.placements]
+    new_loc = (new.redistribute(mesh, pl).to_local() if is_dtensor(new)
+               else new)
+    local = cache.to_local()
+    shape, off = compute_local_shape_and_global_offset(
+        cache.shape, mesh, cache.placements)
+    lo, hi = max(pos, off[1]), min(pos + n, off[1] + shape[1])
+    if lo < hi:
+        local[:, lo - off[1]:hi - off[1]] = \
+            new_loc[:, lo - pos:hi - pos].to(local.dtype)
 
 
 def attn_apply(p, x, cfg, rules: ShardingRules = NO_RULES, *,
@@ -416,12 +519,18 @@ def attn_apply(p, x, cfg, rules: ShardingRules = NO_RULES, *,
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
     h, hk = cfg.num_heads, cfg.num_kv_heads
-    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    xn = hint(rmsnorm(x, p["norm"], cfg.norm_eps), rules,
+              ("batch", None, None))     # as in mlp_apply
     if capture is not None:
         capture["attn_in"] = xn
-    q = linear_apply(p["wq"], xn).reshape(b, s, h, hd)
-    k = linear_apply(p["wk"], xn).reshape(b, s, hk, hd)
-    v = linear_apply(p["wv"], xn).reshape(b, s, hk, hd)
+    # q over "tp" where its heads divide the axis, k and v replicated
+    # over heads (the reference's hints below), placed before the split
+    q = split_last(linear_apply(p["wq"], xn), (h, hd), rules,
+                   ("batch", None, "tp", None))
+    k = split_last(linear_apply(p["wk"], xn), (hk, hd), rules,
+                   ("batch", None, None, None))
+    v = split_last(linear_apply(p["wv"], xn), (hk, hd), rules,
+                   ("batch", None, None, None))
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     q = rope(q, positions, cfg.rope_theta)
@@ -491,15 +600,20 @@ def attn_apply(p, x, cfg, rules: ShardingRules = NO_RULES, *,
             out = decode_attention(q, k_r, v_r, positions)
         new_kv = (k_cache, v_cache)
 
-    out = hint(out, rules, ("batch", None, "tp", None))
-    out = out.reshape(b, s, h * hd)
+    out = merge_last(hint(out, rules, ("batch", None, "tp", None)), 2, rules,
+                     ("batch", None, "tp", None))
     if capture is not None:
         capture["attn_out_in"] = out
     return linear_apply(p["wo"], out).to(x.dtype), new_kv
 
 
 def mlp_apply(p, x, cfg, rules: ShardingRules = NO_RULES, *, capture=None):
-    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    # the products' input whole along the sequence, so that each rank
+    # computes its own d_ff columns, the layout of the hint on hdn below
+    # (DTensor would otherwise pick a product's layout by its own costs,
+    # and may repeat one on every model rank)
+    xn = hint(rmsnorm(x, p["norm"], cfg.norm_eps), rules,
+              ("batch", None, None))
     if capture is not None:
         capture["mlp_in"] = xn
     if cfg.mlp_act == "silu":

@@ -27,7 +27,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.sharding import NO_RULES, ShardingRules, hint
+from repro_torch.sharding import (NO_RULES, ShardingRules, hint, local_call,
+                                  split_last)
 from repro_torch.models.mamba import (_causal_conv, cached_block, conv_init,
                                       dt_bias_init, softplus)
 
@@ -59,6 +60,16 @@ def mamba2_params(gen, cfg: ModelConfig, *, lead=(), dtype=torch.float32,
         "out_norm": const(1.0, di),
         "out_proj": L.dense_init(gen, di, d, **kw),
     }
+
+
+def _einsum(eq: str, *ops):
+    """``torch.einsum`` over operands promoted to their common dtype, as
+    ``jnp.einsum`` promotes them (bf16 params' activations against the
+    f32 decays); the operands as they are when they agree."""
+    dt = ops[0].dtype
+    for o in ops[1:]:
+        dt = torch.promote_types(dt, o.dtype)
+    return torch.einsum(eq, *(o.to(dt) for o in ops))
 
 
 def _ssd_chunked(xh, dtv, a_log, bc, cc, h0, chunk: int):
@@ -93,14 +104,14 @@ def _ssd_chunked(xh, dtv, a_log, bc, cc, h0, chunk: int):
                                    device=xh.device))
     lmat = torch.exp(seg.masked_fill(~causal[None, None, :, :, None],
                                      float("-inf")))
-    scores = torch.einsum("bctn,bcsn->bcts", cg, bg)   # (B,nc,t,s)
+    scores = _einsum("bctn,bcsn->bcts", cg, bg)   # (B,nc,t,s)
     m = scores[..., None] * lmat * dg[:, :, None, :, :]
     del seg, lmat
-    y_intra = torch.einsum("bctsh,bcshp->bcthp", m, xg)
+    y_intra = _einsum("bctsh,bcshp->bcthp", m, xg)
 
     # chunk states: S_c = Σ_s exp(la_end − la_s)·dt_s·(x_s ⊗ B_s)
     decay_end = torch.exp(la[:, :, -1:, :] - la)       # (B,nc,cl,nh)
-    s_c = torch.einsum("bcsh,bcsn,bcshp->bchpn", decay_end * dg, bg, xg)
+    s_c = _einsum("bcsh,bcsn,bcshp->bchpn", decay_end * dg, bg, xg)
 
     # inter-chunk recurrence over nc, each state emitted before its chunk
     chunk_decay = torch.exp(la[:, :, -1, :])           # (B,nc,nh)
@@ -108,8 +119,8 @@ def _ssd_chunked(xh, dtv, a_log, bc, cc, h0, chunk: int):
     for c in range(nc):
         h_prev.append(h)
         h = h * chunk_decay[:, c, :, None, None] + s_c[:, c]
-    y_inter = torch.einsum("bcth,bctn,bchpn->bcthp", torch.exp(la), cg,
-                           torch.stack(h_prev, 1))
+    y_inter = _einsum("bcth,bctn,bchpn->bcthp", torch.exp(la), cg,
+                      torch.stack(h_prev, 1))
     y = (y_intra + y_inter).reshape(b, nc * chunk, nh, hd)
     return y[:, :l], h
 
@@ -158,8 +169,16 @@ def mamba2_apply(p, x: torch.Tensor, cfg: ModelConfig,
         h0 = torch.zeros((x.shape[0], nh, hd, n), dtype=torch.float32,
                          device=x.device)
     xc = L.mlp_act(xc, "silu")
-    xh = xc.reshape(*xc.shape[:2], nh, hd)
-    y, h_last = _ssd_chunked(xh, dtv, a_log, bcv, ccv, h0, chunk)
+    xh = split_last(xc, (nh, hd), rules, ("batch", None, "tp", None))
+    # independent over batch rows and heads: each rank its own
+    b, l = xh.shape[:2]
+    y, h_last = local_call(
+        lambda *a: _ssd_chunked(*a, chunk), rules,
+        [(xh, ("batch", None, "tp", None)), (dtv, ("batch", None, "tp")),
+         (a_log, ("batch", None, "tp")), (bcv, ("batch", None, None)),
+         (ccv, ("batch", None, None)), (h0, ("batch", "tp", None, None))],
+        [(("batch", None, "tp", None), (b, l, nh, hd)),
+         (("batch", "tp", None, None), (b, nh, hd, n))])
     y = y + p["D"][None, None, :, None] * xh
     y = y.reshape(*x.shape[:2], di)
     y = L.rmsnorm(y * L.mlp_act(z, "silu"), p["out_norm"], cfg.norm_eps)
@@ -185,7 +204,7 @@ class Zamba2Model(T.DenseModel):
         block's unstacked params from a second stream (``seed + 1``)."""
         params = super().init(seed, device=device, dtype=dtype)
         dev = params["embed"].device
-        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        gen = L.generator(dev).manual_seed(seed + 1)
         kw = dict(dtype=dtype, device=dev)
         params["shared"] = {"attn": L.attn_params(gen, self.cfg, **kw),
                             "mlp": L.mlp_params(gen, self.cfg, **kw)}

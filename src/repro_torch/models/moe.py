@@ -115,8 +115,10 @@ def moe_apply_dense(p, x: torch.Tensor, cfg: ModelConfig,
     xf = xn.reshape(t, d)
     gates, idx = _gates(xf, p["router"], cfg.experts_per_token)
     # dense gate matrix (T, E): the gate if routed, else 0
+    # out of place: on a mesh idx and gates are DTensors, which scatter
+    # into a plain tensor in place refuses
     ge = torch.zeros((t, cfg.num_experts), dtype=torch.float32,
-                     device=x.device).scatter_(1, idx, gates)
+                     device=x.device).scatter(1, idx, gates)
     ge = hint(ge, rules, ("batch", None))
     graph = T.needs_graph(p) or (torch.is_grad_enabled() and x.requires_grad)
     # the (T, E, f) activations are the forward's largest tensors (3.2 GB
@@ -141,6 +143,9 @@ def moe_apply_dense(p, x: torch.Tensor, cfg: ModelConfig,
         ye = L.expert_apply(wd, up.transpose(0, 1), per_expert=True)
         # y[t] = Σ_e ge[t, e] · ye[e, t]: a (1, E) × (E, d) product a token
         y = torch.bmm(ge.to(ye.dtype)[:, None, :], ye.transpose(0, 1))[:, 0]
+    elif is_dtensor(wd):
+        # experts sharded on a mesh: each rank's experts, then their sum
+        y = torch.einsum("tef,efd->td", up * ge.to(up.dtype)[..., None], wd)
     else:
         # y = Σ_e (ge[:, e] · up[:, e]) wd[e], accumulated expert by expert
         # (in place, which autograd differentiates too: addmm_ keeps its

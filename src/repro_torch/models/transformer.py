@@ -151,10 +151,11 @@ class DenseModel(nn.Module):
              dtype=torch.float32) -> Params:
         """Random parameters from ``seed`` (a ``torch.Generator`` on the
         target device; not the JAX package's numbers — the tests carry JAX
-        weights across with :mod:`repro_torch.bridge`)."""
+        weights across with :mod:`repro_torch.bridge`). ``device="meta"``
+        gives the shapes and dtypes alone (the dry run's)."""
         cfg = self.cfg
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = L.generator(dev).manual_seed(seed)
         params = {
             "embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
                                   dtype=dtype, device=dev),

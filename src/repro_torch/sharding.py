@@ -27,6 +27,7 @@ DTensor.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional, Sequence
 
 import torch
@@ -249,9 +250,19 @@ def tree_shardings(rules: ShardingRules, logical_tree, shape_tree):
 
 def distribute(x: torch.Tensor, sharding: NamedSharding):
     """``x`` (every rank passes the same whole tensor) as a DTensor placed
-    by ``sharding``; each rank keeps its shard."""
-    from torch.distributed.tensor import distribute_tensor
+    by ``sharding``; each rank keeps its shard. A ``meta`` tensor becomes
+    a DTensor of ``x``'s global shape over a meta local shard of this
+    rank's shape (the dry run's: nothing is allocated or copied)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
     mesh = sharding.mesh
+    if x.is_meta:
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+        pl = sharding.placements
+        local, _ = compute_local_shape_and_global_offset(x.shape, mesh, pl)
+        return DTensor.from_local(
+            torch.empty(local, dtype=x.dtype, device="meta"), mesh, pl,
+            run_check=False, shape=x.shape, stride=x.stride())
     if mesh.device_type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
     else:
@@ -343,12 +354,106 @@ def hint(x: torch.Tensor, rules: Optional[ShardingRules], logical_axes):
                                      rules.spec(logical_axes, x.shape)))
 
 
+def split_last(x: torch.Tensor, sizes, rules: Optional[ShardingRules],
+               logical_axes):
+    """``x`` with its last dim split into ``sizes`` (a projection's flat
+    output into heads, experts or SSM heads), laid out first as the split
+    result's ``logical_axes`` place it: the flat dim carries the first
+    split dim's mesh axes, so a head count that does not divide the TP
+    axis is replicated over it before the split (DTensor cannot split a
+    dim sharded unevenly over the new dims), as XLA reshards around the
+    reference's reshape. Only a plain reshape without a mesh or on a
+    plain tensor."""
+    shape = tuple(x.shape[:-1]) + tuple(sizes)
+    if rules is not None and rules.mesh is not None and is_dtensor(x):
+        spec = rules.spec(logical_axes, shape)
+        n = x.dim() - 1
+        assert all(e is None for e in spec[n + 1:]), spec
+        x = x.redistribute(x.device_mesh,
+                           placements(x.device_mesh, P(*spec[:n + 1])))
+    return x.reshape(shape)
+
+
+def merge_last(x: torch.Tensor, n: int, rules: Optional[ShardingRules],
+               logical_axes):
+    """The inverse of :func:`split_last`: ``x``'s last ``n`` dims merged
+    into one, and the merged dim placed as the first of them was under
+    ``logical_axes`` (``x``'s). The forward moves nothing where ``x``
+    already lies so; in backward the gradient, which arrives sharded as
+    the next product left it, is laid out as the unmerge can split it."""
+    shape = tuple(x.shape[:-n]) + (math.prod(x.shape[-n:]),)
+    y = x.reshape(shape)
+    if rules is None or rules.mesh is None or not is_dtensor(x):
+        return y
+    spec = rules.spec(logical_axes, tuple(x.shape))
+    return y.redistribute(y.device_mesh,
+                          placements(y.device_mesh,
+                                     P(*spec[:x.dim() - n + 1])))
+
+
+def local_call(fn, rules: Optional[ShardingRules], inputs, outputs):
+    """``fn`` on each rank's local blocks (a ``shard_map`` body): every
+    ``(tensor, logical_axes)`` of ``inputs`` is laid out by its axes and
+    passed to ``fn`` as its local block, and each output of ``fn`` (a
+    tuple, one per ``(logical_axes, global_shape)`` of ``outputs``) comes
+    back as a DTensor laid out by its axes. Where some input is split
+    along a mesh dim that another is whole along, each rank reads the
+    whole one for its own share of the work, so its gradient there is a
+    partial sum (reduced in backward). For work independent along the
+    split dims (batch rows, heads, channels), which DTensor's own ops
+    would gather where they fold two sharded dims into one. Without a
+    mesh or DTensor inputs, ``fn`` on the tensors as they are."""
+    if rules is None or rules.mesh is None or not any(
+            is_dtensor(t) for t, _ in inputs):
+        return fn(*(t for t, _ in inputs))
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = rules.mesh
+    placed = []
+    for t, ax in inputs:
+        pl = placements(mesh, rules.spec(ax, t.shape))
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        placed.append((t.redistribute(mesh, pl), pl))
+    work = {j for _, pl in placed for j, p in enumerate(pl)
+            if isinstance(p, Shard)}
+    outs = fn(*(t.to_local(grad_placements=[
+        Partial() if j in work and isinstance(p, Replicate) else p
+        for j, p in enumerate(pl)]) for t, pl in placed))
+    return tuple(
+        DTensor.from_local(o.contiguous(), mesh,
+                           placements(mesh, rules.spec(ax, shape)),
+                           run_check=False, shape=shape,
+                           stride=torch.empty(shape, device="meta").stride())
+        for o, (ax, shape) in zip(outs, outputs))
+
+
+def splittable(x: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """A DTensor ``x`` about to have dim ``dim`` split into ``(size, …)``
+    (GQA's heads into KV heads and groups), replicated on the mesh dims
+    that shard ``dim`` when their ranks do not divide ``size``; ``x`` as
+    it is otherwise."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    pl = list(x.placements)
+    ranks = 1
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim % x.dim() == dim % x.dim():
+            ranks *= x.device_mesh.size(i)
+    if size % ranks == 0:
+        return x
+    pl = [Replicate() if isinstance(p, Shard) and p.dim % x.dim()
+          == dim % x.dim() else p for p in pl]
+    return x.redistribute(x.device_mesh, pl)
+
+
 NO_RULES = ShardingRules(mesh=None)
 
 __all__ = ["NO_RULES", "NamedSharding", "P", "ShardingRules",
            "adapt_logical_axes", "axes_group", "distribute", "mesh_coord",
            "distribute_tree", "full_tensor", "hint", "is_dtensor",
-           "local_block",
-           "mesh_axis_size", "opt_logical_axes", "placements",
-           "qtensor_logical_axes", "rules_for_cell", "tree_shardings",
+           "local_block", "local_call", "merge_last", "mesh_axis_size",
+           "opt_logical_axes", "placements", "qtensor_logical_axes",
+           "rules_for_cell", "split_last", "splittable", "tree_shardings",
            "tree_specs"]

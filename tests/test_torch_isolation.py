@@ -59,6 +59,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {f"repro_torch.configs.{m}" for m in (
         "musicgen_medium", "internvl2_1b", "starcoder2_7b", "starcoder2_15b",
         "nemotron_4_340b", "grok_1_314b")} <= set(mods)
+    assert {"repro_torch.analysis.roofline",
+            "repro_torch.launch.dryrun"} <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}: __import__(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -71,14 +73,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 MULTI_DEVICE = ("repro_torch.sharding", "repro_torch.core.distributed",
-                "repro_torch.launch.mesh")
+                "repro_torch.launch.mesh", "repro_torch.analysis.roofline",
+                "repro_torch.launch.dryrun")
 
 
 def test_multi_device_modules_import_alone_without_a_group():
-    """The multi-device slice's modules are among those checked above, and
-    each imports alone without JAX, the JAX package or a process group
-    (meshes are made by functions, never at import); the tests' rank
-    harness imports neither JAX nor the JAX package either."""
+    """The multi-device slice's modules and the dry run's are among those
+    checked above, and each imports alone without JAX, the JAX package or
+    a process group (meshes, fake or not, are made by functions, never at
+    import); the tests' rank harness imports neither JAX nor the JAX
+    package either."""
     assert set(MULTI_DEVICE) <= set(_port_modules())
     code = ("import sys, torch.distributed as dist\n"
             f"for m in {MULTI_DEVICE!r}: __import__(m)\n"

@@ -481,6 +481,59 @@ def _a2a_dtensor(p, x, g_out, cfg, rules, p2, cfg2, rules14):
     return out
 
 
+@case
+def shard_heads(inp):
+    """The tiny granite-8b (4 query heads over 2 KV heads) and
+    starcoder2-7b (3 over 1) on a (1, 4) mesh, whose model axis is wider
+    than their KV heads (and starcoder2-7b's query heads): the logits, the
+    loss and every leaf's gradient, and a prefill then a decode step
+    against a cache sharded as ``cache_logical_axes`` places it."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    mesh = _mesh((1, 4), ("data", "model"))
+    # the plain tensors the model makes itself (positions, masks) count as
+    # replicated, as sharded_step has them count
+    with implicit_replication():
+        return {arch: _shard_heads_arch(inp, arch, mesh)
+                for arch in ("granite-8b", "starcoder2-7b")}
+
+
+def _shard_heads_arch(inp, arch, mesh):
+    import torch
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import build_model
+    from repro_torch.sharding import (NamedSharding, P, ShardingRules,
+                                      distribute, distribute_tree,
+                                      tree_shardings)
+    from repro_torch.training.train_loop import loss_and_grads
+    rules = ShardingRules.for_mesh(mesh)
+    model = build_model(get_tiny_config(arch), rules, remat=False)
+    params = _params(inp, f"{arch}/params/")
+    params = distribute_tree(params, tree_shardings(
+        rules, model.param_logical_axes(), params))
+
+    def placed(x):
+        spec = P("data", *[None] * (x.dim() - 1))
+        return distribute(x, NamedSharding(rules.mesh, spec))
+    batch = {k: placed(torch.from_numpy(inp[f"{arch}/batch/{k}"]))
+             for k in ("tokens", "labels")}
+    res = {"logits": model.logits(params, batch)}
+    loss, grads, _ = loss_and_grads(model, params, batch)
+    res["loss"], res["grads"] = loss, grads
+    prompt = placed(torch.from_numpy(inp[f"{arch}/prompt"]))
+    cache = model.init_cache(prompt.shape[0], int(inp["max_len"]),
+                             device="cpu")
+    axes = model.cache_logical_axes()
+    cache = {k: (distribute_tree(v, tree_shardings(rules, axes[k], v))
+                 if torch.is_tensor(v) else v) for k, v in cache.items()}
+    res["cache_k_placements"] = _pl(cache["k"].placements)
+    logits, cache = model.prefill(params, {"tokens": prompt}, cache)
+    res["prefill"] = logits
+    tok = placed(torch.from_numpy(inp[f"{arch}/next"]))
+    logits, cache = model.decode_step(params, tok, cache)
+    res["decode"], res["cache_k"] = logits, cache["k"]
+    return res
+
+
 def _qt(inp, prefix):
     from repro_torch.bridge import qtensor_from_numpy
     import types
