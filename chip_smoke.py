@@ -15,15 +15,18 @@ qwen3-moe-235b-a22b at its published widths cut to 2 of its 94 layers
 top-8, padded vocab 153600; 6.23e9 f32 parameters from the seed). K4x is
 held to its plain version at E 8 and 128, both projections' (N, K), M
 1-512, groups 128 and 64, shared and per-expert (strided, and misaligned)
-x and every variant, and timed beside ``torch.matmul`` on the stack
-dequantized beforehand; K6 at its decode shape (g = 16, D = 128). The
+x and every variant (at M <= 8 the expert GEMV also bit-equal to the
+tile, with zeros off the integers too), and timed beside ``torch.matmul``
+on the stack dequantized beforehand; K6 at its decode shape (g = 16, D =
+128). The
 model is compressed (batched engine, the mixed policy below, 16,384
 calibration tokens), packed in memory and decoded statically through the
 kernels and through the plain versions, the two held to the parity bars,
 then served by the slot engine of 3 below on the kernels' packed model
 (kernels, sync-debug, plain): only K4, K4x, K5 and K6 may launch, K4x
 three times a layer in every forward, and K4x's census is timed key by
-key. Then the evaluation phase (:func:`phase_methods`): llama2-7b at its
+key (at the expert GEMV's keys beside the unsplit GEMV it replaced).
+Then the evaluation phase (:func:`phase_methods`): llama2-7b at its
 published widths cut to 1 of its 32 layers (d_model 4096, 32 MHA heads of
 128, d_ff 11008, vocab 32000 padded to 32768, untied; 0.47e9 f32
 parameters from the seed). The params go through the port's
@@ -160,7 +163,12 @@ kernel events at their launch counts; ``[profile]`` lines print the
 device idle share of decode-only and admission steps, busy ms and kernels
 a step, the top device and host ops, the longest idle gaps and what the
 host was in at each; then one batched compression with block 1 in a
-``trace_window``, whose codes and masks must equal the timed run's. Then
+``trace_window``, whose codes and masks must equal the timed run's; after
+the SSM profile the MoE slot engine once more in a ``StepTraceWindow``
+(:func:`phase_moe_profile`): its tokens the timed run's, the expert
+GEMV's kernel events K4x's launches of it, and a ``[moe profile]`` line
+with the decode-only steps' idle share and K4x's share of their kernel
+time. Then
 sampled tokens (:func:`check_sampling`): the reference's probe tokens
 from the card's Threefry-2x32 sampler, and the slot and paged engines on
 a sampled trace with every ``sample_tokens`` call held to the same
@@ -212,7 +220,8 @@ in tile order, so later engine tokens may part). With the batched engine
 the plain K1b is cuBLAS's strided-batched product: if it also sums in
 K1b's order the two paths must agree as well; if not, the first differing
 layer is printed and the pair held to the bars. Before them the MoE phase
-runs again: K4x's tile bit-equal to its plain version, the MoE
+runs again: K4x's tile bit-equal to its plain version (the expert GEMV
+bit-equal to the tile at M <= 8), the MoE
 compression with its host waits counted a block in sync-debug mode, its
 codes, masks and static tokens the same bits on both paths if the
 compressions agree, and every slot-engine request's first token equal;
@@ -842,8 +851,10 @@ def phase_build():
         log(f"[build] dequant_matmul.cu: variant {v} "
             f"({ops.dequant_matmul_variant_name(v)}): "
             f"{lib.dequant_matmul_smem_bytes(v, ops.GEMV_MAX_M)} B dynamic "
-            f"shared memory" + (f" at M = {ops.GEMV_MAX_M}"
-                                if v >= len(ops.DEQUANT_TILES) else ""))
+            f"shared memory" + (
+                f" at M = {ops.GEMV_MAX_M}" if len(ops.DEQUANT_TILES) <= v
+                < ops.GEMVX else f" at M = {ops.GEMV_MAX_M}, group 32"
+                if v == ops.GEMVX else ""))
 
 
 def phase_kernels(torch, dev):
@@ -1076,16 +1087,22 @@ def check_k2(torch, dev, gen, randn):
                 20)
         ms = times[ops.topk_row_variant_name(pick)]
         plain = time_ms(torch, lambda i: ref.topk_row(zs[i % len(zs)], k), 20)
+        # the census's yardstick, torch.topk(|z|, k, sorted=False), at the
+        # one row no path's census holds
+        lib = (time_ms(torch, lambda i: torch.topk(
+            zs[i % len(zs)].abs(), k, dim=-1, sorted=False), 20)
+            if name.startswith("row") else None)
         bnd, by = bound_ms(0.0, 8.0 * z.numel())
         log(f"[K2] topk_row {name} k={k}: every variant exact; the pick "
             f"{ops.topk_row_variant_name(pick)} {ms:.4f} ms "
-            f"({bnd / ms:.0%} of the bound), plain {plain:.4f} ms, bound "
-            f"{bnd:.4f} ms ({by}); variants "
+            f"({bnd / ms:.0%} of the bound), plain {plain:.4f} ms, "
+            + (f"torch.topk {lib:.4f} ms, " if lib is not None else "")
+            + f"bound {bnd:.4f} ms ({by}); variants "
             + ", ".join(f"{n} {t:.4f} ms" for n, t in times.items()))
         entry = dict(shape=f"{name},k={k}",
                      variant=ops.topk_row_variant_name(pick), ms=ms,
                      plain_ms=plain, bound_ms=bnd, bound_by=by,
-                     variant_ms=times)
+                     variant_ms=times, topk_ms=lib)
         by_shape.append(entry)
         if row is None:
             row = dict(entry, shape="rows=2048,d=2048,k=1024",
@@ -1885,7 +1902,7 @@ def check_k4x(torch, dev):
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    err_all, by_shape, row, checked = 0.0, [], None, 0
+    err_all, by_shape, row, checked, checked_chain = 0.0, [], None, 0, 0
     for e in K4X_E:
         for group in (128, 64):
             for n, k in K4X_NK:
@@ -1907,7 +1924,7 @@ def check_k4x(torch, dev):
                             k, n, group, x, stack[0])
                         chosen = ops.dequant_matmul_tiles(m, n, k, vec, sms,
                                                           e)
-                        err, times = 0.0, {}
+                        err, times, chain = 0.0, {}, {}
                         form = "per-expert" if per_expert else "shared"
                         for v in ops.dequant_matmul_variants(m, k, vec):
                             name = ops.dequant_matmul_variant_name(v)
@@ -1915,6 +1932,9 @@ def check_k4x(torch, dev):
                                 x, *stack, group, per_expert, variant=v)
                             again = ops.dequant_matmul_experts(
                                 x, *stack, group, per_expert, variant=v)
+                            if m <= ops.GEMV_MAX_M and v in (
+                                    len(ops.DEQUANT_TILES) - 1, ops.GEMVX):
+                                chain[v] = y
                             d = float((y - y_ref).abs().max())
                             check(d <= 1e-5 * ymax,
                                   f"K4x E={e} M={m} N={n} K={k} group="
@@ -1930,6 +1950,15 @@ def check_k4x(torch, dev):
                                     torch, lambda i: ops.dequant_matmul_experts(
                                         x, *stack, group, per_expert,
                                         variant=v), 3 if m > 64 else 10)
+                        # the expert GEMV sums each output in one k-order
+                        # chain from +0, the tile's: the tile's bits
+                        if ops.GEMVX in chain:
+                            check(torch.equal(chain[ops.GEMVX], chain[
+                                len(ops.DEQUANT_TILES) - 1]),
+                                f"K4x E={e} M={m} N={n} K={k} group={group} "
+                                f"{form}: gemvx differs from the tile")
+                            checked_chain += 1
+                        del chain
                         err_all = max(err_all, err)
                         if not timed:
                             continue
@@ -1970,8 +1999,27 @@ def check_k4x(torch, dev):
         check(d <= 1e-5 * float(y_ref.abs().max()),
               f"K4x misaligned view, tile variant {v}: max|dy| {d:.3e}")
         checked += 1
+    # zeros off the integers take the expert GEMV's three-operation
+    # dequantize: still the tile's bits
+    e, n, k, m = K4X_E[0], 1536, 4096, 8
+    stack = k4x_stack(torch, dev, gen, e, n, k, 128)
+    stack = (stack[0], stack[1], stack[2] + 0.25)
+    for per_expert in (False, True):
+        x = k4x_x(torch, dev, gen, e, m, k, per_expert)
+        y = ops.dequant_matmul_experts(x, *stack, 128, per_expert,
+                                       variant=ops.GEMVX)
+        check(torch.equal(y, ops.dequant_matmul_experts(
+            x, *stack, 128, per_expert, variant=len(ops.DEQUANT_TILES) - 1)),
+            "K4x: gemvx with fractional zeros differs from the tile")
+        y_ref = ref.dequant_matmul_experts(x, *stack, 128, per_expert)
+        d = float((y - y_ref).abs().max())
+        check(d <= 1e-5 * float(y_ref.abs().max()),
+              f"K4x gemvx, fractional zeros: max|dy| {d:.3e}")
+        checked_chain += 1
     log(f"[K4x] {checked} (shape, variant) checks within 1e-5 of max|y|, "
-        f"the misaligned view at every tile variant included")
+        f"the misaligned view at every tile variant included; gemvx the "
+        f"tile's bits at all {checked_chain} (shape, group, form) cases at "
+        f"M <= 8, fractional zeros included")
     row["max_abs_err"] = err_all
     row["by_shape"] = by_shape
     return row
@@ -2202,7 +2250,7 @@ def phase_k4x_census(torch, dev, census):
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(SEED + 22)
     keys = sorted({key for c in census.values() for key in c})
-    times = {}
+    times, gemv = {}, {}
     for e, n, k in sorted({key[:1] + key[2:4] for key in keys}):
         stack = k4x_stack(torch, dev, gen, e, n, k, 128)
         w32t = torch.stack([ref.dequant(ref.unpack_int4(stack[0][i]),
@@ -2221,28 +2269,38 @@ def phase_k4x_census(torch, dev, census):
                       f"K4x census {key} variant {vv}: max|dy| {d:.3e}")
             times[key] = k4x_times(torch, x, stack, 128, per_expert, v, w32t)
             ms, plain, lib = times[key]
+            # the GEMV the expert GEMV replaced (unsplit, its pick at E = 128)
+            gemv[key] = (time_ms(torch, lambda i: ops.dequant_matmul_experts(
+                x, *stack, 128, per_expert, variant=len(ops.DEQUANT_TILES)),
+                10) if v == ops.GEMVX else ms)
             bnd, by = k4x_bound(e, m, n, k, 128, per_expert)
             log(f"[K4x census] E={e} M={m} N={n} K={k} "
                 f"{'per-expert' if per_expert else 'shared'} "
                 f"{ops.dequant_matmul_variant_name(v)}: launches "
                 + ", ".join(f"{p} {c.get(key, 0)}" for p, c in census.items())
                 + f"; every variant within 1e-5; kernel {ms:.4f} ms "
-                f"({bnd / ms:.1%} of the bound), plain {plain:.4f} ms, bmm "
-                f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+                f"({bnd / ms:.1%} of the bound)"
+                + (f", gemv split 1 {gemv[key]:.4f} ms"
+                   if v == ops.GEMVX else "")
+                + f", plain {plain:.4f} ms, bmm {lib:.4f} ms, bound "
+                f"{bnd:.4f} ms ({by})")
         del stack, w32t
         torch.cuda.empty_cache()
     out = {}
     for path, c in census.items():
         secs = [sum(cnt * times[key][i] for key, cnt in c.items()) / 1e3
                 for i in range(3)]
+        gemv_s = sum(cnt * gemv[key] for key, cnt in c.items()) / 1e3
         log(f"[K4x census] {path}: {sum(c.values())} launches at {len(c)} "
-            f"keys; K4x device seconds {secs[0]:.4f} s, the plain "
+            f"keys; K4x device seconds {secs[0]:.4f} s (with the GEMV of "
+            f"split 1 at the gemvx keys {gemv_s:.4f} s), the plain "
             f"version's {secs[1]:.4f} s, bmm's {secs[2]:.4f} s")
         out[path] = dict(launches=sum(c.values()), keys=len(c),
-                         device_s=secs[0], plain_s=secs[1],
-                         library_s=secs[2])
-    out["by_key"] = [dict(key=list(key), ms=t[0], plain_ms=t[1],
-                          library_ms=t[2]) for key, t in sorted(times.items())]
+                         device_s=secs[0], gemv_device_s=gemv_s,
+                         plain_s=secs[1], library_s=secs[2])
+    out["by_key"] = [dict(key=list(key), ms=t[0], gemv_ms=gemv[key],
+                          plain_ms=t[1], library_ms=t[2])
+                     for key, t in sorted(times.items())]
     return out
 
 
@@ -2254,7 +2312,8 @@ def phase_moe(torch, dev):
     census. Nothing else is on the card meanwhile: each run makes its
     weights from the seed, and the kernel run's packed model waits in host
     memory while the plain run compresses. Returns the JSON row of K4x,
-    the launches by path and the numbers."""
+    the launches by path, the numbers and what :func:`phase_moe_profile`
+    needs (the packed model in host memory, the engine's timed run)."""
     from repro_torch import kernels
     t0 = time.time()
     row = check_k4x(torch, dev)
@@ -2284,7 +2343,7 @@ def phase_moe(torch, dev):
     del run_p
     torch.cuda.empty_cache()
     packed = run_k["packed"]
-    launches_e, _, eng, _, _ = phase_engine(
+    launches_e, tokens_e, eng, _, _ = phase_engine(
         torch, cfg, model, packed, "moe ", exact_first=False,
         path=MOE_ENGINE_PATH)
     k4x_slot = eng["kernels"]["k4x"]
@@ -2292,6 +2351,9 @@ def phase_moe(torch, dev):
         eng[run].pop("k4x")
     moe_engine_check(launches_e, eng["kernels"], "the MoE engine")
     a2a_launches, a2a = check_a2a_moe(torch, dev, cfg, model, packed)
+    # for the profile after every timed run (phase_moe_profile)
+    keep = dict(cfg=cfg, model=model, packed=to_host_tree(packed),
+                tokens=tokens_e, stats=eng["kernels"])
     del packed, run_k["packed"]
     torch.cuda.empty_cache()
     census = phase_k4x_census(torch, dev, {"static": run_k["k4x"],
@@ -2305,14 +2367,76 @@ def phase_moe(torch, dev):
                    kernels_vs_plain=held, engine=eng, a2a=a2a,
                    a2a_launches=a2a_launches)
     return row, {"moe_compress_decode": run_k["launches"],
-                 "moe_engine": launches_e}, summary
+                 "moe_engine": launches_e}, summary, keep
+
+
+def phase_moe_profile(torch, dev, keep):
+    """After every timed run: the MoE slot engine's kernel run once more in
+    a ``StepTraceWindow`` (``keep``: :func:`phase_moe`'s packed model and
+    timed run). Its tokens must be the timed run's, the trace's expert
+    GEMV events K4x's launches of that variant, and its K4 and K4x GEMV
+    and tile events the other launches of both. Prints the decode-only
+    steps' device idle share and busy time, K4x's device time a step and
+    its share of the steps' kernel time, and returns them."""
+    from repro_torch.kernels import ops
+    cfg, model, st_timed = keep["cfg"], keep["model"], keep["stats"]
+    packed = to_card_tree(keep["packed"], dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        launches, tokens, st, _, _ = run_engine(
+            torch, model, packed, engine_trace(cfg),
+            "moe engine kernels, profiled", profile=(tmp, st_timed["steps"]))
+        with open(st["trace"]) as f:
+            prof = read_profile(json.load(f)["traceEvents"])
+    del packed
+    torch.cuda.empty_cache()
+    check(tokens == keep["tokens"],
+          "moe profile: the profiled run's tokens differ")
+    wins, kernels = prof["windows"], prof["kernels"]
+    check(len(wins) == st["steps"] == st_timed["steps"],
+          f"moe profile: {len(wins)} ProfilerStep windows for {st['steps']} "
+          f"steps")
+    n_gx = sum(c for key, c in st["k4x"].items() if key[4] == ops.GEMVX)
+    gx = sum(c for k, c in kernels.items() if "dequant_gemvx_kernel" in k)
+    rest = sum(c for k, c in kernels.items()
+               if "dequant_gemv_kernel" in k or "dequant_gemm_kernel" in k)
+    check(gx == n_gx > 0, f"moe profile: {gx} expert GEMV kernel events, "
+                          f"{n_gx} launches")
+    check(rest == launches["dequant_matmul"]
+          + launches["dequant_matmul_experts"] - n_gx,
+          f"moe profile: {rest} K4 and K4x GEMV and tile kernel events")
+    decode = [w for w, a in zip(wins, st["admitted"]) if not a]
+    out = profile_summary(prof, "moe engine", {
+        "decode-only": decode,
+        "admission": [w for w, a in zip(wins, st["admitted"]) if a]})
+    inside = _inside(decode)
+    k4x_ms = kern_ms = 0.0
+    for e in prof["device"]:
+        if e["cat"] == "kernel" and inside(e["ts"]):
+            kern_ms += e["dur"] / 1e3
+            if "dequant_gemvx_kernel" in e["name"]:
+                k4x_ms += e["dur"] / 1e3
+    n = max(len(decode), 1)
+    o = out["decode-only"]
+    o.update(k4x_ms=k4x_ms / n, kernel_ms=kern_ms / n,
+             k4x_share=k4x_ms / kern_ms if kern_ms else 0.0,
+             timed_step_ms=st_timed["decode_only_step_ms"])
+    log(f"[moe profile] decode-only steps: {len(decode)}; device idle share "
+        f"{o['idle_mean']:.4f} ({o['idle_min']:.4f}-{o['idle_max']:.4f}); "
+        f"device busy {o['busy_ms']:.3f} ms of a {o['step_ms']:.3f} ms "
+        f"profiled step ({o['timed_step_ms']:.3f} ms timed); kernel time "
+        f"{o['kernel_ms']:.3f} ms a step, K4x (gemvx) {o['k4x_ms']:.3f} ms "
+        f"of it ({o['k4x_share']:.1%}), {o['kernels']:.1f} kernels a step")
+    return out
 
 
 def parity_moe(torch, dev):
     """Under unsplit cuBLAS: K4x's tile bit-equal to its plain version at
-    qwen3-moe's (N, K), M 64 and 512, E 8, both forms, every tile variant
-    (the GEMV's differing entries printed, a record); then the MoE main
-    path through the kernels, its compression in sync-debug mode with the
+    qwen3-moe's (N, K), M 64 and 512, E 8, both forms, every tile variant;
+    at M 4 and 8 the expert GEMV bit-equal to the tile (both one k-order
+    chain an output), and the entries where the tile, the expert GEMV and
+    the GEMV differ from the plain version printed (a record: cuBLAS's
+    kernels at M <= 8 sum in another order); then the MoE main path
+    through the kernels, its compression in sync-debug mode with the
     host's waits counted a block, and through the plain versions: the same
     bits and static tokens if the compressions agree bit for bit (else the
     first differing layer is printed and the pair held to the bars), and
@@ -2321,28 +2445,40 @@ def parity_moe(torch, dev):
     from repro_torch import kernels
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
-    checked, gemv = 0, {}
+    checked, checked_chain, gemv = 0, 0, {}
     for n, k in K4X_NK:
         stack = k4x_stack(torch, dev, gen, 8, n, k, 128)
         for m in (4, 8, 64, 512):
             for per_expert in (False, True):
                 x = k4x_x(torch, dev, gen, 8, m, k, per_expert)
                 y_ref = ref.dequant_matmul_experts(x, *stack, 128, per_expert)
+                tile = None
                 for v in ops.dequant_matmul_variants(m, k):
                     y = ops.dequant_matmul_experts(x, *stack, 128, per_expert,
                                                    variant=v)
                     n_diff = int((y != y_ref).sum())
-                    if v >= len(ops.DEQUANT_TILES):
-                        gemv[(m, n, k, per_expert, v)] = n_diff
-                        continue
+                    if v == 0:
+                        tile = y
                     if m <= ops.GEMV_MAX_M:
+                        if v in (0, len(ops.DEQUANT_TILES), ops.GEMVX):
+                            gemv[(m, n, k, per_expert,
+                                  ops.dequant_matmul_variant_name(v))] = n_diff
+                        if v == ops.GEMVX:
+                            checked_chain += 1
+                            check(torch.equal(y, tile),
+                                  f"K4x M={m} N={n} K={k}: gemvx differs from "
+                                  f"the tile under unsplit cuBLAS")
+                        continue
+                    if v >= len(ops.DEQUANT_TILES):
                         continue
                     checked += 1
                     check(n_diff == 0, f"K4x M={m} N={n} K={k} variant {v}: "
                                        f"{n_diff} entries differ from the "
                                        f"plain version under unsplit cuBLAS")
     log(f"[parity K4x] tile bit-equal to the plain version at all {checked} "
-        f"(shape, form, variant) triples; GEMV entries differing (a record): "
+        f"(shape, form, variant) triples at M > 8; gemvx bit-equal to the "
+        f"tile at all {checked_chain} at M <= 8; entries differing from the "
+        f"plain version at M <= 8 (a record): "
         + ", ".join(f"{key}: {d}" for key, d in gemv.items()))
     cfg = dataclasses.replace(moe_config(), num_layers=PARITY_MOE_LAYERS)
     model, calib, prompts = model_setup(torch, dev, cfg)
@@ -5953,7 +6089,8 @@ def main() -> None:
     phase_build()
     rows = phase_kernels(torch, dev)
     fused_launches = check_prune_fused(torch, dev)
-    rows["dequant_matmul_experts"], moe_launches, moe = phase_moe(torch, dev)
+    rows["dequant_matmul_experts"], moe_launches, moe, moe_keep = phase_moe(
+        torch, dev)
     torch.cuda.empty_cache()
     shapes, methods_launches, methods_k4, methods_k2, methods = \
         phase_methods(torch, dev)
@@ -6009,8 +6146,9 @@ def main() -> None:
         {"slot": (slot_tokens, eng["kernels"])})
     check_busy_floor({"slot": eng}, k4_census, k6_census)
     ssm["profile"] = phase_ssm_profile(torch, dev, ssm_keep)
+    moe["profile"] = phase_moe_profile(torch, dev, moe_keep)
     sampling = check_sampling(torch, dev, cfg, model, packed)
-    del data, model, packed, report, ssm_keep
+    del data, model, packed, report, ssm_keep, moe_keep
     torch.cuda.empty_cache()
     dryrun = phase_dryrun(torch, dev, card)
     torch.cuda.empty_cache()

@@ -35,9 +35,10 @@
 // fmaf chain in k order from k = 0, starting at +0 (no split-K, no second
 // accumulator), the order of an unsplit cuBLAS SGEMM, so under unsplit
 // cuBLAS y is bit-equal to the plain version (dequantize, then x·Wᵀ).
-// Zero-filled operands past the M, N and K edges add +0·0 terms. The GEMV
-// sums in another order (below), deterministically: the same inputs give
-// the same bits from launch to launch.
+// Zero-filled operands past the M, N and K edges add +0·0 terms. The
+// expert GEMV keeps that order; the GEMV sums in another (below),
+// deterministically: the same inputs give the same bits from launch to
+// launch.
 //
 // Design of the tile (kernels/ops.py, dequant_matmul_tiles, picks the
 // variant by shape; variants 0..3: 128 × 128, 64 × 128 and 64 × 64 outputs
@@ -88,10 +89,49 @@
 // - The split is the least that gives every SM a block (N = 8192: 2; N =
 //   2048 and 512: 8, the largest portable cluster, 64 blocks at N = 512).
 //   Its floor is latency, not bytes: at N = 8192 it moves 0.6–0.7 TB/s.
+// Design of the expert GEMV (variant 8, "gemvx"; M <= 8, picked for stacks
+// that fill the card: qwen3-moe's 128 experts at decode). Bound: at M = 8
+// the 2·E·M·N·K operations (12.9 GFLOP, 0.192 ms at 67 TFLOP/s) outweigh
+// the 453 MB of codes, scales and zeros (0.135 ms); at M <= 4 the bytes.
+// The GEMV above, with the experts on grid z, ran 3,072–8,192 blocks of 64
+// columns at 29–39% of that, for three reasons: every block staged x's
+// k-tile beside its codes (as many bytes of x as of codes over a launch),
+// every block paid a ring prologue and a cross-warp reduction for 6–16
+// k-tiles of work, and a lane's issue mix (four dequantize operations a
+// code, one x float4 for 8 FMAs) capped its FMA share. What this design
+// does about each:
+// - Persistent blocks, one an SM, of 8 warps walk rounds of 8 tasks; a
+//   task is 64 output columns of one expert over all of K, a warp's: lane
+//   l owns columns l and l + 32 and keeps one fmaf chain per output, in k
+//   order from +0 — the tile's order and bits, with no reduction across
+//   warps or blocks. y is written straight from the accumulators.
+// - A block's 8 warps stream 512 weight rows through a two-stage
+//   cp.async ring of 256 codes a stage (eight lanes copy a row's 128
+//   bytes: whole sectors, and HBM streams 128-byte runs a row at 2.76
+//   TB/s where 32-byte runs reach 1.79; scripts/k4x_probe.py on an H100
+//   at 700 W), with x's (M, 256) k-tile once a
+//   stage for the block: x is 1/8 of the staged bytes at M = 8, not as
+//   many as the codes. One __syncthreads a stage; the ring runs across
+//   rounds, so a task's first stage lands while the last one's computes.
+// - Each row's scales and zeros come in windows of 8 groups (32 bytes of
+//   each array, whole sectors), once a window, not once a k-tile:
+//   scattered 4-byte copies of 512 rows cost an L2 sector each.
+// - Dequantize in two f32 operations: where every zero of a group is an
+//   integer of magnitude <= 2^23 (the quantizer's: round, then clamp to
+//   [0, qmax]), (2^23 + code) − (2^23 + zero) is exact, so one rounded
+//   product with the scale gives the plain version's value; a warp vote a
+//   group takes the three-operation form for any other zero.
+// What still bounds it at M = 8 is the lane's issue: a code costs a byte
+// permute, a subtraction and a product for M FMAs, and an x float4 feeds
+// 8 FMAs, so FMAs are about 64% of the loop's instructions by its count;
+// the chunk loop alone runs at 28 TFLOP/s at M = 8 where a loop of FMAs
+// reaches 64 (scripts/k4x_probe.py; chip_smoke.py prints the kernel's
+// times beside its bound).
 // Resources (ptxas of CUDA 12.8 for sm_90a; chip_smoke.py prints them at
 // every build): tiles 128, 128, 96 and 96 registers (128, 99, 79, 79 in
 // the scalar-copy instantiations), 106,496, 73,728, 54,272 and 28,160 B of
-// dynamic shared memory; the GEMV 48–80 registers and 89,088 B at M = 8.
+// dynamic shared memory; the GEMV 48–80 registers and 89,088 B at M = 8;
+// the expert GEMV up to 220 registers and 212,992 B at M = 8.
 // No spills but 12 B in the 128 × 128 scalar-copy instantiation.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -641,6 +681,334 @@ dequant_gemv_kernel(const float* __restrict__ x,
   cluster.sync();                      // no block leaves while read
 }
 
+// ---------------------------------------------------------- expert GEMV
+constexpr int GX_WARPS = 8;
+constexpr int GX_THREADS = 32 * GX_WARPS;
+constexpr int GX_C = 2;              // columns a lane
+constexpr int GX_COLS = 32 * GX_C;   // columns a task, a warp's
+constexpr int GX_KS = 256;           // codes a stage: 128 bytes a row
+constexpr int GX_PIECES = GX_KS / 32;   // 16-byte pieces a row, a stage
+constexpr int GX_ROWS = GX_WARPS * GX_COLS;        // weight rows a block
+constexpr int GX_WARP_CODE_BYTES = GX_COLS * GX_KS / 2;
+constexpr int GX_WIN = GX_PIECES;    // groups a row's scale window holds
+constexpr int GX_WIN_BYTES = 2 * GX_ROWS * GX_WIN * 4;   // scales, zeros
+constexpr size_t GX_MAX_SMEM = 232448;   // a block's dynamic shared memory
+
+// A stage: x's k-tile (M, GX_KS) f32, then every warp's 64 rows' codes
+// (128 bytes a row, 16-byte pieces swizzled). Two stages, then two
+// windows of the rows' scales then zeros, GX_WIN groups a row (a window
+// spans group / 32 stages).
+__host__ __device__ inline int gemvx_stage_bytes(int M) {
+  return 4 * M * GX_KS + GX_WARPS * GX_WARP_CODE_BYTES;
+}
+__host__ __device__ inline size_t gemvx_smem(int M) {
+  return (size_t)2 * gemvx_stage_bytes(M) + 2 * GX_WIN_BYTES;
+}
+
+// The work of a launch in rounds of up to 8 tasks (a task: 64 columns of
+// one expert over all of K; warp w takes a round's task w). Shared x:
+// block b takes the tasks [E·T·b / B, E·T·(b + 1) / B) (T = ⌈N/64⌉ an
+// expert) in rounds of 8 from its first; per-expert x: each expert's
+// tasks make ⌈T/8⌉ rounds of their own, and block b takes the rounds
+// [R·b / B, R·(b + 1) / B), so a round's warps read one x.
+struct GxPlan {
+  int E, T, per_e, blocks;
+  bool shared;
+  __host__ __device__ GxPlan(int E_, int N, bool shared_x, int blocks_)
+      : E(E_), T((N + GX_COLS - 1) / GX_COLS),
+        per_e((T + GX_WARPS - 1) / GX_WARPS), blocks(blocks_),
+        shared(shared_x) {}
+  __host__ __device__ int units() const {   // tasks (shared) or rounds
+    return shared ? E * T : E * per_e;
+  }
+  // block b's first and last unit and its rounds
+  __host__ __device__ int rounds_of(int b, int& u0, int& u1) const {
+    const long long u = units();
+    u0 = (int)(u * b / blocks);
+    u1 = (int)(u * (b + 1) / blocks);
+    return shared ? (u1 - u0 + GX_WARPS - 1) / GX_WARPS : u1 - u0;
+  }
+  // warp w's task in the block's round i: its expert and first column,
+  // false if none; xe: the expert whose x the round reads
+  __device__ bool task(int u0, int u1, int i, int w, int& e, int& n0,
+                       int& xe) const {
+    int t;
+    if (shared) {
+      t = u0 + GX_WARPS * i + w;
+      xe = 0;
+      if (t >= u1) return false;
+    } else {
+      const int r = u0 + i;
+      xe = r / per_e;
+      const int j = (r - xe * per_e) * GX_WARPS + w;
+      if (j >= T) return false;
+      t = xe * T + j;
+    }
+    e = t / T;
+    n0 = (t - e * T) * GX_COLS;
+    return true;
+  }
+};
+
+// one dequantized code: FAST subtracts 2^23 + zero from 2^23 + code (exact
+// for an integer zero, checked by the caller); else the plain three steps
+template <bool FAST>
+__device__ __forceinline__ float gx_deq(unsigned e, int i, float zb, float z,
+                                        float s) {
+  const float biased =
+      __uint_as_float(__byte_perm(e, 0x4B000000u, 0x7540 | i));
+  if constexpr (FAST) return __fmul_rn(__fsub_rn(biased, zb), s);
+  return __fmul_rn(__fsub_rn(__fsub_rn(biased, 8388608.0f), z), s);
+}
+
+// one 32-code chunk of the lane's GX_C columns into its accumulators:
+// column c's codes wv[c], scale s[c], zero z[c], zb[c] = 2^23 + z[c]; xk
+// is x's first k of the chunk in shared memory, rows GX_KS apart. One x
+// float4 feeds 4·GX_C FMAs.
+template <int MT, bool FAST>
+__device__ __forceinline__ void gx_chunk(float (&acc)[GX_C][MT],
+                                         const uint4 (&wv)[GX_C],
+                                         const float (&s)[GX_C],
+                                         const float (&z)[GX_C],
+                                         const float (&zb)[GX_C],
+                                         const float* xk) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    unsigned e0[GX_C], e1[GX_C];
+#pragma unroll
+    for (int c = 0; c < GX_C; ++c) {
+      const unsigned w = word_of(wv[c], q);
+      e0[c] = w & 0x0F0F0F0Fu;          // codes 8q, +2, +4, +6
+      e1[c] = (w >> 4) & 0x0F0F0F0Fu;   // 8q + 1, +3, +5, +7
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      // codes 8q + 4hh .. + 3 of the chunk
+      float wf[GX_C][4];
+#pragma unroll
+      for (int c = 0; c < GX_C; ++c) {
+        wf[c][0] = gx_deq<FAST>(e0[c], 2 * hh, zb[c], z[c], s[c]);
+        wf[c][1] = gx_deq<FAST>(e1[c], 2 * hh, zb[c], z[c], s[c]);
+        wf[c][2] = gx_deq<FAST>(e0[c], 2 * hh + 1, zb[c], z[c], s[c]);
+        wf[c][3] = gx_deq<FAST>(e1[c], 2 * hh + 1, zb[c], z[c], s[c]);
+      }
+      const float* xq = xk + 8 * q + 4 * hh;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float4 xv = *reinterpret_cast<const float4*>(xq + m * GX_KS);
+#pragma unroll
+        for (int c = 0; c < GX_C; ++c) {
+          acc[c][m] = fmaf(xv.x, wf[c][0], acc[c][m]);
+          acc[c][m] = fmaf(xv.y, wf[c][1], acc[c][m]);
+          acc[c][m] = fmaf(xv.z, wf[c][2], acc[c][m]);
+          acc[c][m] = fmaf(xv.w, wf[c][3], acc[c][m]);
+        }
+      }
+    }
+  }
+}
+
+// byte offset of row r's 16-byte piece p among a warp's codes: GX_KS / 2
+// bytes a row, pieces swizzled so that 8 lanes reading one piece of 8
+// rows, and 8 lanes copying consecutive pieces, touch 8 different bank
+// groups
+__device__ __forceinline__ int gx_piece(int r, int p) {
+  return r * (GX_KS / 2) + ((p ^ ((r / (8 / GX_PIECES)) % GX_PIECES)) << 4);
+}
+
+template <int MT>
+__global__ void __launch_bounds__(GX_THREADS, 1)
+dequant_gemvx_kernel(const float* __restrict__ x,
+                     const uint8_t* __restrict__ packed,
+                     const float* __restrict__ scale,
+                     const float* __restrict__ zero, float* __restrict__ y,
+                     int E, int N, int K, int group, long long ldx,
+                     long long sx, long long ldy, long long sy) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int stage_bytes = gemvx_stage_bytes(MT);
+  const int code_off = 4 * MT * GX_KS + warp * GX_WARP_CODE_BYTES;
+  // this warp's rows of the windows, [row][GX_WIN] scales; the zeros
+  // GX_ROWS · GX_WIN floats after
+  float* const windows =
+      reinterpret_cast<float*>(smem + 2 * (size_t)stage_bytes) +
+      warp * GX_COLS * GX_WIN;
+  constexpr int WIN_FLOATS = GX_WIN_BYTES / 4;
+  const GxPlan plan(E, N, sx == 0, gridDim.x);
+  int u0, u1;
+  const int rounds = plan.rounds_of(blockIdx.x, u0, u1);
+  const int steps = (K + GX_KS - 1) / GX_KS;
+  const int G = K / group;
+  const int per_win = group / 32;    // stages a window of GX_WIN groups
+  const size_t half_k = (size_t)(K / 2);
+  // 16-byte copies of the windows: G % 4 == 0 and both arrays aligned
+  const bool sz_vec =
+      G % 4 == 0 && ((reinterpret_cast<uintptr_t>(scale) |
+                      reinterpret_cast<uintptr_t>(zero)) & 15) == 0;
+  // this lane's copies: codes of rows cr + (32 / GX_PIECES)·i, piece cp
+  const int cr = lane / GX_PIECES, cp = lane % GX_PIECES;
+
+  // The copier runs one stage ahead of the compute: its round and stage,
+  // that round's task for this warp and its x, the windows entered
+  int ci = 0, cst = 0, cseq = 0;
+  bool clive = false;
+  int cn = 0;                          // columns of the task
+  const uint8_t* code_src = packed;
+  size_t sz_row = 0;                   // this lane's first row's groups
+  const float* cx = x;
+  auto enter = [&](int i) {
+    int e = 0, n0 = 0, xe = 0;
+    clive = i < rounds && plan.task(u0, u1, i, warp, e, n0, xe);
+    cx = x + (size_t)xe * sx;
+    if (!clive) return;
+    cn = N - n0;
+    const size_t row = (size_t)e * N + n0;
+    code_src = packed + (row + cr) * half_k + 16 * cp;
+    sz_row = (row + lane) * G;
+  };
+  // the copies of the copier's stage into slot `b`: x's k-tile by the
+  // block, the warp's rows' codes (eight lanes a row's 128 bytes), and on
+  // entering a window each lane's rows' GX_WIN scales and zeros
+  auto issue = [&](int b) {
+    if (ci >= rounds) return;
+    unsigned char* slot = smem + (size_t)b * stage_bytes;
+    const int k0 = cst * GX_KS;
+    for (int i = tid; i < MT * GX_KS / 4; i += GX_THREADS) {
+      const int m = i / (GX_KS / 4), c = i % (GX_KS / 4);
+      const bool ok = k0 + 4 * c < K;
+      cp16(slot + 16 * i, ok ? cx + m * ldx + k0 + 4 * c : x, ok);
+    }
+    const bool new_win = cst % per_win == 0;
+    if (clive) {
+      unsigned char* w = slot + code_off;
+      const bool kok = k0 + 32 * cp < K;
+      constexpr int ROWS_A_COPY = 32 / GX_PIECES;
+#pragma unroll
+      for (int i = 0; i < GX_COLS / ROWS_A_COPY; ++i) {
+        const int r = cr + ROWS_A_COPY * i;
+        const bool ok = kok && r < cn;
+        cp16(w + gx_piece(r, cp),
+             ok ? code_src + (size_t)(ROWS_A_COPY * i) * half_k + k0 / 2
+                : packed,
+             ok);
+      }
+      if (new_win) {
+        const int g0 = (cst / per_win) * GX_WIN;
+        float* ws = windows + (cseq & 1) * WIN_FLOATS + lane * GX_WIN;
+#pragma unroll
+        for (int c = 0; c < GX_C; ++c) {
+          const bool rok = lane + 32 * c < cn;
+          const size_t src = sz_row + (size_t)(32 * c) * G + g0;
+          float* ds = ws + 32 * c * GX_WIN;
+          float* dz = ds + GX_ROWS * GX_WIN;
+          if (sz_vec) {
+#pragma unroll
+            for (int p = 0; p < GX_WIN; p += 4) {
+              const bool ok = rok && g0 + p < G;
+              cp16(ds + p, ok ? scale + src + p : scale, ok);
+              cp16(dz + p, ok ? zero + src + p : zero, ok);
+            }
+          } else {
+#pragma unroll
+            for (int p = 0; p < GX_WIN; ++p) {
+              const bool ok = rok && g0 + p < G;
+              cp4(ds + p, ok ? scale + src + p : scale, ok);
+              cp4(dz + p, ok ? zero + src + p : zero, ok);
+            }
+          }
+        }
+      }
+    }
+    if (new_win) ++cseq;
+    if (++cst == steps) {
+      cst = 0;
+      enter(++ci);
+    }
+  };
+
+  // the stage sequence: the block's rounds, `steps` stages each
+  enter(0);
+  issue(0);
+  cp_commit();
+  int b = 0, wseq = 0;
+  for (int i = 0; i < rounds; ++i) {
+    int e = 0, n0 = 0, xe = 0;
+    const bool live = plan.task(u0, u1, i, warp, e, n0, xe);
+    float acc[GX_C][MT];
+#pragma unroll
+    for (int c = 0; c < GX_C; ++c)
+#pragma unroll
+      for (int m = 0; m < MT; ++m) acc[c][m] = 0.0f;
+    // the lane's rows' window, the chunk's group in it and the chunks
+    // left in that group; the rows' scales, zeros and 2^23 + zeros
+    const float* win = windows;
+    int gl = -1, left = 0;
+    float s[GX_C], z[GX_C], zb[GX_C];
+    bool fast = true;
+#pragma unroll 1
+    for (int st = 0; st < steps; ++st) {
+      cp_wait<0>();                      // this thread's copies of the stage
+      __syncthreads();                   // everyone's; the other slot free
+      issue(b ^ 1);
+      cp_commit();
+      const unsigned char* slot = smem + (size_t)b * stage_bytes;
+      b ^= 1;
+      if (st % per_win == 0) {
+        win = windows + (wseq++ & 1) * WIN_FLOATS + lane * GX_WIN;
+        gl = -1;
+        left = 0;
+      }
+      if (!live) continue;
+      const float* xs = reinterpret_cast<const float*>(slot);
+      const unsigned char* w = slot + code_off;
+      const int chunks = min(GX_KS, K - st * GX_KS) / 32;
+      for (int j = 0; j < chunks;) {
+        if (left == 0) {
+          ++gl;
+          left = per_win;
+          bool integral = true;
+#pragma unroll
+          for (int c = 0; c < GX_C; ++c) {
+            s[c] = win[32 * c * GX_WIN + gl];
+            z[c] = win[(GX_ROWS + 32 * c) * GX_WIN + gl];
+            zb[c] = __fadd_rn(z[c], 8388608.0f);
+            integral = integral && z[c] == rintf(z[c]) &&
+                       fabsf(z[c]) <= 8388608.0f;
+          }
+          fast = __all_sync(0xffffffffu, integral);
+        }
+        // the chunks of this group
+        const int end = j + min(left, chunks - j);
+        left -= end - j;
+#pragma unroll 1
+        for (; j < end; ++j) {
+          uint4 wv[GX_C];
+#pragma unroll
+          for (int c = 0; c < GX_C; ++c)
+            wv[c] = *reinterpret_cast<const uint4*>(
+                w + gx_piece(lane + 32 * c, j));
+          if (fast)
+            gx_chunk<MT, true>(acc, wv, s, z, zb, xs + 32 * j);
+          else
+            gx_chunk<MT, false>(acc, wv, s, z, zb, xs + 32 * j);
+        }
+      }
+    }
+    if (!live) continue;
+    float* ye = y + (size_t)e * sy;
+#pragma unroll
+    for (int c = 0; c < GX_C; ++c) {
+      const int n = n0 + lane + 32 * c;
+      if (n < N)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) ye[m * ldy + n] = acc[c][m];
+    }
+  }
+  cp_wait<0>();
+}
+
 // Dynamic shared memory attributes, set once per kernel and device
 template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes, unsigned long long& ready) {
@@ -733,14 +1101,45 @@ int launch_tile_variant(int variant, const float* x, const uint8_t* packed,
   }
 }
 
+template <int MT>
+int launch_gemvx(const float* x, const uint8_t* packed, const float* scale,
+                 const float* zero, float* y, int N, int K, int group,
+                 Strides st, cudaStream_t stream) {
+  static unsigned long long ready = 0;
+  static int sms[64] = {};           // SMs of each device, read once
+  const size_t smem = gemvx_smem(MT);
+  const GxPlan whole(st.E, N, st.sx == 0, 1);
+  if (smem > GX_MAX_SMEM || group % 32 ||
+      (long long)st.E * whole.T >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(dequant_gemvx_kernel<MT>, GX_MAX_SMEM, ready);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int n_sm = dev < 64 ? sms[dev] : 0;
+  if (n_sm == 0) {
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) sms[dev] = n_sm;
+  }
+  // one block an SM, no more than there are tasks (shared x) or rounds
+  const int blocks = whole.units() < n_sm ? whole.units() : n_sm;
+  dequant_gemvx_kernel<MT><<<blocks, GX_THREADS, smem, stream>>>(
+      x, packed, scale, zero, y, st.E, N, K, group, st.ldx, st.sx, st.ldy,
+      st.sy);
+  return (int)cudaGetLastError();
+}
+
 constexpr int TILE_VARIANTS = 4;
 constexpr int SPLITS[] = {1, 2, 4, 8};
 constexpr int NUM_SPLITS = 4;
+constexpr int GEMVX_VARIANT = TILE_VARIANTS + NUM_SPLITS;
 
 }  // namespace
 
 // Dynamic shared memory in bytes of a variant's kernel at M rows (the
-// GEMV's depends on M), -1 if unknown.
+// GEMV's and the expert GEMV's depend on M), -1 if unknown.
 extern "C" int dequant_matmul_smem_bytes(int variant, int M) {
   switch (variant) {
     case 0: return (int)V0<true>::SMEM;
@@ -749,6 +1148,8 @@ extern "C" int dequant_matmul_smem_bytes(int variant, int M) {
     case 3: return (int)V3<true>::SMEM;
     default: break;
   }
+  if (variant == GEMVX_VARIANT && M >= 1 && M <= 8)
+    return (int)gemvx_smem(M);
   if (variant >= TILE_VARIANTS + NUM_SPLITS || M < 1 || M > 8) return -1;
   switch (M) {
     case 1: return (int)Gemv<1>::SMEM;
@@ -766,12 +1167,15 @@ extern "C" int dequant_matmul_smem_bytes(int variant, int M) {
 // with W stacked (E, N, K/2) uint8 and scale, zero (E, N, K/group) f32,
 // contiguous. x_e's row m is x + e·sx + m·ldx (sx = 0: one x for every
 // expert), y_e's row m is y + e·sy + m·ldy, rows contiguous. K even, K %
-// group == 0. variant: 0..3 a tile (kernels/ops.py, DEQUANT_TILES), 4.. the
-// GEMV with K split over a cluster of DEQUANT_SPLITS[variant − 4] blocks (M
-// <= 8, vec, K % (32 · split) == 0). vec: K % 32 == 0, group % 32 == 0, N
+// group == 0. variant: 0..3 a tile (kernels/ops.py, DEQUANT_TILES), 4..7
+// the GEMV with K split over a cluster of DEQUANT_SPLITS[variant − 4]
+// blocks (M <= 8, vec, K % (32 · split) == 0), 8 the expert GEMV (M <= 8,
+// vec; sx == 0 takes x as shared by every expert). vec: K % 32 == 0,
+// group % 32 == 0, N
 // % 4 == 0, x and packed 16-byte aligned and ldx, sx, ldy, sy multiples of
 // 4 (else the tile's scalar-copy instantiation). Experts run on the grid's
-// y (tile) or z (GEMV) axis: one launch for the stack. Returns
+// y (tile) or z (GEMV) axis, or in the expert GEMV's tasks: one launch
+// for the stack. Returns
 // cudaGetLastError(), or the error of a refused attribute or launch.
 extern "C" int dequant_matmul_experts_f32(
     const float* x, const uint8_t* packed, const float* scale,
@@ -786,6 +1190,19 @@ extern "C" int dequant_matmul_experts_f32(
                                            M, N, K, group, st, s)
                : launch_tile_variant<false>(variant, x, packed, scale, zero,
                                             y, M, N, K, group, st, s);
+  if (variant == GEMVX_VARIANT) {
+    if (!vec || M < 1 || M > 8) return (int)cudaErrorInvalidValue;
+    switch (M) {
+      case 1: return launch_gemvx<1>(x, packed, scale, zero, y, N, K, group, st, s);
+      case 2: return launch_gemvx<2>(x, packed, scale, zero, y, N, K, group, st, s);
+      case 3: return launch_gemvx<3>(x, packed, scale, zero, y, N, K, group, st, s);
+      case 4: return launch_gemvx<4>(x, packed, scale, zero, y, N, K, group, st, s);
+      case 5: return launch_gemvx<5>(x, packed, scale, zero, y, N, K, group, st, s);
+      case 6: return launch_gemvx<6>(x, packed, scale, zero, y, N, K, group, st, s);
+      case 7: return launch_gemvx<7>(x, packed, scale, zero, y, N, K, group, st, s);
+      default: return launch_gemvx<8>(x, packed, scale, zero, y, N, K, group, st, s);
+    }
+  }
   const int vi = variant - TILE_VARIANTS;
   if (vi >= NUM_SPLITS || !vec || M < 1 || M > 8 ||
       K % (32 * SPLITS[vi]) != 0)

@@ -276,12 +276,17 @@ def quant_project(z, bits: int, group_size: int = 128):
 
 # K4 variants, by the index the C entry point takes: first the tile's
 # (rows, columns) of a block's output tile, then the GEMV (M <= GEMV_MAX_M)
-# with K split over a thread-block cluster of that many blocks
+# with K split over a thread-block cluster of that many blocks, then the
+# expert GEMV (``GEMVX``: a persistent block an SM, a warp's 64 columns
+# over all of K)
 # (csrc/dequant_matmul.cu)
 DEQUANT_TILES = ((128, 128), (64, 128), (64, 64), (32, 32))
 DEQUANT_SPLITS = (1, 2, 4, 8)
 GEMV_MAX_M = 8
 GEMV_COLS = 64          # output columns of a GEMV block
+GEMVX_COLS = 64         # output columns of a GEMVX task, a warp's
+GEMVX = len(DEQUANT_TILES) + len(DEQUANT_SPLITS)
+GEMVX_WARPS = 8         # warps (tasks a round) of a GEMVX block
 # a tile variant's time on the busiest SM: TILE_COST (one block alone on
 # an SM, relative to variant 0's) × (1 + TILE_SHARE × (blocks there − 1)),
 # fitted to every variant's time at the serving paths' shapes on an H100
@@ -293,19 +298,55 @@ TILE_SHARE = (0.85, 0.85, 0.85, 0.3)
 def dequant_matmul_variant_name(variant: int) -> str:
     if variant < len(DEQUANT_TILES):
         return "tile %dx%d" % DEQUANT_TILES[variant]
+    if variant == GEMVX:
+        return "gemvx"
     return "gemv split %d" % DEQUANT_SPLITS[variant - len(DEQUANT_TILES)]
 
 
 def dequant_matmul_variants(m: int, k: int, vec: bool = True):
     """The variants K4 can run for M rows and K: every tile, and at M <=
     GEMV_MAX_M with vector copies the GEMV at every split that divides K
-    into whole 32-code chunks."""
+    into whole 32-code chunks, and GEMVX."""
     tiles = tuple(range(len(DEQUANT_TILES)))
     if not (1 <= m <= GEMV_MAX_M and vec):
         return tiles
     return tiles + tuple(len(DEQUANT_TILES) + i
                          for i, s in enumerate(DEQUANT_SPLITS)
-                         if k % (32 * s) == 0)
+                         if k % (32 * s) == 0) + (GEMVX,)
+
+
+def gemvx_tasks(e: int, n: int, shared: bool, sms: int = H100_SMS):
+    """GEMVX's work as the kernel walks it (``GxPlan``): for each of its
+    persistent blocks (one an SM, no more than there are units) the
+    rounds, each a list of (warp, expert, first column) tasks. A task is
+    64 columns of one expert over all of K, a warp's. With shared x the
+    units are the tasks, flattened expert-major, and block b takes
+    [U·b / B, U·(b + 1) / B) of them in rounds of ``GEMVX_WARPS`` from its
+    first; with per-expert x they are rounds, ⌈⌈N/64⌉ / GEMVX_WARPS⌉ an
+    expert, so a round's warps read one x. Warp w takes task w of a
+    round."""
+    t = -(-n // GEMVX_COLS)
+    per_e = -(-t // GEMVX_WARPS)
+    units = e * t if shared else e * per_e
+    blocks = min(units, sms)
+    out = []
+    for b in range(blocks):
+        u0, u1 = units * b // blocks, units * (b + 1) // blocks
+        rounds = -(-(u1 - u0) // GEMVX_WARPS) if shared else u1 - u0
+        block = []
+        for i in range(rounds):
+            if shared:
+                tasks = range(u0 + GEMVX_WARPS * i,
+                              min(u0 + GEMVX_WARPS * (i + 1), u1))
+            else:
+                r = u0 + i
+                first = r % per_e * GEMVX_WARPS
+                tasks = range(r // per_e * t + first,
+                              r // per_e * t + min(first + GEMVX_WARPS, t))
+            block.append([(w, task // t, task % t * GEMVX_COLS)
+                          for w, task in enumerate(tasks)])
+        out.append(block)
+    return out
 
 
 def dequant_matmul_tiles(m: int, n: int, k: int, vec: bool = True,
@@ -314,11 +355,16 @@ def dequant_matmul_tiles(m: int, n: int, k: int, vec: bool = True,
     SMs, and K4x for ``experts`` such products in one launch (its grid is
     the experts times one product's). M <= GEMV_MAX_M with vector copies:
     the GEMV, at the least split that gives a block to every SM, within
-    what K allows (whole 32-code chunks, 256 codes a block or more); so
-    K4x over qwen3-moe's 128 experts runs unsplit (3,072 blocks at N =
-    1536). Otherwise the tile variant with the least time on the busiest
+    what K allows (whole 32-code chunks, 256 codes a block or more).
+    Otherwise the tile variant with the least time on the busiest
     SM, which holds b = ⌈blocks / sms⌉ blocks: ``TILE_COST`` × (1 +
-    ``TILE_SHARE`` × (b − 1)); a tie keeps the larger tile."""
+    ``TILE_SHARE`` × (b − 1)); a tie keeps the larger tile. A stack of
+    experts whose 64-column tasks give every warp of a GEMVX block on every
+    SM one or more (E·⌈N/64⌉ >= 8·sms: qwen3-moe's 128 experts) takes
+    GEMVX; one expert (K4) never does."""
+    if (experts > 1 and 1 <= m <= GEMV_MAX_M and vec
+            and experts * -(-n // GEMVX_COLS) >= GEMVX_WARPS * sms):
+        return GEMVX
     if 1 <= m <= GEMV_MAX_M and vec:
         cols = experts * -(-n // GEMV_COLS)
         best = 0
@@ -338,11 +384,14 @@ def dequant_matmul_tiles(m: int, n: int, k: int, vec: bool = True,
 
 
 def dequant_matmul_grid(m: int, n: int, variant: int):
-    """(tiles_m, tiles_n) of a tile variant's grid, or (column blocks,
-    split) of a GEMV variant's."""
+    """(tiles_m, tiles_n) of a tile variant's grid, (column blocks, split)
+    of a GEMV variant's, or (column tasks an expert, 1) of GEMVX's (its
+    grid is :func:`gemvx_tasks`'s blocks)."""
     if variant < len(DEQUANT_TILES):
         bm, bn = DEQUANT_TILES[variant]
         return -(-m // bm), -(-n // bn)
+    if variant == GEMVX:
+        return -(-n // GEMVX_COLS), 1
     return -(-n // GEMV_COLS), DEQUANT_SPLITS[variant - len(DEQUANT_TILES)]
 
 
@@ -675,6 +724,7 @@ def awp_prune_fused(w, c, k: int, eta, iters: int, theta0=None,
 __all__ = ["AWP_PGD_TILES", "DECODE_BLOCKS_PER_SM", "DECODE_MAX_ACCUMULATORS",
            "DECODE_MAX_SPLITS",
            "DEQUANT_SPLITS", "DEQUANT_TILES", "GEMV_COLS", "GEMV_MAX_M",
+           "GEMVX", "GEMVX_COLS", "GEMVX_WARPS",
            "K2_CENSUS", "K4_CENSUS", "K4X_CENSUS", "K6_CENSUS", "KERNELS", "LAUNCHES",
            "TILE_COST", "TILE_SHARE", "TOPK_FORMS", "arm_k6_census",
            "awp_pgd_grid", "awp_pgd_step", "awp_pgd_tiles",
@@ -684,7 +734,8 @@ __all__ = ["AWP_PGD_TILES", "DECODE_BLOCKS_PER_SM", "DECODE_MAX_ACCUMULATORS",
            "dequant_matmul_experts",
            "dequant_matmul_grid", "dequant_matmul_tiles",
            "dequant_matmul_variant_name", "dequant_matmul_variants",
-           "dequant_matmul_vector_copies", "kv_dequant", "quant_project",
+           "dequant_matmul_vector_copies", "gemvx_tasks", "kv_dequant",
+           "quant_project",
            "reset_launches", "topk_row", "topk_row_capacity",
            "topk_row_variant", "topk_row_variant_name", "topk_row_variants",
            "topk_row_vector_copies"]

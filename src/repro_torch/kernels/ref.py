@@ -67,7 +67,8 @@ def dequant_matmul_experts(x, packed, scale, zero, group_size: int = 128,
     ``per_expert``. y is (M, E, N) shared and (E, M, N) per expert, the
     reference's layouts (``repro/models/layers.py::expert_apply``). One 2-D
     product an expert, K4's plain version, so under unsplit cuBLAS each
-    expert sums in the kernel's order."""
+    expert sums in the tile's order at M > 8 (at M <= 8 cuBLAS's kernels
+    sum in another)."""
     ys = [dequant_matmul(x[e] if per_expert else x, packed[e], scale[e],
                          zero[e], group_size)
           for e in range(packed.shape[0])]

@@ -518,6 +518,13 @@ def test_dequant_matmul_experts_strided_and_misaligned(cuda, m):
     _k4x_close(y, y_ref)
     ((key, count),) = ops.K4X_CENSUS.items()
     assert key[:4] == (e, m, n, k) and key[5] is True and count == 1
+    if m <= ops.GEMV_MAX_M:
+        # the expert GEMV reads the same strided view, in the tile's order
+        y = ops.dequant_matmul_experts(view, packed, scale, zero, group, True,
+                                       variant=ops.GEMVX)
+        _k4x_close(y, y_ref)
+        assert torch.equal(y, ops.dequant_matmul_experts(
+            view, packed, scale, zero, group, True, variant=0))
     shifted = torch.empty(up.numel() + 1, device=cuda)[1:].view(m, e, k)
     shifted.copy_(up)
     for v in range(len(ops.DEQUANT_TILES)):
@@ -528,6 +535,67 @@ def test_dequant_matmul_experts_strided_and_misaligned(cuda, m):
         ops.dequant_matmul_experts(shifted.transpose(0, 1), packed, scale,
                                    zero, group, True,
                                    variant=len(ops.DEQUANT_TILES))
+
+
+# the expert GEMV keeps one fmaf chain an output in k order from +0, the
+# tile's: the same bits as every tile variant, at ragged N and K, groups
+# 32 to 128, both forms, and with zeros off the integers (the
+# three-operation dequantize) and a NaN in x; two launches the same bits
+@pytest.mark.parametrize("per_expert", [False, True],
+                         ids=["shared", "per_expert"])
+@pytest.mark.parametrize("e,m,n,k,group", [(3, 1, 68, 256, 64),
+                                           (5, 8, 132, 512, 128),
+                                           (2, 3, 200, 96, 32),
+                                           (7, 5, 4100, 1536, 64)])
+def test_gemvx_equals_the_tile_bit_for_bit(cuda, per_expert, e, m, n, k,
+                                          group):
+    rng = np.random.default_rng(46)
+    x, packed, scale, zero = _k4x_operands(rng, e, m, n, k, group, cuda,
+                                           per_expert)
+    for z in (zero, zero + 0.25):
+        y = _launched("dequant_matmul_experts",
+                      lambda: ops.dequant_matmul_experts(
+                          x, packed, scale, z, group, per_expert,
+                          variant=ops.GEMVX))
+        for v in range(len(ops.DEQUANT_TILES)):
+            assert torch.equal(y, ops.dequant_matmul_experts(
+                x, packed, scale, z, group, per_expert, variant=v)), v
+        assert torch.equal(y, ops.dequant_matmul_experts(
+            x, packed, scale, z, group, per_expert, variant=ops.GEMVX))
+        _k4x_close(y, ref.dequant_matmul_experts(x, packed, scale, z, group,
+                                                 per_expert))
+    x[0, ..., 3] = float("nan")
+    y = ops.dequant_matmul_experts(x, packed, scale, zero, group, per_expert,
+                                   variant=ops.GEMVX)
+    assert torch.equal(y.isnan(), ops.dequant_matmul_experts(
+        x, packed, scale, zero, group, per_expert, variant=0).isnan())
+
+
+# qwen3-moe's decode (E = 128, M = 8): the wrapper picks the expert GEMV
+# for wg/wu (N 1536, K 4096, x shared) and wd (N 4096, K 1536, the
+# strided per-expert view); within 1e-5 of max|y| of the plain version,
+# the tile's bits, two launches the same bits
+@pytest.mark.parametrize("n,k,per_expert", [(1536, 4096, False),
+                                            (4096, 1536, True)],
+                         ids=["wg_wu", "wd"])
+def test_gemvx_qwen3_moe_decode(cuda, n, k, per_expert):
+    rng = np.random.default_rng(47)
+    e, m, group = 128, 8, 128
+    _, packed, scale, zero = _k4x_operands(rng, e, 1, n, k, group, cuda,
+                                           False)
+    x = (_randn(rng, (m, e, k), cuda).transpose(0, 1) if per_expert
+         else _randn(rng, (m, k), cuda))
+    ops.reset_launches()
+    y = _launched("dequant_matmul_experts", lambda: ops.dequant_matmul_experts(
+        x, packed, scale, zero, group, per_expert))
+    ((key, count),) = ops.K4X_CENSUS.items()
+    assert key == (e, m, n, k, ops.GEMVX, per_expert) and count == 1
+    _k4x_close(y, ref.dequant_matmul_experts(x, packed, scale, zero, group,
+                                             per_expert))
+    assert torch.equal(y, ops.dequant_matmul_experts(
+        x, packed, scale, zero, group, per_expert))
+    assert torch.equal(y, ops.dequant_matmul_experts(
+        x, packed, scale, zero, group, per_expert, variant=3))
 
 
 # an MoE forward on the card through packed experts: K4x launches three

@@ -165,13 +165,133 @@ def test_dequant_matmul_grid_covers_m_and_n(m, n, k):
 def test_dequant_matmul_variants():
     tiles = tuple(range(len(ops.DEQUANT_TILES)))
     gemv = tuple(len(tiles) + i for i in range(len(ops.DEQUANT_SPLITS)))
-    assert ops.dequant_matmul_variants(8, 2048) == tiles + gemv
+    assert ops.dequant_matmul_variants(8, 2048) == tiles + gemv + (ops.GEMVX,)
     assert ops.dequant_matmul_variants(9, 2048) == tiles
     assert ops.dequant_matmul_variants(4, 2048, vec=False) == tiles
-    # splits leave whole 32-code chunks a block
-    assert ops.dequant_matmul_variants(1, 64) == tiles + gemv[:2]
-    assert [ops.dequant_matmul_variant_name(v) for v in (0, 4, 7)] == [
-        "tile 128x128", "gemv split 1", "gemv split 8"]
+    # splits leave whole 32-code chunks a block; GEMVX takes any such K
+    assert ops.dequant_matmul_variants(1, 64) == tiles + gemv[:2] + (
+        ops.GEMVX,)
+    assert [ops.dequant_matmul_variant_name(v) for v in (0, 4, 7, 8)] == [
+        "tile 128x128", "gemv split 1", "gemv split 8", "gemvx"]
+
+
+# K4x's expert GEMV (``ops.GEMVX``): listed wherever it can run (M <= 8
+# with vector copies, any K the wrapper takes), at no other M
+@pytest.mark.parametrize("vec", [True, False], ids=["vec", "scalar"])
+@pytest.mark.parametrize("m", [1, 2, 5, 8, 9, 64, 4096])
+@pytest.mark.parametrize("k", [32, 96, 1536, 4096, 18432])
+def test_gemvx_listed_only_where_it_runs(vec, m, k):
+    listed = ops.GEMVX in ops.dequant_matmul_variants(m, k, vec)
+    assert listed == (1 <= m <= ops.GEMV_MAX_M and vec)
+
+
+# picked for qwen3-moe's decode stacks (E = 128, both forms' (N, K), M up
+# to 8): 8·132 warps of 64 columns each take a task or more; one expert
+# (K4) and the 8-expert stacks of the small checks keep the GEMV
+@pytest.mark.parametrize("n,k", [(1536, 4096), (4096, 1536)])
+@pytest.mark.parametrize("m", range(1, ops.GEMV_MAX_M + 1))
+def test_dequant_matmul_tiles_picks_gemvx_at_qwen3_moe(m, n, k):
+    assert ops.dequant_matmul_tiles(m, n, k, experts=128) == ops.GEMVX
+    assert len(ops.DEQUANT_TILES) <= ops.dequant_matmul_tiles(
+        m, n, k, experts=1) < ops.GEMVX
+    assert len(ops.DEQUANT_TILES) <= ops.dequant_matmul_tiles(
+        m, n, k, experts=8) < ops.GEMVX
+    assert ops.dequant_matmul_tiles(m, n, k, vec=False, experts=128) < len(
+        ops.DEQUANT_TILES)
+    assert ops.dequant_matmul_tiles(9, n, k, experts=128) < len(
+        ops.DEQUANT_TILES)
+
+
+# every (M, N, K) that K4's census held on the card (the llama32-1b serving
+# paths, llama2-7b's evaluation, the SSM and frontends paths) and the
+# variant its picker gave it there: K4 (one expert) keeps it
+K4_CENSUS_PICKS = {
+    (4, 128, 896): "gemv split 2", (4, 16384, 4096): "gemv split 1",
+    (4, 18432, 4608): "gemv split 1", (4, 2048, 2048): "gemv split 8",
+    (4, 2048, 4096): "gemv split 8", (4, 2048, 8192): "gemv split 8",
+    (4, 4096, 2048): "gemv split 4", (4, 4096, 8192): "gemv split 4",
+    (4, 4608, 18432): "gemv split 2", (4, 4608, 4608): "gemv split 2",
+    (4, 4864, 896): "gemv split 2", (4, 512, 2048): "gemv split 8",
+    (4, 512, 4608): "gemv split 8", (4, 8192, 2048): "gemv split 2",
+    (4, 896, 4864): "gemv split 8", (4, 896, 896): "gemv split 2",
+    (8, 18432, 4608): "gemv split 1", (8, 2048, 2048): "gemv split 8",
+    (8, 2048, 8192): "gemv split 8", (8, 4608, 18432): "gemv split 2",
+    (8, 4608, 4608): "gemv split 2", (8, 512, 2048): "gemv split 8",
+    (8, 512, 4608): "gemv split 8", (8, 8192, 2048): "gemv split 2",
+    (64, 18432, 4608): "tile 32x32", (64, 2048, 2048): "tile 32x32",
+    (64, 2048, 8192): "tile 32x32", (64, 4608, 18432): "tile 64x64",
+    (64, 4608, 4608): "tile 64x64", (64, 512, 2048): "tile 32x32",
+    (64, 512, 4608): "tile 32x32", (64, 8192, 2048): "tile 64x64",
+    (128, 18432, 4608): "tile 64x128", (128, 2048, 2048): "tile 32x32",
+    (128, 2048, 8192): "tile 32x32", (128, 4608, 18432): "tile 64x128",
+    (128, 4608, 4608): "tile 64x128", (128, 512, 2048): "tile 32x32",
+    (128, 512, 4608): "tile 32x32", (128, 8192, 2048): "tile 64x128",
+    (256, 18432, 4608): "tile 64x128", (256, 2048, 2048): "tile 64x64",
+    (256, 2048, 8192): "tile 64x64", (256, 4608, 18432): "tile 32x32",
+    (256, 4608, 4608): "tile 32x32", (256, 512, 2048): "tile 32x32",
+    (256, 512, 4608): "tile 32x32", (256, 8192, 2048): "tile 128x128",
+    (512, 11008, 4096): "tile 128x128", (512, 1536, 1536): "tile 64x128",
+    (512, 1536, 6144): "tile 64x128", (512, 16384, 4096): "tile 128x128",
+    (512, 18432, 4608): "tile 128x128", (512, 2048, 2048): "tile 64x128",
+    (512, 2048, 4096): "tile 64x128", (512, 2048, 8192): "tile 64x128",
+    (512, 4096, 11008): "tile 128x128", (512, 4096, 2048): "tile 128x128",
+    (512, 4096, 4096): "tile 128x128", (512, 4096, 8192): "tile 128x128",
+    (512, 4608, 18432): "tile 64x128", (512, 4608, 4608): "tile 64x128",
+    (512, 512, 2048): "tile 32x32", (512, 512, 4608): "tile 32x32",
+    (512, 6144, 1536): "tile 64x128", (512, 8192, 2048): "tile 128x128",
+    (1536, 128, 896): "tile 32x32", (1536, 4864, 896): "tile 64x128",
+    (1536, 896, 4864): "tile 128x128", (1536, 896, 896): "tile 128x128",
+}
+
+
+@pytest.mark.parametrize("shape", sorted(K4_CENSUS_PICKS))
+def test_k4_census_keys_keep_their_variant(shape):
+    m, n, k = shape
+    assert ops.dequant_matmul_variant_name(
+        ops.dequant_matmul_tiles(m, n, k)) == K4_CENSUS_PICKS[shape]
+
+
+def _gemvx_columns(e, n, shared):
+    """Every (expert, column) GEMVX's tasks write, as its blocks walk
+    them, and the rounds."""
+    rounds = [rnd for block in ops.gemvx_tasks(e, n, shared)
+              for rnd in block]
+    cols = [(ex, c) for rnd in rounds for _, ex, n0 in rnd
+            for c in range(n0, min(n0 + ops.GEMVX_COLS, n))]
+    return cols, rounds
+
+
+# the tasks cover every (expert, column) exactly once, at qwen3-moe's
+# stacks and at ragged N and small E, in both forms; a round's warps are
+# distinct, and with per-expert x they read one expert's x
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_expert"])
+@pytest.mark.parametrize("e,n", [(128, 1536), (128, 4096), (1, 1), (1, 64),
+                                 (2, 65), (3, 68), (4, 132), (5, 132),
+                                 (7, 4100), (9, 1000), (128, 130),
+                                 (1, 8192)])
+def test_gemvx_tasks_cover_every_column_once(shared, e, n):
+    cols, rounds = _gemvx_columns(e, n, shared)
+    assert len(cols) == len(set(cols)) == e * n
+    assert set(cols) == {(ex, c) for ex in range(e) for c in range(n)}
+    for rnd in rounds:
+        warps = [w for w, _, _ in rnd]
+        assert len(set(warps)) == len(warps) <= ops.GEMVX_WARPS
+        if not shared:
+            assert len({ex for _, ex, _ in rnd}) == 1
+    assert len(ops.gemvx_tasks(e, n, shared)) <= ops.H100_SMS
+
+
+# at qwen3-moe's decode shapes the 132 persistent blocks share the work
+# within one task (shared x, wg/wu) or one round (per-expert x, wd) of
+# each other
+@pytest.mark.parametrize("n,shared,spread", [(1536, True, 1),
+                                             (4096, False, 8)])
+def test_gemvx_blocks_share_the_stack_evenly(n, shared, spread):
+    blocks = ops.gemvx_tasks(128, n, shared)
+    assert len(blocks) == ops.H100_SMS
+    tasks = [sum(len(rnd) for rnd in block) for block in blocks]
+    assert max(tasks) - min(tasks) <= spread
+    assert sum(tasks) == 128 * -(-n // ops.GEMVX_COLS)
 
 
 def test_dequant_matmul_vector_copies():

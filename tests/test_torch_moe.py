@@ -299,15 +299,15 @@ def test_k4x_rejects_operands_on_two_devices():
 
 
 def test_k4x_picker_counts_every_expert():
-    """K4x's picker reckons the grid of all E experts: at qwen3-moe's
-    decode (E = 128, M = 8) the GEMV runs unsplit at both wg/wu (N = 1536)
-    and wd (N = 4096), where one expert alone (K4) would split K; the
-    tile's busiest-SM count grows with E."""
+    """K4x's picker reckons the work of all E experts: at qwen3-moe's
+    decode (E = 128, M = 4 and 8) the expert GEMV runs at both wg/wu (N =
+    1536) and wd (N = 4096), where one expert alone (K4) splits K over a
+    cluster; the tile's busiest-SM count grows with E."""
     gemv = len(ops.DEQUANT_TILES)
     for n, k in ((1536, 4096), (4096, 1536)):
-        assert ops.dequant_matmul_tiles(8, n, k, experts=128) == gemv
-        assert ops.dequant_matmul_tiles(8, n, k, experts=1) > gemv
-        assert ops.dequant_matmul_tiles(4, n, k, experts=128) == gemv
+        assert ops.dequant_matmul_tiles(8, n, k, experts=128) == ops.GEMVX
+        assert gemv < ops.dequant_matmul_tiles(8, n, k, experts=1) < ops.GEMVX
+        assert ops.dequant_matmul_tiles(4, n, k, experts=128) == ops.GEMVX
     # a prefill of 64 or 128 tokens: one expert's grid fills no card and
     # takes the 32 x 32 tile, 128 experts' grids take larger tiles
     for m in (64, 128):
