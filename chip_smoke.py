@@ -236,6 +236,15 @@ bits on both, and every starcoder2-7b slot-engine request gets the same
 first token. The parity process runs no engine in sync-debug mode: the
 first process counts those waits.
 
+Before the build, :func:`phase_lint` runs the port's static analyzer
+(``python -m repro_torch.lint``) on this host's Python: the tree must be
+clean modulo its baseline (a ``[lint]`` line). Every engine run that
+counts its host waits in sync-debug mode (llama32-1b's slot and paged
+engines, qwen3-moe's and starcoder2-7b's slot engines) also takes the
+stack at each wait: its innermost frame in ``src/repro_torch`` must be a
+line where the host-sync rule reports an allowed or baselined finding
+(``[lint waits]`` lines), or the rule missed a wait.
+
 Exits non-zero on any failed check, without a CUDA card, and outside a
 checkout of the repository. Prints the card, a JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -243,6 +252,7 @@ numbers, and last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 from __future__ import annotations
 
 import bisect
+import collections
 import contextlib
 import functools
 import json
@@ -253,6 +263,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import warnings
 from pathlib import Path
 
@@ -284,6 +295,9 @@ PREFIX = dict(requests=8, prefix=256, max_tail=200, new=16)
 # what PyTorch's sync-debug mode warns at each wait of the host on the card
 # (its other warning, that the mode is a prototype, is not a wait)
 SYNC_WARNING = "called a synchronizing CUDA operation"
+# the host-sync findings that the port's analyzer reports as allowed or
+# baselined, as (repo-relative path, line): set by :func:`phase_lint`
+LINT_SITES = None
 # K4's rows: static decode, engine decode (8 slots), one short prompt, one
 # prompt of 512, 8 prompts of 512; at the four packed linears' (N, K): wq;
 # wk and wv; wg and wu; wd (wo is pruned and stays dense)
@@ -3333,19 +3347,94 @@ def paged_trace(cfg):
     return reqs
 
 
+def phase_lint():
+    """The port's static analyzer, ``python -m repro_torch.lint``, over this
+    checkout on this host's Python: the tree must be clean modulo its
+    baseline. Keeps the host-sync findings that allow comments or the
+    baseline accept, as (repo-relative path, line), in ``LINT_SITES``: the
+    only places a watched engine run may wait (:func:`check_wait_sites`)."""
+    global LINT_SITES
+    t0 = time.time()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.lint", "--format", "json"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    seconds = time.time() - t0
+    try:
+        report = json.loads(proc.stdout)
+    except ValueError:
+        report = None
+    check(report is not None, f"lint: exit {proc.returncode}, no report: "
+                              f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    new = [f"{f['path']}:{f['line']}: {f['rule']}: {f['message']}"
+           for f in report["new"]]
+    check(proc.returncode == 0 and not new,
+          f"lint: exit {proc.returncode}; the port's tree is not clean "
+          f"modulo the baseline ({len(report['stale_baseline'])} stale "
+          "entries):\n" + "\n".join(new))
+    LINT_SITES = frozenset(
+        (f["path"], f["line"]) for f in report["allowed"]
+        + report["baselined"] if f["rule"] == "host-sync")
+    c = report["counts"]
+    log(f"[lint] {c['files']} files, {c['new']} findings, {c['allowed']} "
+        f"allowed, {c['baselined']} baselined, {seconds:.2f}s "
+        f"({report['seconds']:.2f}s in the analyzer); host-sync sites "
+        f"allowed: {', '.join(f'{p}:{n}' for p, n in sorted(LINT_SITES))}")
+    return LINT_SITES
+
+
+def wait_site(stack):
+    """The innermost frame of ``stack`` (``traceback.extract_stack()``)
+    that lies in the port's package, as (repo-relative path, line); None
+    when no frame does."""
+    pkg = SRC / "repro_torch"
+    for frame in reversed(stack):
+        path = Path(frame.filename).resolve()
+        if pkg in path.parents:
+            return path.relative_to(ROOT).as_posix(), frame.lineno
+    return None
+
+
+def check_wait_sites(sites, label):
+    """Every wait a watched engine run made (``host_waits``'s ``sites``)
+    must lie where the host-sync rule reports an allowed or baselined
+    finding: a wait anywhere else is one the rule missed."""
+    if LINT_SITES is None:
+        phase_lint()
+    counts = collections.Counter(sites)
+    unknown = {s: n for s, n in counts.items() if s not in LINT_SITES}
+    check(not unknown, f"{label}: host waits at sites the host-sync rule "
+                       f"does not know (it missed them): {unknown}")
+    log(f"[lint waits] {label}: {len(sites)} waits at {len(counts)} sites, "
+        f"all known: " + ", ".join(f"{p}:{n} x{k}" for (p, n), k
+                                   in sorted(counts.items())))
+
+
 @contextlib.contextmanager
 def host_waits(torch, on: bool):
     """With ``on``, PyTorch's sync-debug mode warns at every wait of the
     host on the card; the waits (and the count of other warnings) are in
     the yielded dict when the block ends (``caught`` is every warning so
-    far, while it runs). Off, nothing changes."""
-    out = {"syncs": [], "other": 0, "caught": []}
+    far, while it runs), and ``sites`` holds each wait's innermost frame in
+    the port (:func:`wait_site`), taken from the stack when it warns: the
+    warning's own file and line can be a frame of torch's. Off, nothing
+    changes."""
+    out = {"syncs": [], "other": 0, "caught": [], "sites": []}
     if not on:
         yield out
         return
     with warnings.catch_warnings(record=True) as caught:
         out["caught"] = caught
         warnings.simplefilter("always")
+
+        def keep(message, category, filename, lineno, file=None, line=None):
+            caught.append(warnings.WarningMessage(
+                message, category, filename, lineno, file, line))
+            if SYNC_WARNING in str(message):
+                out["sites"].append(wait_site(traceback.extract_stack()))
+
+        warnings.showwarning = keep
         torch.cuda.set_sync_debug_mode("warn")
         try:
             yield out
@@ -3426,6 +3515,10 @@ def run_engine(torch, model, packed, reqs, label, watch_waits=False,
         check(len(waits["syncs"]) == reads,
               f"{label}: {len(waits['syncs'])} host waits, expected one a "
               f"decode step, prefill, chunked prompt or preemption ({reads})")
+        check(len(waits["sites"]) == len(waits["syncs"]),
+              f"{label}: {len(waits['sites'])} wait stacks taken for "
+              f"{len(waits['syncs'])} waits")
+        check_wait_sites(waits["sites"], label)
     by_rid = {r.rid: r for r in results}
     check(sorted(by_rid) == [r.rid for r in reqs], f"{label}: results")
     for r in reqs:
@@ -6086,6 +6179,7 @@ def main() -> None:
         return
 
     card = phase_card(torch)
+    phase_lint()
     phase_build()
     rows = phase_kernels(torch, dev)
     fused_launches = check_prune_fused(torch, dev)

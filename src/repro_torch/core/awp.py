@@ -308,6 +308,7 @@ def channel_scale(a: torch.Tensor, alpha: float) -> torch.Tensor:
     clipped to [1e-4, 1e4], in f32. The power is taken in f64 and rounded,
     so the card and the CPU give the same s (the reference's f32 power is
     XLA's, within an ulp of it)."""
+    # lint: allow[dtype-drift] one (d_in,) power in f64, rounded: the card's s equals the CPU's
     s = (a.to(torch.float64) ** float(alpha)).to(torch.float32)
     s = s / torch.sqrt(torch.clamp(s.max() * s.min(), min=1e-12))
     return torch.clamp(s, 1e-4, 1e4)

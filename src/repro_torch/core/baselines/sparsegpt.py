@@ -17,6 +17,7 @@ import torch
 from repro_torch.core import calibration as calib, registry
 from repro_torch.core.specs import PruneSpec
 
+# lint: allow[dtype-drift] the Hessian inverse in f64, as the reference's numpy and the official SparseGPT
 F64 = torch.float64
 
 

@@ -40,7 +40,9 @@ def to_host(tensors) -> list:
         return []
     flat = [t.detach().contiguous().reshape(-1) for t in tensors]
     raw = torch.cat([f.to(torch.uint8) if f.dtype == torch.bool
-                     else f.view(torch.uint8) for f in flat]).cpu().numpy()
+                     else f.view(torch.uint8) for f in flat])
+    # lint: allow[host-sync] the one transfer of a batch of tensors (a preemption's spill)
+    raw = raw.cpu().numpy()
     out, off = [], 0
     for t in tensors:
         dtype = (np.dtype(np.bool_) if t.dtype == torch.bool

@@ -622,6 +622,7 @@ def _k6_workspace(q, b, hk, splits):
 
 def _k6_record(kernel, lengths, table=None, **shape):
     if _K6_ARMED:
+        # lint: allow[graph-leak] a census armed only around engine runs, which build no graph
         K6_CENSUS.append(dict(shape, kernel=kernel, lengths=lengths.clone(),
                               table=None if table is None else table.clone()))
 

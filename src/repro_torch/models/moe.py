@@ -407,7 +407,7 @@ class MoEModel(T.DenseModel):
         return moe_block_params(gen, self.cfg, lead=lead, dtype=dtype,
                                 device=dev)
 
-    def _block(self, p, x, **kw):
+    def _block(self, p, x, **kw):  # lint: hotpath
         return moe_block_apply(p, x, self.cfg, self.rules, **kw)
 
     def param_logical_axes(self):

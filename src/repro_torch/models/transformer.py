@@ -341,13 +341,13 @@ class DenseModel(nn.Module):
                                                               h.shape[2]))
         return self._head(params, h_last), cache
 
-    def prefill_at(self, params, batch, cache, lengths):
+    def prefill_at(self, params, batch, cache, lengths):  # lint: hotpath
         """Prefill right-padded prompts with per-row true ``lengths`` (B,)
         tensor: the same cache fill as :meth:`prefill`, logits gathered at
         each row's last real token. The engine's bucketed prefill."""
         return self._prefill_rows(params, batch, cache, lengths, False)
 
-    def prefill_chunk(self, params, batch, cache, lengths):
+    def prefill_chunk(self, params, batch, cache, lengths):  # lint: hotpath
         """One fixed-width chunk of a longer prompt against a cache that
         holds the earlier chunks below ``cache["pos"]`` (a host int): the
         chunk's K/V is written at [pos, pos + W) — columns past the cache
@@ -358,7 +358,7 @@ class DenseModel(nn.Module):
         prefix hit's suffix, or a prompt beyond the largest bucket)."""
         return self._prefill_rows(params, batch, cache, lengths, True)
 
-    def decode_step(self, params, tokens, cache):
+    def decode_step(self, params, tokens, cache):  # lint: hotpath
         """One decode step. tokens: (B, 1) int. ``cache["pos"]`` is a host
         int (uniform batch) or a per-slot (B,) tensor (engine path); with
         ``cache["table"]`` (B, n_pages) the read is K6p through it."""
